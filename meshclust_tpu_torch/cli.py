@@ -1,0 +1,94 @@
+"""CLI mirroring the reference flags (Runner::get_opts, Runner.cpp:150-263).
+
+Usage: python -m meshclust_tpu_torch.cli *.fasta [--id 0.90] [--kmer K]
+       [--delta 5] [--output output.clstr] [--iterations 15] [--align]
+       [--sample 3000] [--pivot 20] [--threads N]
+
+The flags and defaults are those of meshclust_tpu/cli.py. The run needs a
+CUDA device and exits non-zero without one.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from meshclust_tpu_torch.config import ClusterConfig
+from meshclust_tpu_torch.core.runner import run
+from meshclust_tpu_torch.device import DeviceUnavailableError
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="meshclust-tpu-torch",
+        description="GPU DNA mean-shift clustering with PyTorch and CUDA "
+                    "(MeShClust-capability engine)")
+    p.add_argument("files", nargs="+", help="input FASTA files")
+    p.add_argument("--id", dest="similarity", type=float, default=0.90,
+                   help="identity cutoff in (0,1) (default 0.90)")
+    p.add_argument("-k", "--kmer", type=int, default=None,
+                   help="k-mer size (default: auto from average length)")
+    p.add_argument("-o", "--output", default="output.clstr",
+                   help="output CLSTR file")
+    p.add_argument("-a", "--align", action="store_true",
+                   help="force alignment-based classification")
+    p.add_argument("-s", "--sample", dest="sample_size", type=int, default=0,
+                   help="total training+testing sample pairs (default 3000)")
+    p.add_argument("-p", "--pivot", dest="pivots", type=int, default=20,
+                   help="max pairs from one pivot (default 20)")
+    p.add_argument("-d", "--delta", type=int, default=5,
+                   help="cluster look-around window (default 5)")
+    p.add_argument("-i", "--iter", "--iterations", dest="iterations",
+                   type=int, default=15, help="update+merge iterations")
+    p.add_argument("-t", "--threads", type=int, default=None,
+                   help="host thread hint (device path ignores this)")
+    p.add_argument("--no-pallas", action="store_true",
+                   help="refused: the plain PyTorch versions of the kernels "
+                        "are test oracles, not a user path")
+    p.add_argument("--exact", action="store_true",
+                   help="accepted for compatibility; the classifier is "
+                        "already the float64 host backend")
+    p.add_argument("--checkpoint", default=None, metavar="PREFIX",
+                   help="refused: checkpoints are not ported yet")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if not (0.0 < args.similarity < 1.0):
+        print("Similarity must be between 0 and 1", file=sys.stderr)
+        return 1
+    if args.kmer is not None and args.kmer <= 0:
+        print("K must be greater than 0.", file=sys.stderr)
+        return 1
+    if args.no_pallas:
+        print("--no-pallas is not supported: the kernels' plain PyTorch "
+              "versions are test oracles, not a user path", file=sys.stderr)
+        return 2
+    if args.checkpoint:
+        print("--checkpoint is not supported yet: utils/checkpoint is not "
+              "ported", file=sys.stderr)
+        return 2
+    cfg = ClusterConfig(
+        files=list(args.files),
+        similarity=args.similarity,
+        kmer=args.kmer,
+        output=args.output,
+        align=args.align,
+        sample_size=args.sample_size,
+        pivots=args.pivots,
+        delta=args.delta,
+        iterations=args.iterations,
+        threads=args.threads,
+        exact=args.exact,
+    )
+    try:
+        res = run(cfg)
+    except (DeviceUnavailableError, NotImplementedError) as e:
+        print(f"meshclust-tpu-torch: {e}", file=sys.stderr)
+        return 2
+    print(f"Wrote {res['n_clusters']} clusters to {cfg.output}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,128 @@
+"""Run orchestration (Runner re-design), twin of meshclust_tpu/core/runner.py.
+
+Pipeline (Runner.cpp:25-90, 321-375): input collection (basename-sorted),
+auto-k, featurization, dtype scan, training, bvec fill, mean-shift, CLSTR.
+
+Featurization, the pivot distance rows and every alignment run on the
+device; clustering runs through the float64 host classifier (HostBackend).
+"""
+from __future__ import annotations
+
+import os
+import sys
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+
+from meshclust_tpu_torch import device as D
+from meshclust_tpu_torch.config import ClusterConfig
+from meshclust_tpu_torch.core import classify as C
+from meshclust_tpu_torch.core.bvec import BVec
+from meshclust_tpu_torch.core.meanshift import MeanShift
+from meshclust_tpu_torch.core.points import build_points
+from meshclust_tpu_torch.core.trainer import Trainer
+from meshclust_tpu_torch.errors import FileDoesNotExistError
+from meshclust_tpu_torch.io import fasta as fio
+from meshclust_tpu_torch.io.clstr import write_clstr
+from meshclust_tpu_torch.ops import histogram as H
+from meshclust_tpu_torch.ops.align_device import DeviceAligner
+from meshclust_tpu_torch.utils import perf
+from meshclust_tpu_torch.utils.log import log
+
+
+def sort_files(files: List[str]) -> List[str]:
+    """Inputs sorted by basename (Runner.cpp:253-262)."""
+    return sorted(files, key=lambda p: os.path.basename(p))
+
+
+def perf_report() -> str:
+    """Phase times, work counters and measured rates from utils/perf.
+
+    The carried-over report's *_util_est lines are left out: they divide by
+    a TPU's peak rates, which say nothing about a GPU."""
+    return "\n".join(line for line in perf.format_report().splitlines()
+                     if "_util_est" not in line)
+
+
+def run(cfg: ClusterConfig,
+        device: Optional[Union[str, torch.device]] = None) -> dict:
+    """Cluster cfg.files into cfg.output on `device` (None: CUDA).
+
+    cfg.exact changes nothing here: the classifier is already the float64
+    host backend. The checkpoint option is not carried over yet."""
+    dev = D.resolve(device)
+    if cfg.checkpoint:
+        raise NotImplementedError(
+            "checkpoints are not ported yet (utils/checkpoint is ROADMAP.md "
+            "queue 1, slice 7 of the port)")
+    cfg = cfg.finalize()
+    if cfg.align:
+        # refuse before any work; make_backend holds the same line
+        raise NotImplementedError(C.ALIGN_MODE_MISSING)
+    files = sort_files(list(cfg.files))
+    if not files:
+        raise FileDoesNotExistError("no input files")
+    for f in files:
+        if not os.path.isfile(f):
+            raise FileDoesNotExistError(f'File "{f}" does not exist')
+    log(f"Device: {dev}")
+
+    log("Reading in sequences")
+    with perf.phase("read"):
+        per_file = [fio.read_fasta(f) for f in files]
+    seqs = [s for fs in per_file for s in fs]
+    if not seqs:
+        raise FileDoesNotExistError("no sequences found")
+
+    k = cfg.kmer if cfg.kmer is not None else H.find_k(per_file)
+    k = max(1, k)
+    log(f"Using k = {k}")
+
+    log(f"Counting {k}-mers")
+    with perf.phase("featurize"):
+        ps = build_points(seqs, k, dev)
+    bits = int(np.dtype(H.storage_dtype(ps.largest)).itemsize * 8)
+    log(f"Using {bits} bit histograms")
+
+    aligner = DeviceAligner(ps.codes, dev, match=cfg.match,
+                            mismatch=cfg.mismatch, go=cfg.gap_open,
+                            gc=cfg.gap_continue)
+    trainer = Trainer(
+        ps, n_points=cfg.sample_size, cutoff=cfg.similarity,
+        max_pts_from_one=cfg.pivots, k=k)
+    if (cfg.match, cfg.mismatch, cfg.gap_open, cfg.gap_continue) \
+            == (1, -1, 2, 1):
+        trainer._dev_aligner = aligner   # share the staged codes
+    with perf.phase("train"):
+        model = trainer.train(cfg.acc_cutoff)
+
+    def align_fn(center: int, idxs: np.ndarray) -> np.ndarray:
+        # (candidate, center) orientation — GlobAlignE identity depends on
+        # operand order via gap tie-breaks; the reference's classify sites
+        # put the center SECOND (Trainer.cpp:88,:150,:341)
+        return aligner.identities([(int(j), center) for j in idxs])
+
+    backend = C.make_backend(ps, model.params, align_fn=align_fn)
+
+    bv = BVec(ps.lengths.copy(), cfg.bin_size)
+    bv.bulk_insert(ps.lengths)
+    bv.insert_finalize()
+
+    ms = MeanShift(ps, backend, sim=cfg.similarity, delta=cfg.delta,
+                   iterations=cfg.iterations)
+    with perf.phase("cluster"):
+        centers = ms.run(bv)
+
+    log("Printing output")
+    with perf.phase("output"):
+        write_clstr(cfg.output, centers, ps.headers, ps.lengths)
+    if os.environ.get("MESHCLUST_PERF", "0") == "1":
+        print(perf_report(), file=sys.stderr, flush=True)
+    return {
+        "centers": centers,
+        "pointset": ps,
+        "model": model,
+        "k": k,
+        "n_clusters": sum(1 for c in centers if c.members),
+    }

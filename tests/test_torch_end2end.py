@@ -1,0 +1,147 @@
+"""End to end, the port against the JAX package on two seeded corpora (one
+with N runs): the port's run() on the CPU (every kernel through its plain
+PyTorch version) must write a CLSTR byte-equal to meshclust_tpu's run() with
+exact=True, and the port's MeanShift, given the JAX-trained model and
+points through convert.py, must find the same centers and members as the
+JAX run.
+"""
+import numpy as np
+import pytest
+import torch
+
+# The port's CPU run issues many small ops through the kernels' plain
+# versions: one intra-op thread per test process keeps OpenMP from
+# oversubscribing the cores under pytest-xdist.
+torch.set_num_threads(1)
+LETTERS = np.frombuffer(b"ACGT", dtype=np.uint8)
+CORPORA = {"plain": (1, False), "n_runs": (2, True)}
+
+
+def write_corpus(path, seed, n_runs, n_species=6, per=20, L=160):
+    """n_species random species of ~L bp, `per` clones each with 3% point
+    substitutions and slight length jitter; with n_runs, every third clone
+    gets an N run. Records are written in species order."""
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        for s in range(n_species):
+            Ls = L + int(rng.integers(-L // 10, L // 10))
+            base = rng.integers(0, 4, size=Ls)
+            for c in range(per):
+                seq = base.copy()
+                mut = rng.random(Ls) < 0.03
+                seq[mut] = (seq[mut] + 1 + rng.integers(
+                    0, 3, size=int(mut.sum()))) % 4
+                row = LETTERS[seq[: Ls - int(rng.integers(0, 6))]].copy()
+                if n_runs and c % 3 == 0:
+                    p = int(rng.integers(10, row.shape[0] - 40))
+                    row[p: p + int(rng.integers(3, 30))] = ord("N")
+                f.write(b">sp%d_c%d\n" % (s, c))
+                f.write(row.tobytes() + b"\n")
+    return str(path)
+
+
+def run_port(fasta, out):
+    from meshclust_tpu_torch.config import ClusterConfig
+    from meshclust_tpu_torch.core.runner import run
+    run(ClusterConfig(files=[fasta], similarity=0.90, output=out,
+                      sample_size=300), device="cpu")
+    with open(out, "rb") as f:
+        return f.read()
+
+
+def run_jax(fasta, out, exact):
+    from meshclust_tpu.config import ClusterConfig
+    from meshclust_tpu.core.runner import run
+    res = run(ClusterConfig(files=[fasta], similarity=0.90, output=out,
+                            sample_size=300, exact=exact))
+    with open(out, "rb") as f:
+        return f.read(), res
+
+
+@pytest.fixture(scope="module", params=sorted(CORPORA))
+def runs(request, tmp_path_factory):
+    seed, n_runs = CORPORA[request.param]
+    d = tmp_path_factory.mktemp(f"e2e_{request.param}")
+    fasta = write_corpus(d / "corpus.fasta", seed, n_runs)
+    port = run_port(fasta, str(d / "port.clstr"))
+    jax_clstr, jax_res = run_jax(fasta, str(d / "jax_exact.clstr"), True)
+    return port, jax_clstr, jax_res
+
+
+def test_clstr_equals_jax_exact(runs):
+    port, jax_clstr, jax_res = runs
+    assert jax_res["n_clusters"] >= 2
+    assert port == jax_clstr
+
+
+def test_meanshift_equals_jax_given_jax_model(runs):
+    """Clustering alone: the JAX-trained model and points, carried over by
+    convert.py, drive the port's MeanShift to the JAX run's centers."""
+    from meshclust_tpu_torch import convert
+    from meshclust_tpu_torch.core.bvec import BVec
+    from meshclust_tpu_torch.core.classify import make_backend
+    from meshclust_tpu_torch.core.meanshift import MeanShift
+    _, _, jax_res = runs
+    jps = jax_res["pointset"]
+    jparams = jax_res["model"].params
+    ps = convert.pointset_from_numpy(
+        jps.hist, jps.mag, jps.sq, jps.lengths, jps.one_mers, jps.codes,
+        jps.headers, jps.k, device="cpu")
+    params = convert.params_from_numpy(
+        jparams.singles, jparams.mins, jparams.maxs, jparams.is_sim,
+        jparams.combos, jparams.weights)
+    bv = BVec(ps.lengths.copy(), 1000)
+    bv.bulk_insert(ps.lengths)
+    bv.insert_finalize()
+    centers = MeanShift(ps, make_backend(ps, params), sim=0.90, delta=5,
+                        iterations=15).run(bv)
+    want = [(c.center, list(c.members)) for c in jax_res["centers"]]
+    assert [(c.center, list(c.members)) for c in centers] == want
+
+
+def test_make_backend_refuses_align_mode():
+    from meshclust_tpu_torch import convert
+    from meshclust_tpu_torch.core.classify import make_backend
+    from meshclust_tpu_torch.ops import features as F
+    params = convert.params_from_numpy([F.FEAT_ALIGN], [0.0], [1.0], [True],
+                                       [(F.COMBO_SELF, [0])], [-0.9, 1.0])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_backend(None, params)
+
+
+@pytest.mark.parametrize("kw", [{"similarity": 0.5}, {"align": True}],
+                         ids=["id_below_0.60", "align_flag"])
+def test_run_refuses_align_mode_before_any_work(kw, tmp_path):
+    from meshclust_tpu_torch.config import ClusterConfig
+    from meshclust_tpu_torch.core.runner import run
+    out = tmp_path / "out.clstr"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run(ClusterConfig(files=[str(tmp_path / "absent.fasta")],
+                          output=str(out), **kw), device="cpu")
+    assert not out.exists()
+
+
+def test_perf_report_leaves_out_tpu_utilization_estimates():
+    """MESHCLUST_PERF=1 prints phases, counters and measured rates; the
+    carried-over report's *_util_est keys (TPU peaks) stay out."""
+    from meshclust_tpu_torch.core.runner import perf_report
+    from meshclust_tpu_torch.utils import perf
+    import time
+    perf.reset()
+    with perf.phase("align"):
+        perf.add("nw_cells", 1e6)
+        time.sleep(0.002)
+    assert "nw_vpu_util_est" in perf.format_report()
+    text = perf_report()
+    perf.reset()
+    assert "phase align" in text and "counter nw_cells" in text
+    assert "nw_cells_per_s" in text
+    assert "util_est" not in text
+
+
+@pytest.mark.parametrize("flags", [["--no-pallas"], ["--checkpoint", "ck"]],
+                         ids=["no_pallas", "checkpoint"])
+def test_cli_refuses_unported_flags(flags, tmp_path, capsys):
+    from meshclust_tpu_torch import cli
+    assert cli.main([str(tmp_path / "in.fasta"), *flags]) == 2
+    assert "not supported" in capsys.readouterr().err
