@@ -6,14 +6,23 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure exits non-zero before the last line):
   1. print the torch, CUDA and nvcc versions and the card's name and power
      limit;
-  2. build the CUDA kernels (csrc/*.cu) and print the build time;
+  2. build the CUDA kernels (csrc/*.cu, one nvcc per source, in parallel)
+     and print the build time and each kernel's registers;
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (results must be bit-equal) and time both;
-  4. run the k-mer-mode main path (15,000 synthetic reads of ~1 kb, --id
-     0.90, default flags) on the GPU: both kernels must have launched, the
-     native host libraries must have loaded, and the partition must match
-     the planted species (NMI >= 0.95); then a small corpus clustered on the
-     GPU and on the CPU (plain versions) must give byte-equal CLSTR files;
+     main paths' shapes (results must be bit-equal) and time both; the NW
+     kernel also on strip-edge pairs and one 40 kb x 40 kb pair;
+  4. run each path on the GPU with the launch counts set to 0 just before
+     it, and check that it launched both kernels:
+     - k-mer mode: 15,000 synthetic reads of ~1 kb, --id 0.90, default
+       flags; the native host libraries must have loaded and the partition
+       must match the planted species (NMI >= 0.95); then a small corpus
+       clustered on the GPU and on the CPU (plain versions) must give
+       byte-equal CLSTR files;
+     - align mode on genomes: a 6-virus mix of 9-12 kb genomes at --id 0.50,
+       NMI against the planted species >= 0.889, and 32 pairs of the run's identity memo re-aligned
+       by the plain version must give the same identities;
+     - align mode on short reads (--align --id 0.90): GPU and CPU CLSTR
+       files must be byte-equal;
   5. print one JSON line per the contract, the card line, and the final
      {"ok": true, ...} line.
 """
@@ -30,6 +39,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "smoke")
 NMI_MIN = 0.95
+# The reference's own NMI on its 6-virus mix at --id 0.50
+# (Tables/Viral.csv:6).
+NMI_MIN_VIRAL = 0.889
 
 
 def fail(msg: str) -> None:
@@ -59,6 +71,19 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """(fn(), device ms of that one call), by CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def max_abs_err(a, b) -> int:
@@ -111,6 +136,40 @@ def bench_corpus(n: int = 15000, length: int = 1000, seed: int = 42) -> str:
     return path
 
 
+def viral_corpus(name: str, species: int, per: int, length: int,
+                 spread: int, rate_lo: float, rate_hi: float,
+                 seed: int) -> str:
+    """The recipe of bench.py:make_viral_dataset: `species` random base
+    genomes of length +- spread bp, `per` clones each with a substitution
+    rate drawn from [rate_lo, rate_hi), each clone trimmed at its end by
+    under 5%."""
+    path = os.path.join(WORK, f"{name}.fasta")
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    with open(path, "wb") as f:
+        for s in range(species):
+            L = length + int(rng.integers(-spread, spread))
+            base = rng.integers(0, 4, size=L, dtype=np.int8)
+            for c in range(per):
+                rate = rate_lo + (rate_hi - rate_lo) * rng.random()
+                e = L - int(rng.integers(0, L // 20))
+                seq = base[:e].copy()
+                mut = rng.random(e) < rate
+                seq[mut] = (seq[mut] + 1 + rng.integers(
+                    0, 3, size=int(mut.sum()))) % 4
+                f.write(b">v%d_c%d\n" % (s, c))
+                f.write(letters[seq].tobytes() + b"\n")
+    return path
+
+
+def genome_corpus() -> str:
+    """A 6-virus mix of genomes of 9,000-12,000 bp, 50 clones each with
+    12-22% substitutions, seed 7: bench.py:make_viral_dataset with genome
+    lengths in place of ~1.2 kb. Every clone is longer than 8,550 bp, past
+    the 8,192-row cap of the JAX package's short-pair kernels."""
+    return viral_corpus("viral_genomes", 6, 50, 10500, 1500, 0.12, 0.22, 7)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -152,72 +211,95 @@ def check_histogram(dev) -> dict:
     return row
 
 
-def staged_corpus(lens: np.ndarray, seed: int, dev):
-    """[n, Lpad] int8 random codes of the given lengths, with 1% N bytes
-    (78), and their int32 lengths, on dev."""
-    import torch
+def pair_corpus(pairs, seed: int, dev, related=()):
+    """Staged codes for (l1, l2) pairs: sequence 2t has length l1 and
+    2t + 1 length l2. For t in `related` the second is a copy of the first
+    with 15% substitutions, cut or padded with random bases to l2; all get
+    1% N bytes (78). Returns stage()'s tensors on dev."""
     rng = np.random.default_rng(seed)
-    lpad = -(-int(lens.max()) // 128) * 128
-    mat = np.zeros((lens.shape[0], lpad), np.int8)
-    for i, L in enumerate(lens):
-        c = rng.integers(0, 4, size=int(L)).astype(np.int8)
-        c[rng.random(int(L)) < 0.01] = 78
-        mat[i, :L] = c
+    seqs = []
+    for t, (l1, l2) in enumerate(pairs):
+        a = rng.integers(0, 4, size=l1).astype(np.int8)
+        b = rng.integers(0, 4, size=l2).astype(np.int8)
+        if t in related:
+            n = min(l1, l2)
+            b[:n] = a[:n]
+            mut = rng.random(n) < 0.15
+            b[:n][mut] = (b[:n][mut] + 1 + rng.integers(
+                0, 3, size=int(mut.sum()))) % 4
+        for c in (a, b):
+            c[rng.random(c.shape[0]) < 0.01] = 78
+            seqs.append(c)
+    return stage(seqs, dev)
+
+
+def stage(seqs, dev):
+    """Codes of the pairs (seqs[2t], seqs[2t + 1]) as the NW kernels take
+    them: (codes [2P, Lpad] int8, lengths [2P] int32, ia [P], ib [P]
+    int32) on dev."""
+    import torch
+    lpad = -(-max(len(c) for c in seqs) // 128) * 128
+    mat = np.zeros((len(seqs), lpad), np.int8)
+    for i, c in enumerate(seqs):
+        mat[i, : len(c)] = c
+    idx = np.arange(len(seqs) // 2, dtype=np.int32)
     return (torch.from_numpy(mat).to(dev),
-            torch.from_numpy(lens.astype(np.int32)).to(dev))
+            torch.from_numpy(np.asarray([len(c) for c in seqs],
+                                        np.int32)).to(dev),
+            torch.from_numpy(2 * idx).to(dev),
+            torch.from_numpy(2 * idx + 1).to(dev))
 
 
-def check_nw(dev) -> dict:
+def check_nw_long(dev) -> dict:
     import torch
     from meshclust_tpu_torch.ops.align import align_counts_plain
-    from meshclust_tpu_torch.ops.align_device import nw_align
-    rng = np.random.default_rng(5)
-    lens = rng.integers(700, 1301, size=1024)
-    codes, lens_dev = staged_corpus(lens, 6, dev)
-    ia = rng.integers(0, 1024, size=2048)
-    ib = rng.integers(0, 1024, size=2048)
-    order = np.argsort(lens[ia] + lens[ib], kind="stable")
-    ia, ib = ia[order], ib[order]
-    ia_t = torch.from_numpy(ia.astype(np.int32)).to(dev)
-    ib_t = torch.from_numpy(ib.astype(np.int32)).to(dev)
-    max_l1 = int(lens[ia].max())
-    got = nw_align(codes, lens_dev, ia_t, ib_t, max_l1)
-    want = align_counts_plain(codes, lens_dev, ia_t, ib_t)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(g, w) for g, w in zip(got, want))
-    same = all(torch.equal(g, w) for g, w in zip(got, want))
-    print(f"  nw_align 2048 pairs 700-1300bp: bit-equal={same} "
-          f"max_abs_err={err}", flush=True)
-    if not same:
-        fail("nw_align disagrees with its plain version (2048 pairs)")
-    ms = cuda_ms(lambda: nw_align(codes, lens_dev, ia_t, ib_t, max_l1),
-                 reps=5)
-    plain_ms = cuda_ms(lambda: align_counts_plain(codes, lens_dev, ia_t,
-                                                  ib_t), reps=2)
-    print(f"  nw_align 2048 pairs: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms", flush=True)
-
-    # one pair beyond the TPU kernel's row cap (l1 <= 8,192)
-    long_codes, long_lens = staged_corpus(np.array([9000, 8500]), 7, dev)
-    first = torch.zeros(1, dtype=torch.int32, device=dev)
-    second = torch.ones(1, dtype=torch.int32, device=dev)
-    g = nw_align(long_codes, long_lens, first, second, 9000)
-    w = align_counts_plain(long_codes, long_lens, first, second)
-    torch.cuda.synchronize()
-    same_long = all(torch.equal(a, b) for a, b in zip(g, w))
-    print(f"  nw_align l1=9000 l2=8500: bit-equal={same_long} "
-          f"(alen={int(g[0][0])}, amatch={int(g[1][0])})", flush=True)
-    if not same_long:
-        fail("nw_align disagrees with its plain version (l1 = 9000)")
-    err = max(err, max_abs_err(g[0], w[0]), max_abs_err(g[1], w[1]))
-    return {"name": "nw_align", "route": "cuda",
-            "source": "meshclust_tpu_torch/csrc/nw_align.cu",
-            "replaces": "meshclust_tpu/ops/align_window.py:69",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    from meshclust_tpu_torch.ops.align_device import nw_align_long
+    rng = np.random.default_rng(13)
+    genome = [(int(rng.integers(9000, 12001)), int(rng.integers(9000, 12001)))
+              for _ in range(64)]
+    T = 128   # rows per strip of the kernel
+    edges = [(100, 3000), (T, 3000), (T + 1, 3000), (2 * T, 2 * T + 1),
+             (2 * T + 1, 2 * T), (1, 5000), (5000, 1), (1, 1),
+             (20000, 500), (500, 20000)]
+    reads = [(int(rng.integers(700, 1301)), int(rng.integers(700, 1301)))
+             for _ in range(2048)]
+    cases = [("64 pairs 9,000-12,000 bp (32 related)", genome,
+              range(0, 64, 2)),
+             ("2,048 pairs 700-1,300 bp (k-mer path's shape)", reads, ()),
+             ("strip-edge and lopsided pairs", edges, range(len(edges))),
+             ("one pair 40,000 x 40,000 bp (related)", [(40000, 40000)],
+              (0,))]
+    row = None
+    err = 0
+    for k, (name, pairs, related) in enumerate(cases):
+        codes, lens, ia, ib = pair_corpus(pairs, 20 + k, dev, set(related))
+        max_l2 = max(l2 for _, l2 in pairs)
+        got, ms = timed(lambda: nw_align_long(codes, lens, ia, ib, max_l2))
+        want, plain_ms = timed(lambda: align_counts_plain(codes, lens, ia,
+                                                          ib))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(err, *(max_abs_err(g, w) for g, w in zip(got, want)))
+        cells = float(sum(a * b for a, b in pairs))
+        print(f"  nw_align_long {name}: bit-equal={same}, kernel {ms:.4f} "
+              f"ms ({cells / ms / 1e6:.4f} Gcells/s), plain {plain_ms:.4f} "
+              f"ms", flush=True)
+        if not same:
+            fail(f"nw_align_long disagrees with its plain version ({name})")
+        if row is None:   # the genome-length path's shape
+            ms = cuda_ms(lambda: nw_align_long(codes, lens, ia, ib, max_l2),
+                         reps=3)
+            print(f"  nw_align_long {name}: kernel {ms:.4f} ms over 3 "
+                  f"launches, plain {plain_ms:.4f} ms", flush=True)
+            row = {"name": "nw_align_long", "route": "cuda",
+                   "source": "meshclust_tpu_torch/csrc/nw_align_long.cu",
+                   "replaces": "meshclust_tpu/ops/align_tiled.py:65",
+                   "ms": ms, "plain_ms": plain_ms}
+    row["max_abs_err"] = err
+    return row
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the main paths
 # ---------------------------------------------------------------------------
 
 def species_nmi(clstr_path: str) -> float:
@@ -228,39 +310,128 @@ def species_nmi(clstr_path: str) -> float:
     return nmi(labels, {h: ids[s] for h, s in truth.items()})
 
 
-def main_path(dev) -> dict:
+def drive(dev, label: str, fasta: str, out: str, **cfg) -> tuple:
+    """One run of core.runner.run on dev, with the launch counts and the
+    perf counters set to 0 just before it and read just after it."""
     import torch
-    from meshclust_tpu_torch import _ext, native
+    from meshclust_tpu_torch import _ext
     from meshclust_tpu_torch.config import ClusterConfig
     from meshclust_tpu_torch.core.runner import run
     from meshclust_tpu_torch.utils import perf
-    fasta = bench_corpus()
-    out = os.path.join(WORK, "smoke_15k.clstr")
     perf.reset()
     _ext.reset_launches()
     t0 = time.time()
-    res = run(ClusterConfig(files=[fasta], similarity=0.90, output=out),
-              device=dev)
+    res = run(ClusterConfig(files=[fasta], output=out, **cfg), device=dev)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(_ext.launches)
-    print(f"  main path {res['pointset'].n} reads --id 0.90: wall "
-          f"{wall:.3f} s, {res['n_clusters']} clusters, k={res['k']}, "
-          f"launches {launches}", flush=True)
+    print(f"  {label}: {res['pointset'].n} sequences, wall {wall:.3f} s, "
+          f"{res['n_clusters']} clusters, k={res['k']}, launches "
+          f"{launches}", flush=True)
     for name, secs in sorted(perf.phases().items(), key=lambda kv: -kv[1]):
         print(f"    phase {name:<14s} {secs:10.4f} s", flush=True)
     for name, val in sorted(perf.counters().items()):
         print(f"    counter {name:<14s} {val:.6g}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched by the main path")
+    return res, launches
+
+
+def expect_launches(label: str, launches: dict) -> None:
+    for name in ("kmer_hist", "nw_align_long"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the {label} run")
+
+
+def check_nmi(clstr_path: str, least: float) -> None:
+    score = species_nmi(clstr_path)
+    print(f"  NMI vs species labels: {score:.6f}", flush=True)
+    if not score >= least:
+        fail(f"NMI {score} < {least}")
+
+
+def main_path(dev) -> dict:
+    from meshclust_tpu_torch import native
+    res, launches = drive(dev, "k-mer path --id 0.90", bench_corpus(),
+                          os.path.join(WORK, "smoke_15k.clstr"),
+                          similarity=0.90)
+    expect_launches("k-mer", launches)
     if native.get_lib() is None or native.get_refsort() is None:
         fail("the native fasta_parser or refsort library did not load")
-    score = species_nmi(out)
-    print(f"  NMI vs species labels: {score:.6f}", flush=True)
-    if not score >= NMI_MIN:
-        fail(f"NMI {score} < {NMI_MIN}")
+    check_nmi(os.path.join(WORK, "smoke_15k.clstr"), NMI_MIN)
     return launches
+
+
+def genome_path(dev) -> dict:
+    """Align mode on a 6-virus mix of 9-12 kb genomes at --id 0.50.
+    Afterwards 32 pairs of the
+    AlignBackend's memo, re-aligned by the plain version in the orientation
+    the run aligned them, must give the identities the memo holds."""
+    from meshclust_tpu_torch.ops import align_device as AD
+    from meshclust_tpu_torch.ops.align import align_counts_plain
+    fasta = genome_corpus()
+    out = os.path.join(WORK, "viral_genomes.clstr")
+    asked = []          # (a, b) in the order the run aligned them
+    identities = AD.DeviceAligner.identities
+
+    def spy(self, pairs):
+        asked.extend(pairs)
+        return identities(self, pairs)
+
+    AD.DeviceAligner.identities = spy
+    try:
+        res, launches = drive(dev, "align path, genomes --id 0.50", fasta,
+                              out, similarity=0.50)
+    finally:
+        AD.DeviceAligner.identities = identities
+    ps = res["pointset"]
+    expect_launches("genome align-mode", launches)
+    check_nmi(out, NMI_MIN_VIRAL)
+
+    memo = res["backend"].memo
+    first = {}
+    for a, b in asked:
+        first.setdefault(int(memo.key_of(np.asarray(a), np.asarray(b))),
+                         (a, b))
+    aligned = np.asarray([k for k in memo.keys.tolist() if k in first],
+                         np.int64)
+    keys = np.random.default_rng(3).choice(
+        aligned, size=min(32, aligned.shape[0]), replace=False)
+    vals, found = memo.lookup(keys)
+    pairs = [first[int(k)] for k in keys]
+    codes, lens, ia, ib = stage([c for a, b in pairs
+                                 for c in (ps.codes[a], ps.codes[b])], dev)
+    (alen, amatch), plain_ms = timed(lambda: align_counts_plain(
+        codes, lens, ia, ib))
+    ids = amatch.cpu().numpy().astype(np.float64) / np.maximum(
+        alen.cpu().numpy().astype(np.float64), 1.0)
+    same = bool(found.all()) and np.array_equal(ids, vals)
+    print(f"  {keys.shape[0]} memo pairs of {aligned.shape[0]} aligned, "
+          f"re-aligned by the plain version ({plain_ms:.4f} ms): "
+          f"equal={same}", flush=True)
+    if not same:
+        fail("the genome run's memo disagrees with the plain version")
+    return launches
+
+
+def short_align_parity(dev) -> None:
+    """Align mode on short reads (--align --id 0.90, AlignBackend through
+    nw_align_long on short pairs): the GPU and the CPU (plain versions) must write byte-equal
+    CLSTR files."""
+    from meshclust_tpu_torch.config import ClusterConfig
+    from meshclust_tpu_torch.core.runner import run
+    fasta = viral_corpus("short_align", 3, 8, 200, 16, 0.03, 0.05, 11)
+    outs = {name: os.path.join(WORK, f"short_align_{name}.clstr")
+            for name in ("gpu", "cpu")}
+    _, launches = drive(dev, "align path, short reads --align --id 0.90",
+                        fasta, outs["gpu"], similarity=0.90, align=True)
+    expect_launches("short-read align-mode", launches)
+    run(ClusterConfig(files=[fasta], similarity=0.90, align=True,
+                      output=outs["cpu"]), device="cpu")
+    with open(outs["gpu"], "rb") as a, open(outs["cpu"], "rb") as b:
+        same = a.read() == b.read()
+    print(f"  short-read align mode GPU vs CPU CLSTR byte-equal: {same}",
+          flush=True)
+    if not same:
+        fail("GPU and CPU align-mode runs of the short reads differ")
 
 
 def small_parity(dev) -> None:
@@ -330,17 +501,21 @@ def main() -> int:
     if os.path.exists(_ext.build_log_path()):
         with open(_ext.build_log_path()) as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("entry function", "registers",
+                                           "spill")):
                     print(f"    {line.strip()}", flush=True)
 
     print("phase 3: kernels against their plain versions", flush=True)
-    rows = [check_histogram(dev), check_nw(dev)]
+    rows = [check_histogram(dev), check_nw_long(dev)]
 
-    print("phase 4: main path", flush=True)
-    launches = main_path(dev)
+    print("phase 4: main paths", flush=True)
+    kmer = main_path(dev)
     small_parity(dev)
+    genome = genome_path(dev)
+    short_align_parity(dev)
+    # each kernel's launches from the two main paths
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = kmer[row["name"]] + genome[row["name"]]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms")

@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written CUDA kernels (csrc/*.cu).
 
-`nvcc` compiles every source under csrc/ into ONE shared library with a
-plain C interface, for sm_90a (Hopper), at first use. The library lands in
+`nvcc` compiles every source under csrc/ for sm_90a (Hopper) at first use,
+one process per source, all started together, and links the objects into
+ONE shared library with a plain C interface. The library lands in
 `build/kernels/` at the repository root, named by a hash of the sources and
 the flags, so an edited source is rebuilt and a stale binary is never loaded.
 It is loaded with ctypes; every pointer and the stream travel as c_void_p.
@@ -20,16 +21,17 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Launch counts by kernel name; the wrappers add one per launch.
-launches: Dict[str, int] = {"kmer_hist": 0, "nw_align": 0}
+launches: Dict[str, int] = {"kmer_hist": 0, "nw_align_long": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -40,10 +42,10 @@ _SIGNATURES = {
     # packed, lengths, valid, inseg, B, Lp, k, init, counts, ones, mag, sq,
     # stream
     "mc_kmer_hist": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    # codes, lpad, lengths, ia, ib, P, R, match, mismatch, go, gc, scratch,
+    # codes, lpad, lengths, ia, ib, P, stride, match, mismatch, go, gc, bnd,
     # alen, amatch, stream
-    "mc_nw_align": [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _I,
-                    _I, _P, _P, _P, _P],
+    "mc_nw_align_long": [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -88,6 +90,10 @@ def build_log_path() -> str:
     return library_path()[:-3] + ".log"
 
 
+def _run(cmd: list) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+
+
 def build() -> str:
     """Compile csrc/*.cu unless the library for these sources exists;
     returns its path. Raises with nvcc's output when the build fails."""
@@ -96,13 +102,22 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}"
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
-                          capture_output=True, text=True, timeout=600)
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    with ThreadPoolExecutor(len(objs)) as pool:
+        runs = list(pool.map(
+            lambda src, obj: _run([nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]),
+            sources(), objs))
+    if all(r.returncode == 0 for r in runs):
+        runs.append(_run([nvcc(), "-shared", "-o", tmp, *objs]))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    log = "".join(r.stdout + r.stderr for r in runs)
     with open(build_log_path(), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+        f.write(log)
+    failed = [r.returncode for r in runs if r.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
     os.replace(tmp, so)
     return so
 

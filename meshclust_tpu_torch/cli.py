@@ -4,8 +4,10 @@ Usage: python -m meshclust_tpu_torch.cli *.fasta [--id 0.90] [--kmer K]
        [--delta 5] [--output output.clstr] [--iterations 15] [--align]
        [--sample 3000] [--pivot 20] [--threads N]
 
-The flags and defaults are those of meshclust_tpu/cli.py. The run needs a
-CUDA device and exits non-zero without one.
+The flags and defaults are those of meshclust_tpu/cli.py. `--align`, or an
+`--id` below 0.60, runs align mode: every clustering decision is a global
+alignment on the GPU. The run needs a CUDA device and exits non-zero
+without one; `--no-pallas` and `--checkpoint` are refused.
 """
 from __future__ import annotations
 
@@ -83,7 +85,7 @@ def main(argv=None) -> int:
     )
     try:
         res = run(cfg)
-    except (DeviceUnavailableError, NotImplementedError) as e:
+    except DeviceUnavailableError as e:
         print(f"meshclust-tpu-torch: {e}", file=sys.stderr)
         return 2
     print(f"Wrote {res['n_clusters']} clusters to {cfg.output}")

@@ -4,7 +4,9 @@ Pipeline (Runner.cpp:25-90, 321-375): input collection (basename-sorted),
 auto-k, featurization, dtype scan, training, bvec fill, mean-shift, CLSTR.
 
 Featurization, the pivot distance rows and every alignment run on the
-device; clustering runs through the float64 host classifier (HostBackend).
+device. In k-mer mode clustering runs through the float64 host classifier
+(HostBackend); in align mode (--align or --id < 0.60) every decision is an
+alignment identity from the device aligner (AlignBackend).
 """
 from __future__ import annotations
 
@@ -57,9 +59,6 @@ def run(cfg: ClusterConfig,
             "checkpoints are not ported yet (utils/checkpoint is ROADMAP.md "
             "queue 1, slice 7 of the port)")
     cfg = cfg.finalize()
-    if cfg.align:
-        # refuse before any work; make_backend holds the same line
-        raise NotImplementedError(C.ALIGN_MODE_MISSING)
     files = sort_files(list(cfg.files))
     if not files:
         raise FileDoesNotExistError("no input files")
@@ -90,7 +89,7 @@ def run(cfg: ClusterConfig,
                             gc=cfg.gap_continue)
     trainer = Trainer(
         ps, n_points=cfg.sample_size, cutoff=cfg.similarity,
-        max_pts_from_one=cfg.pivots, k=k)
+        max_pts_from_one=cfg.pivots, k=0 if cfg.align else k)
     if (cfg.match, cfg.mismatch, cfg.gap_open, cfg.gap_continue) \
             == (1, -1, 2, 1):
         trainer._dev_aligner = aligner   # share the staged codes
@@ -103,7 +102,8 @@ def run(cfg: ClusterConfig,
         # put the center SECOND (Trainer.cpp:88,:150,:341)
         return aligner.identities([(int(j), center) for j in idxs])
 
-    backend = C.make_backend(ps, model.params, align_fn=align_fn)
+    backend = C.make_backend(ps, model.params, align_fn=align_fn,
+                             aligner=aligner)
 
     bv = BVec(ps.lengths.copy(), cfg.bin_size)
     bv.bulk_insert(ps.lengths)
@@ -124,5 +124,6 @@ def run(cfg: ClusterConfig,
         "pointset": ps,
         "model": model,
         "k": k,
+        "backend": backend,
         "n_clusters": sum(1 for c in centers if c.members),
     }

@@ -1,7 +1,8 @@
 """Batched affine-gap global alignment in plain PyTorch (GlobAlignE).
 
 Twin of meshclust_tpu/ops/align.py:batch_align, and the plain version of
-the CUDA kernel csrc/nw_align.cu (see ops/align_device.py:nw_align).
+the CUDA kernel csrc/nw_align_long.cu (ops/align_device.py:nw_align_long),
+which computes the same function.
 
 Reference: GlobAlignE::findAlignment (GlobAlignE.cpp:123-292) — a two-column
 rolling DP with 9 lanes: score/length/identity x {match, upperGap, lowerGap},
@@ -167,13 +168,31 @@ def batch_align(seq1: torch.Tensor, seq2: torch.Tensor, l1: torch.Tensor,
     return acc_score, acc_len, acc_match
 
 
+def check_operands(codes: torch.Tensor, lengths: torch.Tensor,
+                   ia: torch.Tensor, ib: torch.Tensor) -> None:
+    """Raise ValueError unless the operands are what the NW kernels take:
+    codes [N, Lpad] contiguous int8, lengths [N] int32, ia and ib [P] int32,
+    all on one device."""
+    if codes.dtype != torch.int8 or codes.dim() != 2 \
+            or not codes.is_contiguous():
+        raise ValueError("codes must be a contiguous 2-D int8 tensor")
+    if lengths.dtype != torch.int32 or lengths.dim() != 1 \
+            or lengths.shape[0] != codes.shape[0]:
+        raise ValueError("lengths must be int32 [N]")
+    if ia.dtype != torch.int32 or ib.dtype != torch.int32 or ia.dim() != 1 \
+            or ia.shape != ib.shape:
+        raise ValueError("ia and ib must be int32 [P]")
+    if any(t.device != codes.device for t in (lengths, ia, ib)):
+        raise ValueError("all operands must be on one device")
+
+
 def align_counts_plain(codes: torch.Tensor, lengths: torch.Tensor,
                        ia: torch.Tensor, ib: torch.Tensor, match: int = 1,
                        mismatch: int = -1, go: int = 2, gc: int = 1
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the nw_align kernel: (alen, amatch) [P]
-    int32 for pairs (codes[ia[p]], codes[ib[p]]) of a staged corpus
-    codes [N, Lpad] int8 with lengths [N] int32."""
+    """Plain PyTorch version of the nw_align_long kernel:
+    (alen, amatch) [P] int32 for pairs (codes[ia[p]], codes[ib[p]]) of a
+    staged corpus codes [N, Lpad] int8 with lengths [N] int32."""
     P = ia.shape[0]
     if P == 0:
         e = torch.zeros(0, dtype=torch.int32, device=codes.device)

@@ -1,6 +1,6 @@
 """The port's NW alignment against the JAX package.
 
-The plain PyTorch version of the nw_align kernel (ops/align.py, the
+The plain PyTorch version of the nw_align_long kernel (ops/align.py, the
 anti-diagonal wavefront) must give the same (alignment length, matches) as
 the three Pallas kernels the JAX package holds for the same function, each
 under the Pallas interpreter — A: the row-windowed grid kernel
@@ -73,8 +73,8 @@ def _port_counts(codes, pairs):
     lens = torch.tensor([len(c) for c in codes], dtype=torch.int32)
     ia = torch.tensor([p for p, _ in pairs], dtype=torch.int32)
     ib = torch.tensor([q for _, q in pairs], dtype=torch.int32)
-    alen, amatch = AD.nw_align(torch.from_numpy(mat), lens, ia, ib,
-                               max_l1=int(lens[ia.long()].max()))
+    alen, amatch = AD.nw_align_long(torch.from_numpy(mat), lens, ia, ib,
+                                    max_l2=int(lens[ib.long()].max()))
     return alen.numpy(), amatch.numpy()
 
 
@@ -148,8 +148,8 @@ def test_batch_align_equals_jax_scan(rng):
 
 
 def test_device_aligner_identities_equal_jax(rng):
-    """Identities through the port's DeviceAligner (staged corpus, row
-    buckets, chunking) equal the JAX DeviceAligner's, pair for pair."""
+    """Identities through the port's DeviceAligner (staged corpus, sorted
+    chunks) equal the JAX DeviceAligner's, pair for pair."""
     from meshclust_tpu_torch.ops.align_device import DeviceAligner
     codes = [_codes(rng, int(rng.integers(3, 150)), 0.03) for _ in range(25)]
     pairs = [(int(rng.integers(25)), int(rng.integers(25)))
@@ -167,11 +167,11 @@ def test_nw_align_rejects_bad_operands():
     lens = torch.tensor([5, 6, 7], dtype=torch.int32)
     idx = torch.tensor([0, 1], dtype=torch.int32)
     with pytest.raises(ValueError):
-        AD.nw_align(codes.to(torch.uint8), lens, idx, idx, 7)
+        AD.nw_align_long(codes.to(torch.uint8), lens, idx, idx, 7)
     with pytest.raises(ValueError):
-        AD.nw_align(codes, lens.to(torch.int64), idx, idx, 7)
+        AD.nw_align_long(codes, lens.to(torch.int64), idx, idx, 7)
     with pytest.raises(ValueError):
-        AD.nw_align(codes, lens, idx.to(torch.int64), idx, 7)
+        AD.nw_align_long(codes, lens, idx.to(torch.int64), idx, 7)
     with pytest.raises(ValueError):
-        AD.nw_align(codes, torch.tensor([0, 6, 7], dtype=torch.int32), idx,
-                    idx, 7)
+        AD.nw_align_long(codes, torch.tensor([0, 6, 7], dtype=torch.int32),
+                         idx, idx, 7)

@@ -99,26 +99,44 @@ def test_meanshift_equals_jax_given_jax_model(runs):
     assert [(c.center, list(c.members)) for c in centers] == want
 
 
-def test_make_backend_refuses_align_mode():
+def test_make_backend_picks_align_backend(tmp_path):
+    """An align-mode model (the alignment identity is its only feature)
+    gets AlignBackend when an aligner is given, HostBackend otherwise."""
     from meshclust_tpu_torch import convert
-    from meshclust_tpu_torch.core.classify import make_backend
+    from meshclust_tpu_torch.core.classify import (AlignBackend, HostBackend,
+                                                   make_backend)
+    from meshclust_tpu_torch.core.points import build_points
+    from meshclust_tpu_torch.io import fasta as fio
     from meshclust_tpu_torch.ops import features as F
+    from meshclust_tpu_torch.ops.align_device import DeviceAligner
     params = convert.params_from_numpy([F.FEAT_ALIGN], [0.0], [1.0], [True],
                                        [(F.COMBO_SELF, [0])], [-0.9, 1.0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_backend(None, params)
+    fasta = write_corpus(tmp_path / "tiny.fasta", 3, False, n_species=2,
+                         per=3, L=60)
+    ps = build_points(fio.read_fasta(fasta), 3, "cpu")
+    backend = make_backend(ps, params,
+                           aligner=DeviceAligner(ps.codes, "cpu"))
+    assert isinstance(backend, AlignBackend)
+    assert backend.memo.n == ps.n
+    assert isinstance(make_backend(ps, params), HostBackend)
 
 
 @pytest.mark.parametrize("kw", [{"similarity": 0.5}, {"align": True}],
                          ids=["id_below_0.60", "align_flag"])
-def test_run_refuses_align_mode_before_any_work(kw, tmp_path):
+def test_run_align_mode_writes_clstr(kw, tmp_path):
     from meshclust_tpu_torch.config import ClusterConfig
+    from meshclust_tpu_torch.core.classify import AlignBackend
     from meshclust_tpu_torch.core.runner import run
+    fasta = write_corpus(tmp_path / "tiny.fasta", 4, False, n_species=2,
+                         per=4, L=80)
     out = tmp_path / "out.clstr"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(ClusterConfig(files=[str(tmp_path / "absent.fasta")],
-                          output=str(out), **kw), device="cpu")
-    assert not out.exists()
+    res = run(ClusterConfig(files=[fasta], output=str(out), **kw),
+              device="cpu")
+    assert res["model"].k == 0
+    assert isinstance(res["backend"], AlignBackend)
+    text = out.read_text()
+    assert text.startswith(">Cluster 0")
+    assert text.count("nt, >sp") == 8
 
 
 def test_perf_report_leaves_out_tpu_utilization_estimates():

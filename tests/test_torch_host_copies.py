@@ -28,6 +28,8 @@ COPIED_FILES = [
 # (port module, original module, qualified name)
 COPIED_OBJECTS = [
     ("core.classify", "core.classify", "HostBackend"),
+    ("core.classify", "core.classify", "_PairMemo"),
+    ("core.classify", "core.classify", "AlignBackend"),
     ("core.points", "core.points", "_fma_1_minus_sq"),
     ("core.points", "core.points", "PointSet.distance"),
     ("core.points", "core.points", "PointSet.distance_row"),
@@ -36,7 +38,6 @@ COPIED_OBJECTS = [
     ("ops.histogram", "ops.histogram", "length_buckets"),
     ("ops.histogram", "ops.histogram", "find_k"),
     ("ops.histogram", "ops.histogram", "storage_dtype"),
-    ("ops.align_device", "ops.align_device", "_bucket_rows"),
     ("core.trainer", "core.trainer", "Trainer.split"),
     ("core.trainer", "core.trainer", "Trainer.get_labels"),
     ("core.trainer", "core.trainer", "Trainer.train"),

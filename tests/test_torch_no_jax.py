@@ -2,13 +2,15 @@
 to the CPU.
 
 Each test starts a fresh interpreter in which `import jax` fails (as on a
-GPU machine without jax), imports the port, and drives it: once through
-run(device="cpu") on a tiny corpus, once through the CLI with CUDA hidden,
-which must exit non-zero with a message.
+GPU machine without jax), imports the port, and drives it: through
+run(device="cpu") on a tiny corpus, in k-mer mode and in align mode, and
+through the CLI with CUDA hidden, which must exit non-zero with a message.
 """
 import os
 import subprocess
 import sys
+
+import pytest
 
 from tests.test_torch_end2end import write_corpus
 
@@ -29,15 +31,18 @@ def _python(code, tmp_path, env_extra=None):
                           text=True, timeout=300)
 
 
-def test_port_runs_without_jax(tmp_path):
+@pytest.mark.parametrize("mode", ["similarity=0.90, sample_size=200",
+                                  "similarity=0.50"],
+                         ids=["kmer_mode", "align_mode"])
+def test_port_runs_without_jax(mode, tmp_path):
     fasta = write_corpus(tmp_path / "tiny.fasta", 5, True, n_species=3,
                          per=10, L=150)
     out = tmp_path / "tiny.clstr"
     proc = _python(f"""
 from meshclust_tpu_torch.config import ClusterConfig
 from meshclust_tpu_torch.core.runner import run
-res = run(ClusterConfig(files=[{fasta!r}], output={str(out)!r},
-                        sample_size=200), device="cpu")
+res = run(ClusterConfig(files=[{fasta!r}], output={str(out)!r}, {mode}),
+          device="cpu")
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 assert not any(m == "meshclust_tpu" or m.startswith("meshclust_tpu.")
                for m in sys.modules)
