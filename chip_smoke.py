@@ -9,8 +9,11 @@ Phases (any failure exits non-zero before the last line):
   2. build the CUDA kernels (csrc/*.cu, one nvcc per source, in parallel)
      and print the build time and each kernel's registers;
   3. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes (results must be bit-equal) and time both; the NW
-     kernel also on strip-edge pairs and one 40 kb x 40 kb pair;
+     main paths' shapes (results must be bit-equal), time both, and compute
+     each kernel's bound (HBM bytes or INT32 operations); the NW kernel
+     also on pairs at its thread, warp and strip edges (from the constants
+     ops/align_device.py exports), lopsided pairs and one 40 kb x 40 kb
+     pair;
   4. run each path on the GPU with the launch counts set to 0 just before
      it, and check that it launched both kernels:
      - k-mer mode: 15,000 synthetic reads of ~1 kb, --id 0.90, default
@@ -42,6 +45,18 @@ NMI_MIN = 0.95
 # The reference's own NMI on its 6-virus mix at --id 0.50
 # (Tables/Viral.csv:6).
 NMI_MIN_VIRAL = 0.889
+# Least times ("bound_ms"): one H100 SXM's published HBM rate (NVIDIA's
+# data sheet); its INT32 ALU pipe, 132 SMs x 64 lanes x 1.98 GHz boost,
+# which alone runs compares and selects; and its dispatch rate, 128 lanes
+# an SM a cycle, of ALU and FMA pipes together, where integer adds also go.
+# A cell of the NW recurrence takes 18 compares and selects (four choices,
+# each a compare and three selects of score, D and X, and the substitution
+# score's compare and select) and 7 adds (csrc/nw_align_long.cu).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+DISPATCH_OPS_PER_S = 132 * 128 * 1.98e9
+NW_ALU_OPS_PER_CELL = 18
+NW_OPS_PER_CELL = NW_ALU_OPS_PER_CELL + 7
 
 
 def fail(msg: str) -> None:
@@ -88,6 +103,31 @@ def timed(fn):
 
 def max_abs_err(a, b) -> int:
     return int((a.to(dtype=b.dtype) - b).abs().max()) if a.numel() else 0
+
+
+def tensor_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(nbytes: float, ops_s: float) -> dict:
+    """The least time of a kernel that moves nbytes and whose operations
+    take ops_s seconds at the card's peak: the larger of the two, and
+    which it is."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nw_bound(pairs) -> dict:
+    """The NW kernel's bound on (l1, l2) pairs: each code read once, two
+    int32 written a pair; a DP cell's NW_ALU_OPS_PER_CELL compares and
+    selects on the ALU pipe, or all its NW_OPS_PER_CELL operations at the
+    dispatch rate, whichever takes longer."""
+    cells = float(sum(a * b for a, b in pairs))
+    return bound(sum(a + b + 8 for a, b in pairs),
+                 max(cells * NW_ALU_OPS_PER_CELL / INT32_OPS_PER_S,
+                     cells * NW_OPS_PER_CELL / DISPATCH_OPS_PER_S))
 
 
 # ---------------------------------------------------------------------------
@@ -202,12 +242,20 @@ def check_histogram(dev) -> dict:
             plain_ms = cuda_ms(
                 lambda: H.kmer_hist_plain(packed, lens, None, None, k),
                 reps=5)
+            # bytes: the packed codes and lengths in, the four outputs out;
+            # operations: one count a k-mer start, a few int32 ops each
+            b = bound(tensor_bytes(packed, lens, *got),
+                      4.0 * float(lens.sum()) / INT32_OPS_PER_S)
             print(f"  kmer_hist {name}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms", flush=True)
+                  f"{plain_ms:.4f} ms, bound {b['bound_ms']:.6f} ms "
+                  f"({b['bound_by']})", flush=True)
+            # No single PyTorch call computes it: torch.bincount would need
+            # the k-mer ids built first.
             row = {"name": "kmer_hist", "route": "cuda",
                    "source": "meshclust_tpu_torch/csrc/kmer_hist.cu",
                    "replaces": "meshclust_tpu/ops/histogram.py:102",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None, **b}
     return row
 
 
@@ -253,20 +301,27 @@ def stage(seqs, dev):
 def check_nw_long(dev) -> dict:
     import torch
     from meshclust_tpu_torch.ops.align import align_counts_plain
+    from meshclust_tpu_torch.ops import align_device as AD
     from meshclust_tpu_torch.ops.align_device import nw_align_long
     rng = np.random.default_rng(13)
     genome = [(int(rng.integers(9000, 12001)), int(rng.integers(9000, 12001)))
-              for _ in range(64)]
-    T = 128   # rows per strip of the kernel
-    edges = [(100, 3000), (T, 3000), (T + 1, 3000), (2 * T, 2 * T + 1),
-             (2 * T + 1, 2 * T), (1, 5000), (5000, 1), (1, 1),
-             (20000, 500), (500, 20000)]
+              for _ in range(163)]
+    # l1 and l2 at the kernel's thread (R rows), warp (32 R rows) and strip
+    # (S rows) edges, lopsided pairs, and the 1 x 1 pair
+    R, S = AD.ROWS_PER_THREAD, AD.STRIP_ROWS
+    W = 32 * R
+    edges = [(100, 3000), (S - 1, 3000), (S, 3000), (S + 1, 3000),
+             (2 * S, 2 * S + 1), (2 * S + 1, 2 * S), (W - 1, 700),
+             (W, 700), (W + 1, 700), (700, W + 1), (R - 1, 500), (R, 500),
+             (R + 1, 500), (500, R - 1), (500, R + 1), (1, 5000), (5000, 1),
+             (1, 1), (20000, 500), (500, 20000)]
     reads = [(int(rng.integers(700, 1301)), int(rng.integers(700, 1301)))
              for _ in range(2048)]
-    cases = [("64 pairs 9,000-12,000 bp (32 related)", genome,
-              range(0, 64, 2)),
+    cases = [("163 pairs 9,000-12,000 bp (the genome path's launch, 82 "
+              "related)", genome, range(0, 163, 2)),
              ("2,048 pairs 700-1,300 bp (k-mer path's shape)", reads, ()),
-             ("strip-edge and lopsided pairs", edges, range(len(edges))),
+             ("thread-, warp- and strip-edge and lopsided pairs", edges,
+              range(len(edges))),
              ("one pair 40,000 x 40,000 bp (related)", [(40000, 40000)],
               (0,))]
     row = None
@@ -280,9 +335,11 @@ def check_nw_long(dev) -> dict:
         same = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(err, *(max_abs_err(g, w) for g, w in zip(got, want)))
         cells = float(sum(a * b for a, b in pairs))
+        b = nw_bound(pairs)
         print(f"  nw_align_long {name}: bit-equal={same}, kernel {ms:.4f} "
-              f"ms ({cells / ms / 1e6:.4f} Gcells/s), plain {plain_ms:.4f} "
-              f"ms", flush=True)
+              f"ms ({cells / ms / 1e6:.4f} Gcells/s, bound "
+              f"{b['bound_ms']:.4f} ms, {b['bound_ms'] / ms:.4f} of it), "
+              f"plain {plain_ms:.4f} ms", flush=True)
         if not same:
             fail(f"nw_align_long disagrees with its plain version ({name})")
         if row is None:   # the genome-length path's shape
@@ -290,10 +347,11 @@ def check_nw_long(dev) -> dict:
                          reps=3)
             print(f"  nw_align_long {name}: kernel {ms:.4f} ms over 3 "
                   f"launches, plain {plain_ms:.4f} ms", flush=True)
+            # No PyTorch call computes GlobAlignE: library_ms is null.
             row = {"name": "nw_align_long", "route": "cuda",
                    "source": "meshclust_tpu_torch/csrc/nw_align_long.cu",
                    "replaces": "meshclust_tpu/ops/align_tiled.py:65",
-                   "ms": ms, "plain_ms": plain_ms}
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b}
     row["max_abs_err"] = err
     return row
 
@@ -518,7 +576,7 @@ def main() -> int:
         row["launches"] = kmer[row["name"]] + genome[row["name"]]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

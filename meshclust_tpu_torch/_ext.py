@@ -58,9 +58,9 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
-def _digest() -> str:
+def _digest(srcs: list) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in srcs:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -82,38 +82,42 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"libmeshclust_kernels_{_digest()}.so")
+def library_path(srcs: Optional[list] = None) -> str:
+    """Where build(srcs) puts its library (default: csrc/*.cu)."""
+    srcs = sources() if srcs is None else list(srcs)
+    return os.path.join(BUILD_DIR,
+                        f"libmeshclust_kernels_{_digest(srcs)}.so")
 
 
-def build_log_path() -> str:
-    return library_path()[:-3] + ".log"
+def build_log_path(srcs: Optional[list] = None) -> str:
+    return library_path(srcs)[:-3] + ".log"
 
 
 def _run(cmd: list) -> subprocess.CompletedProcess:
     return subprocess.run(cmd, capture_output=True, text=True, timeout=600)
 
 
-def build() -> str:
-    """Compile csrc/*.cu unless the library for these sources exists;
+def build(srcs: Optional[list] = None) -> str:
+    """Compile srcs (default: csrc/*.cu) unless their library exists;
     returns its path. Raises with nvcc's output when the build fails."""
-    so = library_path()
+    srcs = sources() if srcs is None else list(srcs)
+    so = library_path(srcs)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}"
-    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
     with ThreadPoolExecutor(len(objs)) as pool:
         runs = list(pool.map(
             lambda src, obj: _run([nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]),
-            sources(), objs))
+            srcs, objs))
     if all(r.returncode == 0 for r in runs):
         runs.append(_run([nvcc(), "-shared", "-o", tmp, *objs]))
     for obj in objs:
         if os.path.exists(obj):
             os.remove(obj)
     log = "".join(r.stdout + r.stderr for r in runs)
-    with open(build_log_path(), "w") as f:
+    with open(so[:-3] + ".log", "w") as f:
         f.write(log)
     failed = [r.returncode for r in runs if r.returncode != 0]
     if failed:
@@ -122,19 +126,24 @@ def build() -> str:
     return so
 
 
+def load(path: str) -> ctypes.CDLL:
+    """A built kernel library, its entry points typed."""
+    handle = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    handle.mc_error_string.argtypes = [ctypes.c_int]
+    handle.mc_error_string.restype = ctypes.c_char_p
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            handle.mc_error_string.argtypes = [ctypes.c_int]
-            handle.mc_error_string.restype = ctypes.c_char_p
-            _lib = handle
+            _lib = load(build())
         return _lib
 
 

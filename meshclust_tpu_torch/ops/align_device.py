@@ -7,10 +7,11 @@ finish together, cut into launches of at most PAIRS_PER_LAUNCH, and every
 launch is queued before any result is read back.
 
 Every pair, short read or genome, goes to one CUDA kernel,
-csrc/nw_align_long.cu (`nw_align_long`): one CTA a pair, whose threads
-own the rows of a strip and sweep the columns in a skewed wavefront, so the
-device memory of a pair is one boundary row (36 bytes a column of b) and
-there is no length gate. It takes the place of all four TPU kernels of
+csrc/nw_align_long.cu (`nw_align_long`): one CTA a pair, each of whose
+threads owns ROWS_PER_THREAD rows of a strip of STRIP_ROWS, all sweeping
+the columns in a skewed wavefront, so the device memory of a pair is one
+boundary row (36 bytes a column of b) and there is no length gate. It
+takes the place of all four TPU kernels of
 this function: the 128-pairs-on-lanes kernels the JAX package uses for
 short pairs (align_window, align_device, align_pallas) and the tiled one it
 uses past their gate (align_tiled). Its plain version is
@@ -34,6 +35,13 @@ from meshclust_tpu_torch.utils import perf
 # most 36 bytes x (l2 + 1) x this many pairs.
 PAIRS_PER_LAUNCH = 1024
 _PLANES = 9
+# The kernel's shape, as csrc/nw_align_long.cu's constants give it (kR, kT,
+# kStrip, kK): DP rows per thread, threads per pair, rows per strip, and
+# steps between the CTA's barriers.
+ROWS_PER_THREAD = 8
+THREADS_PER_PAIR = 128
+STRIP_ROWS = ROWS_PER_THREAD * THREADS_PER_PAIR
+SYNC_STEPS = 8
 
 
 def _round_up(x: int, m: int) -> int:

@@ -2,28 +2,52 @@
 """Profile of the PyTorch/CUDA port (meshclust_tpu_torch) on one GPU.
 
 Run from the repository root, after chip_smoke.py has passed:
-    python3 profile_port.py
+    python3 profile_port.py [--parts throughput,busy,variants,compare,e2e,sass]
+                            [--against OLD.cu ...] [--variants "R,T,K ..."]
 
-It measures what chip_smoke.py does not:
-  1. the NW kernel's time and throughput (DP cells per second) against the
-     number of pairs in one launch, by CUDA events, on pairs of ~1 kb (the
-     k-mer path's) and of 9-12 kb (the genome path's), sorted by l1 + l2 as
-     DeviceAligner sorts them;
-  2. the device busy share of two whole runs, each after a warm-up run of
-     the same configuration: the smoke's k-mer path (15k x 1 kb, --id 0.90,
-     default flags) and its genome align-mode path (300 genomes of 9-12 kb,
-     --id 0.50). Device self time from torch.profiler over the run's host
-     wall time, followed by the profiler's table of the busiest device
-     ops.
+Parts (default: throughput,busy):
+  throughput  the NW kernel's time, throughput (DP cells per second) and
+              share of its bound against the number of pairs in one launch,
+              by CUDA events, on pairs of ~1 kb (the k-mer path's) and of
+              9-12 kb (the genome path's), sorted by l1 + l2 as
+              DeviceAligner sorts them. The bound is chip_smoke.py's
+              nw_bound: NW_ALU_OPS_PER_CELL compares and selects a cell at
+              INT32_OPS_PER_S (the ALU pipe), or NW_OPS_PER_CELL operations
+              at DISPATCH_OPS_PER_S, whichever takes longer.
+  busy        the device busy share of two whole runs, each after a warm-up
+              run of the same configuration: the smoke's k-mer path (15k x
+              1 kb, --id 0.90, default flags) and its genome align-mode path
+              (300 genomes of 9-12 kb, --id 0.50). Device self time from
+              torch.profiler over the run's host wall time, followed by the
+              profiler's table of the busiest device ops.
+  variants    csrc/nw_align_long.cu built side by side with other shapes:
+              for each "R,T,K" of --variants a copy under build/variants/
+              with its constants kR, kT and kK set so, each timed at the
+              SHAPES below and held bit-equal to the default build; prints
+              each build's registers.
+  compare     other NW sources (--against, e.g. an earlier commit's
+              csrc/nw_align_long.cu) built beside this one and timed in
+              turns (others, this, this, others reversed) at the SHAPES
+              below, held bit-equal to each other.
+  e2e         both main paths of the busy part run end to end in turns
+              (first --against source, this, this, that source): align
+              phase and wall of each run, and whether the CLSTR files of
+              the two kernels are byte-equal.
+  sass        opcode counts of nw_align_long_kernel in each library built
+              by the run (cuobjdump -sass).
 Every line starts with the card's name and power limit or follows one that
 does, so each number can be kept beside the card it came from.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import os
+import re
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -31,7 +55,28 @@ import chip_smoke as smoke
 
 # (label, shortest and longest sequence, pairs per launch)
 NW_SHAPES = (("~1 kb", 900, 1100, (128, 2048, 16384)),
-             ("9-12 kb", 9000, 12000, (1, 64, 300, 1024)))
+             ("9-12 kb", 9000, 12000, (1, 64, 163, 300, 1024)))
+# (label, pairs) for variants and compare: the k-mer path's launch, the
+# genome path's launch, a full launch of genomes, one genome (latency)
+SHAPES = (("2,048 x 700-1,300 bp", 2048, 700, 1300),
+          ("163 x 9-12 kb", 163, 9000, 12000),
+          ("1,024 x 9-12 kb", 1024, 9000, 12000),
+          ("1 x 10.5 kb", 1, 10500, 10500))
+BUILT: dict = {}    # {name: library path} of the builds of this run
+
+
+def sorted_pairs(rng, n: int, lo: int, hi: int) -> list:
+    return sorted(((int(rng.integers(lo, hi + 1)),
+                    int(rng.integers(lo, hi + 1))) for _ in range(n)),
+                  key=sum)
+
+
+def nw_line(label: str, pairs, ms: float) -> str:
+    cells = float(sum(a * b for a, b in pairs))
+    b = smoke.nw_bound(pairs)
+    return (f"{label}: {ms:.3f} ms, {cells / ms / 1e6:.4f} Gcells/s, "
+            f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}), share of "
+            f"bound {b['bound_ms'] / ms:.4f}")
 
 
 def nw_throughput(dev) -> None:
@@ -39,16 +84,13 @@ def nw_throughput(dev) -> None:
     rng = np.random.default_rng(1)
     for label, lo, hi, counts in NW_SHAPES:
         for P in counts:
-            pairs = sorted(((int(rng.integers(lo, hi + 1)),
-                             int(rng.integers(lo, hi + 1)))
-                            for _ in range(P)), key=sum)
+            pairs = sorted_pairs(rng, P, lo, hi)
             codes, lens, ia, ib = smoke.pair_corpus(pairs, 2, dev,
                                                     set(range(0, P, 2)))
             ms = smoke.cuda_ms(
                 lambda: nw_align_long(codes, lens, ia, ib, hi), reps=2)
-            cells = float(sum(a * b for a, b in pairs))
-            print(f"  nw_align_long {label} pairs={P}: {ms:.3f} ms, "
-                  f"{cells / ms / 1e6:.4f} Gcells/s", flush=True)
+            print("  " + nw_line(f"nw_align_long {label} pairs={P}", pairs,
+                                 ms), flush=True)
 
 
 def busy_share(dev, label: str, fasta: str, **cfg) -> None:
@@ -77,8 +119,201 @@ def busy_share(dev, label: str, fasta: str, **cfg) -> None:
           flush=True)
 
 
+@contextlib.contextmanager
+def kernels_from(handle):
+    """Run the port's wrappers on another build of the kernel library."""
+    from meshclust_tpu_torch import _ext
+    with _ext._lock:
+        saved, _ext._lib = _ext._lib, handle
+    try:
+        yield
+    finally:
+        with _ext._lock:
+            _ext._lib = saved
+
+
+def build_all(builds: dict) -> dict:
+    """{name: sources} built in parallel; {name: library path}, each
+    build's register lines printed."""
+    from meshclust_tpu_torch import _ext
+    t0 = time.time()
+    with ThreadPoolExecutor(len(builds)) as pool:
+        paths = dict(zip(builds, pool.map(_ext.build, builds.values())))
+    print(f"  built {len(builds)} libraries in {time.time() - t0:.2f} s",
+          flush=True)
+    for name, srcs in builds.items():
+        with open(_ext.build_log_path(srcs)) as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print(f"    {name}: {line.strip()}", flush=True)
+    BUILT.update(paths)
+    return paths
+
+
+def shape_inputs(dev):
+    rng = np.random.default_rng(5)
+    for label, n, lo, hi in SHAPES:
+        pairs = sorted_pairs(rng, n, lo, hi)
+        yield label, pairs, smoke.pair_corpus(
+            pairs, 6, dev, set(range(0, n, 2))), hi
+
+
+def time_in_turns(paths: dict, order: list, dev) -> None:
+    """Each shape on each library in `order`; outputs must be bit-equal."""
+    import torch
+    from meshclust_tpu_torch import _ext
+    from meshclust_tpu_torch.ops.align_device import nw_align_long
+    libs = {name: _ext.load(path) for name, path in paths.items()}
+    for label, pairs, (codes, lens, ia, ib), hi in shape_inputs(dev):
+        want = None
+        for name in order:
+            with kernels_from(libs[name]):
+                got = nw_align_long(codes, lens, ia, ib, hi)
+                ms = smoke.cuda_ms(
+                    lambda: nw_align_long(codes, lens, ia, ib, hi), reps=2)
+            if want is None:
+                want = got
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            print(f"  {nw_line(f'{name} {label}', pairs, ms)}, bit-equal "
+                  f"{same}", flush=True)
+            if not same:
+                smoke.fail(f"{name} disagrees at {label}")
+
+
+def variant_source(r: str, t: str, k: str) -> str:
+    """A copy of csrc/nw_align_long.cu under build/variants/ with its
+    constants kR, kT and kK set to r, t and k; returns its path."""
+    from meshclust_tpu_torch import _ext
+    with open(os.path.join(_ext.CSRC, "nw_align_long.cu")) as f:
+        src = f.read()
+    for name, value in (("kR", r), ("kT", t), ("kK", k)):
+        src, n = re.subn(rf"constexpr int {name} = \d+;",
+                         f"constexpr int {name} = {int(value)};", src)
+        if n != 1:
+            smoke.fail(f"nw_align_long.cu: no constant {name}")
+    out = os.path.join(os.path.dirname(_ext.BUILD_DIR), "variants",
+                       f"R{r}_T{t}_K{k}", "nw_align_long.cu")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        f.write(src)
+    return out
+
+
+def variants(dev, specs: str) -> None:
+    from meshclust_tpu_torch import _ext
+    kmer = os.path.join(_ext.CSRC, "kmer_hist.cu")
+    builds = {"default": _ext.sources()}
+    for spec in specs.split():
+        r, t, k = spec.split(",")
+        builds[f"R={r} T={t} K={k}"] = [kmer, variant_source(r, t, k)]
+    paths = build_all(builds)
+    time_in_turns(paths, list(paths), dev)
+
+
+def run_path(dev, fasta: str, out: str, **cfg) -> tuple:
+    """(wall s, align s) of one run of core.runner.run on dev."""
+    import torch
+    from meshclust_tpu_torch.config import ClusterConfig
+    from meshclust_tpu_torch.core.runner import run
+    from meshclust_tpu_torch.utils import perf
+    perf.reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    run(ClusterConfig(files=[fasta], output=out, **cfg), device=dev)
+    torch.cuda.synchronize()
+    return time.time() - t0, perf.phases().get("align", 0.0)
+
+
+def compare(dev, against: list, timed: bool, e2e: bool) -> None:
+    """With timed, each source of `against` in turns with this tree's
+    kernel at SHAPES; with e2e, both main paths on the first of them and on
+    this one."""
+    from meshclust_tpu_torch import _ext
+    kmer = os.path.join(_ext.CSRC, "kmer_hist.cu")
+    builds = {os.path.relpath(path): [kmer, os.path.abspath(path)]
+              for path in against}
+    builds["this"] = _ext.sources()
+    paths = build_all(builds)
+    others = [name for name in builds if name != "this"]
+    if timed:
+        time_in_turns(paths, others + ["this", "this"] + others[::-1], dev)
+    if not e2e:
+        return
+    libs = {name: _ext.load(paths[name]) for name in (others[0], "this")}
+    turns = [others[0], "this", "this", others[0]]
+    for label, fasta, cfg in (
+            ("k-mer path --id 0.90", smoke.bench_corpus(),
+             {"similarity": 0.90}),
+            ("genome align-mode path --id 0.50", smoke.genome_corpus(),
+             {"similarity": 0.50})):
+        run_path(dev, fasta, os.path.join(smoke.WORK, "warm.clstr"), **cfg)
+        clstr = set()
+        for k, name in enumerate(turns):
+            out = os.path.join(smoke.WORK, f"compare_{k}.clstr")
+            with kernels_from(libs[name]):
+                wall, align = run_path(dev, fasta, out, **cfg)
+            with open(out, "rb") as f:
+                clstr.add(f.read())
+            print(f"  {name} {label}: wall {wall:.3f} s, align {align:.4f} "
+                  f"s", flush=True)
+        print(f"  {label}: CLSTR byte-equal across the {len(turns)} runs of "
+              f"both kernels: {len(clstr) == 1}", flush=True)
+
+
+def sass() -> None:
+    """Opcode counts of nw_align_long_kernel in every library built in this
+    run: the whole function, and its longest straight-line block (the fast
+    path's step)."""
+    import collections
+    import re
+    import subprocess
+    from meshclust_tpu_torch import _ext
+    tool = os.path.join(os.path.dirname(_ext.nvcc()), "cuobjdump")
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                    r"([A-Z][A-Z0-9_.]*)")
+    seen = set()
+    for name, path in {"default": _ext.library_path(), **BUILT}.items():
+        if path in seen:
+            continue
+        seen.add(path)
+        text = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True, timeout=300).stdout
+        func = text[text.index("nw_align_long_kernel"):]
+        end = func.find("Function :", 1)
+        func = func if end < 0 else func[:end]
+        blocks, block = [], []
+        for line in func.splitlines():
+            if line.lstrip().startswith(".L_"):
+                blocks.append(block)
+                block = []
+            m = op.search(line)
+            if m:
+                block.append(m.group(1))
+                if m.group(1).startswith(("BRA", "EXIT", "BAR")):
+                    blocks.append(block)
+                    block = []
+        blocks.append(block)
+        longest = max(blocks, key=len)
+        ops = collections.Counter(o for b in blocks for o in b)
+        print(f"  {name}: {sum(ops.values())} instructions in all; longest "
+              f"block {len(longest)}: "
+              + ", ".join(f"{o} {n}" for o, n in
+                          collections.Counter(longest).most_common()),
+              flush=True)
+
+
 def main() -> int:
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parts", default="throughput,busy")
+    ap.add_argument("--against", nargs="+", default=[],
+                    help="NW sources for the compare and e2e parts")
+    ap.add_argument("--variants", default="4,128,8 6,128,8 12,128,8 "
+                    "16,128,8 8,256,8 8,128,1 8,128,4")
+    args = ap.parse_args()
+    parts = args.parts.split(",")
+    if ("compare" in parts or "e2e" in parts) and not args.against:
+        ap.error("compare and e2e need --against")
     if not torch.cuda.is_available():
         print("profile_port: CUDA is not available", file=sys.stderr)
         return 1
@@ -87,15 +322,31 @@ def main() -> int:
     os.environ.setdefault("MESHCLUST_QUIET", "1")
     dev = torch.device("cuda", 0)
     print(f"card: {smoke.card_line()}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}", flush=True)
+          f"CUDA {torch.version.cuda}; NW bound: the longer of "
+          f"{smoke.NW_ALU_OPS_PER_CELL} ALU ops a cell at "
+          f"{smoke.INT32_OPS_PER_S:.4g} ops/s and {smoke.NW_OPS_PER_CELL} "
+          f"int32 ops a cell at {smoke.DISPATCH_OPS_PER_S:.4g} ops/s",
+          flush=True)
     _ext.lib()
-    print("NW kernel's throughput by pairs per launch", flush=True)
-    nw_throughput(dev)
-    print("device busy share of the main paths", flush=True)
-    busy_share(dev, "k-mer path --id 0.90", smoke.bench_corpus(),
-               similarity=0.90)
-    busy_share(dev, "genome align-mode path --id 0.50",
-               smoke.genome_corpus(), similarity=0.50)
+    if "throughput" in parts:
+        print("NW kernel's throughput by pairs per launch", flush=True)
+        nw_throughput(dev)
+    if "variants" in parts:
+        print("NW kernel's variants, side by side", flush=True)
+        variants(dev, args.variants)
+    if "compare" in parts or "e2e" in parts:
+        print(f"NW kernel against {' '.join(args.against)}, in turns",
+              flush=True)
+        compare(dev, args.against, "compare" in parts, "e2e" in parts)
+    if "sass" in parts:
+        print("SASS of the NW kernel", flush=True)
+        sass()
+    if "busy" in parts:
+        print("device busy share of the main paths", flush=True)
+        busy_share(dev, "k-mer path --id 0.90", smoke.bench_corpus(),
+                   similarity=0.90)
+        busy_share(dev, "genome align-mode path --id 0.50",
+                   smoke.genome_corpus(), similarity=0.50)
     print(f"card: {smoke.card_line()}", flush=True)
     return 0
 

@@ -85,8 +85,11 @@ def test_run_cuda_equals_cpu(cuda, tmp_path):
         assert f.read() == want
 
 
-# l1 and l2 at the edges of the long kernel's 128-row strips and its warps
-STRIP_EDGES = [1, 2, 31, 32, 33, 127, 128, 129, 255, 256, 257]
+# l1 and l2 at the edges of the kernel's threads (R rows), warps (32 R rows)
+# and strips (S rows)
+_R, _S = AD.ROWS_PER_THREAD, AD.STRIP_ROWS
+STRIP_EDGES = [1, 2, _R - 1, _R, _R + 1, 32 * _R - 1, 32 * _R, 32 * _R + 1,
+               _S - 1, _S, _S + 1, 2 * _S, 2 * _S + 1]
 
 
 def _staged(lens, seed, n_frac=0.03):
