@@ -10,12 +10,17 @@ Phases (any failure exits non-zero before the last line):
      and print the build time and each kernel's registers;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes (results must be bit-equal), time both, and compute
-     each kernel's bound (HBM bytes or INT32 operations); the NW kernel
-     also on pairs at its thread, warp and strip edges (from the constants
-     ops/align_device.py exports), lopsided pairs and one 40 kb x 40 kb
-     pair;
+     each kernel's bound (HBM bytes or INT32 operations); kmer_hist also on
+     an edge corpus at k = 1..8 in both of its modes (lengths at its block,
+     step and cluster-share edges from the constants ops/histogram.py
+     exports, N runs, records under 20 bp, a chunked 2 Mb record), timed
+     at the 15k-read, 300-genome and 150k-read shapes with a warm and a
+     flushed L2, beside its other mode and the device featurization
+     (launch + narrowing); the NW kernel also on pairs at its thread, warp
+     and strip edges (from the constants ops/align_device.py exports),
+     lopsided pairs and one 40 kb x 40 kb pair;
   4. run each path on the GPU with the launch counts set to 0 just before
-     it, and check that it launched both kernels:
+     it, and check that it launched both kernels, kmer_hist exactly once:
      - k-mer mode: 15,000 synthetic reads of ~1 kb, --id 0.90, default
        flags; the native host libraries must have loaded and the partition
        must match the planted species (NMI >= 0.95); then a small corpus
@@ -214,47 +219,153 @@ def genome_corpus() -> str:
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def flush_l2(dev):
+    """A function that evicts the 50 MB L2 (writes 256 MB)."""
+    import torch
+    junk = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    return lambda: junk.fill_(1)
+
+
+def cold_ms(fn, reps: int, flush) -> float:
+    """Mean device time of fn() with the L2 flushed before each run."""
+    import torch
+    total = 0.0
+    fn()
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def kmer_edge_records(seed: int):
+    """Records at the kmer_hist kernel's edges (ops/histogram.py BLOCK,
+    WARPS, CLUSTER_CTAS): lengths at its 16-base blocks, 32-block steps and
+    cluster shares, reads with N runs that split or merge segments, records
+    under 20 bp (no segment) that push every later offset off the 16-byte
+    grid, and one record of 2 x SEG_LENGTH + 999 bp with an N run, whose
+    segment is chunked."""
+    from meshclust_tpu_torch.io import fasta as fio
+    from meshclust_tpu_torch.ops import histogram as H
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    R, W = H.BLOCK, 32 * H.BLOCK
+    team = H.WARPS * H.CLUSTER_CTAS * H.BLOCK
+    lengths = [20, 21, R + 5, 2 * R - 1, 2 * R, 2 * R + 1, W - 1, W, W + 1,
+               2 * W + 3, team - 1, team, team + 1, 10 * team + 5, 10500]
+    out = synthetic_records(200, 100, 1500, seed, n_frac=0.4, short=9)
+    for i, L in enumerate(lengths + [2 * fio.SEG_LENGTH + 999]):
+        raw = letters[rng.integers(0, 4, size=L)].copy()
+        if L > fio.SEG_LENGTH:
+            raw[700: 760] = ord("N")
+        out.append(fio.encode_record(f">e{i}", raw.tobytes()))
+        out.append(fio.encode_record(f">s{i}", raw[: 1 + i % 15].tobytes()))
+    return out
+
+
+def bench_flat(n: int, seed: int = 42):
+    """flat_inputs of a corpus with bench.py:make_dataset's lengths (max(10,
+    n // 100) species of 1,000 +- 100 bp, each clone trimmed by under 2%),
+    random bases, built in bulk with numpy."""
+    rng = np.random.default_rng(seed)
+    species = max(10, n // 100)
+    per = n // species
+    base = 1000 + rng.integers(-100, 100, size=species)
+    lens = (np.repeat(base, per) - rng.integers(
+        0, np.repeat(np.maximum(2, base // 50), per))).astype(np.int64)
+    rec_off = np.zeros(lens.shape[0] + 1, np.int64)
+    np.cumsum(lens, out=rec_off[1:])
+    total = int(rec_off[-1])
+    codes = np.zeros(-(-total // 16) * 16, np.uint8)
+    codes[:total] = rng.integers(0, 4, size=total, dtype=np.uint8)
+    segs = np.stack([np.zeros_like(lens), lens - 1], axis=1)
+    return codes, rec_off, segs, np.arange(lens.shape[0] + 1, dtype=np.int64)
+
+
+def kmer_shapes():
+    """(label, flat inputs, k) of the main paths' launches and the 150k
+    corpus."""
+    from meshclust_tpu_torch.io import fasta as fio
+    from meshclust_tpu_torch.ops import histogram as H
+    return [("15k reads k=4 (k-mer path)",
+             H.flat_inputs(fio.read_fasta(bench_corpus())), 4),
+            ("300 genomes k=6 (genome path)",
+             H.flat_inputs(fio.read_fasta(genome_corpus())), 6),
+            ("150k reads k=4", bench_flat(150000), 4)]
+
+
+def kmer_bound(t, out) -> dict:
+    """kmer_hist's bound: its inputs read once (the codes at one byte a
+    base) and its five outputs written once, at the HBM rate; operations:
+    a few int32 operations a base."""
+    bases = float(t[1][-1])
+    return bound(bases + tensor_bytes(*t[1:], *out),
+                 4.0 * bases / INT32_OPS_PER_S)
+
+
+def featurize_device(t, k, split):
+    """What featurize runs on the device: the launch, then the narrowing
+    of the rows to their storage dtype."""
+    from meshclust_tpu_torch.ops import histogram as H
+    hist, _, _, _, largest = H.kmer_hist(*t, k, split=split)
+    sdt = np.dtype(H.storage_dtype(int(largest[0])))
+    return hist.to(H._TORCH_DTYPE[sdt]) if sdt.itemsize < 4 else hist
+
+
 def check_histogram(dev) -> dict:
     import torch
     from meshclust_tpu_torch.ops import histogram as H
-    cases = [("2048x1024bp k=4", synthetic_records(2048, 900, 1024, 1), 4),
-             ("2048x1024bp k=7", synthetic_records(2048, 900, 1024, 2), 7),
-             ("512x1024bp k=8 (global bins)",
-              synthetic_records(512, 900, 1024, 3), 8),
-             ("N segments + <20bp k=5",
-              synthetic_records(500, 100, 1024, 4, n_frac=0.5, short=40), 5)]
+    edges = H.flat_inputs(kmer_edge_records(4))
+    for k in range(1, 9):
+        t = [torch.from_numpy(a).to(dev) for a in edges]
+        for split in (False, True):
+            got = H.kmer_hist(*t, k, split=split)
+            want = H.kmer_hist_plain(*t, k)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"kmer_hist disagrees with its plain version at the "
+                     f"edges, k={k} split={split}")
+    print(f"  kmer_hist edge corpus ({edges[1].shape[0] - 1} records, "
+          f"k=1..8, rows and split mode): bit-equal=True", flush=True)
+    flush = flush_l2(dev)
     row = None
-    for name, seqs, k in cases:
-        Lp = H.round_up(max(max(s.length for s in seqs), H.LANE), H.LANE)
-        packed, lens, valid, inseg = H.batch_inputs(seqs, k, Lp, dev)
-        got = H.kmer_hist(packed, lens, valid, inseg, k)
-        want = H.kmer_hist_plain(packed, lens, valid, inseg, k)
-        torch.cuda.synchronize()
+    for label, flat, k in kmer_shapes():
+        t = [torch.from_numpy(a).to(dev) for a in flat]
+        split = H.split_mode(np.diff(flat[1]), k)
+        got = H.kmer_hist(*t, k, split=split)
+        want, plain_ms = timed(lambda: H.kmer_hist_plain(*t, k))
         err = max(max_abs_err(g, w) for g, w in zip(got, want))
         same = all(torch.equal(g, w) for g, w in zip(got, want))
-        print(f"  kmer_hist {name}: bit-equal={same} max_abs_err={err}",
-              flush=True)
+        del want
         if not same:
-            fail(f"kmer_hist disagrees with its plain version ({name})")
-        if row is None:   # the main path's shape
-            ms = cuda_ms(lambda: H.kmer_hist(packed, lens, None, None, k),
-                         reps=20, warmup=3)
-            plain_ms = cuda_ms(
-                lambda: H.kmer_hist_plain(packed, lens, None, None, k),
-                reps=5)
-            # bytes: the packed codes and lengths in, the four outputs out;
-            # operations: one count a k-mer start, a few int32 ops each
-            b = bound(tensor_bytes(packed, lens, *got),
-                      4.0 * float(lens.sum()) / INT32_OPS_PER_S)
-            print(f"  kmer_hist {name}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {b['bound_ms']:.6f} ms "
-                  f"({b['bound_by']})", flush=True)
+            fail(f"kmer_hist disagrees with its plain version ({label})")
+        b = kmer_bound(t, got)
+        warm = cuda_ms(lambda: H.kmer_hist(*t, k, split=split), reps=20,
+                       warmup=3)
+        cold = cold_ms(lambda: H.kmer_hist(*t, k, split=split), 10, flush)
+        feat = cold_ms(lambda: featurize_device(t, k, split), 10, flush)
+        other = cold_ms(lambda: H.kmer_hist(*t, k, split=not split), 10,
+                        flush)
+        mode = "split" if split else "rows"
+        print(f"  kmer_hist {label}: bit-equal={same}, {mode} mode, kernel "
+              f"{warm:.4f} ms warm L2, {cold:.4f} ms cold, bound "
+              f"{b['bound_ms']:.6f} ms ({b['bound_by']}, share "
+              f"{b['bound_ms'] / cold:.4f} cold); the other mode "
+              f"{other:.4f} ms cold; featurize on the device (launch + "
+              f"narrowing) {feat:.4f} ms cold; plain {plain_ms:.4f} ms",
+              flush=True)
+        if row is None:   # the k-mer path's shape
             # No single PyTorch call computes it: torch.bincount would need
             # the k-mer ids built first.
             row = {"name": "kmer_hist", "route": "cuda",
                    "source": "meshclust_tpu_torch/csrc/kmer_hist.cu",
                    "replaces": "meshclust_tpu/ops/histogram.py:102",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "max_abs_err": err, "ms": cold, "plain_ms": plain_ms,
                    "library_ms": None, **b}
     return row
 
@@ -397,6 +508,9 @@ def expect_launches(label: str, launches: dict) -> None:
     for name in ("kmer_hist", "nw_align_long"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the {label} run")
+    if launches["kmer_hist"] != 1:
+        fail(f"the {label} run launched kmer_hist {launches['kmer_hist']} "
+             f"times, not once")
 
 
 def check_nmi(clstr_path: str, least: float) -> None:

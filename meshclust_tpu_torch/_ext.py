@@ -39,9 +39,10 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # packed, lengths, valid, inseg, B, Lp, k, init, counts, ones, mag, sq,
-    # stream
-    "mc_kmer_hist": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # codes, rec_off, segs, seg_off, n, k, init, split, counts, ones, mag,
+    # sq, largest, stream
+    "mc_kmer_hist": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                     _P],
     # codes, lpad, lengths, ia, ib, P, stride, match, mismatch, go, gc, bnd,
     # alen, amatch, stream
     "mc_nw_align_long": [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I,

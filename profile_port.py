@@ -2,8 +2,10 @@
 """Profile of the PyTorch/CUDA port (meshclust_tpu_torch) on one GPU.
 
 Run from the repository root, after chip_smoke.py has passed:
-    python3 profile_port.py [--parts throughput,busy,variants,compare,e2e,sass]
+    python3 profile_port.py [--parts throughput,busy,variants,compare,e2e,
+                                     feat,kvariants,sass]
                             [--against OLD.cu ...] [--variants "R,T,K ..."]
+                            [--parent DIR] [--kmer-variants "SPEC ..."]
 
 Parts (default: throughput,busy):
   throughput  the NW kernel's time, throughput (DP cells per second) and
@@ -33,8 +35,24 @@ Parts (default: throughput,busy):
               (first --against source, this, this, that source): align
               phase and wall of each run, and whether the CLSTR files of
               the two kernels are byte-equal.
-  sass        opcode counts of nw_align_long_kernel in each library built
-              by the run (cuobjdump -sass).
+  feat        featurization of an earlier kmer_hist (--parent DIR holding
+              its csrc/kmer_hist.cu and ops/histogram.py, e.g. from
+              `git show HEAD~1:...`) against this tree's, in turns (parent,
+              this, this, parent) at chip_smoke.py's kmer_shapes (15k reads
+              at k = 4, 300 genomes at k = 6, 150k reads at k = 4): the
+              host time of building each one's device inputs, the device
+              time of its featurization with the L2 flushed (launches,
+              index-puts, maximum, narrowing), its kmer_hist launches and
+              equal histograms; then the featurize phase and wall of both
+              main paths on each, with a CLSTR check.
+  kvariants   kmer_hist built with other constants, with probes that each
+              remove one cost (@atomic: atomicAdd for red.shared; @noatom:
+              no bin updates; @loadonly: no ids or counts), or from other
+              sources (file:PATH), per --kmer-variants, timed in turns at
+              the same three shapes beside the card's floor there (a fill
+              of the rows, a copy of the codes).
+  sass        opcode counts of nw_align_long_kernel and the kmer_hist
+              kernels in each library built by the run (cuobjdump -sass).
 Every line starts with the card's name and power limit or follows one that
 does, so each number can be kept beside the card it came from.
 """
@@ -42,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -211,7 +230,7 @@ def variants(dev, specs: str) -> None:
 
 
 def run_path(dev, fasta: str, out: str, **cfg) -> tuple:
-    """(wall s, align s) of one run of core.runner.run on dev."""
+    """(wall s, {phase: s}) of one run of core.runner.run on dev."""
     import torch
     from meshclust_tpu_torch.config import ClusterConfig
     from meshclust_tpu_torch.core.runner import run
@@ -221,7 +240,7 @@ def run_path(dev, fasta: str, out: str, **cfg) -> tuple:
     t0 = time.time()
     run(ClusterConfig(files=[fasta], output=out, **cfg), device=dev)
     torch.cuda.synchronize()
-    return time.time() - t0, perf.phases().get("align", 0.0)
+    return time.time() - t0, perf.phases()
 
 
 def compare(dev, against: list, timed: bool, e2e: bool) -> None:
@@ -251,7 +270,8 @@ def compare(dev, against: list, timed: bool, e2e: bool) -> None:
         for k, name in enumerate(turns):
             out = os.path.join(smoke.WORK, f"compare_{k}.clstr")
             with kernels_from(libs[name]):
-                wall, align = run_path(dev, fasta, out, **cfg)
+                wall, phases = run_path(dev, fasta, out, **cfg)
+            align = phases.get("align", 0.0)
             with open(out, "rb") as f:
                 clstr.add(f.read())
             print(f"  {name} {label}: wall {wall:.3f} s, align {align:.4f} "
@@ -260,12 +280,234 @@ def compare(dev, against: list, timed: bool, e2e: bool) -> None:
               f"both kernels: {len(clstr) == 1}", flush=True)
 
 
+# The parent's C entry point (csrc/kmer_hist.cu before the one-launch
+# redesign): packed, lengths, valid, inseg, B, Lp, k, init, counts, ones,
+# mag, sq, stream.
+PARENT_KMER_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p] * 5
+
+
+def seqs_of(flat) -> list:
+    """Sequences viewing flat inputs (records r0, r1, ...)."""
+    from meshclust_tpu_torch.io import fasta as fio
+    codes, rec_off, segs, seg_off = flat
+    return [fio.Sequence(f">r{r}", codes[rec_off[r]: rec_off[r + 1]],
+                         segs[seg_off[r]: seg_off[r + 1]])
+            for r in range(rec_off.shape[0] - 1)]
+
+
+def parent_inputs(Hp, seqs, k, dev) -> list:
+    """The parent's host work of featurize: length buckets, padded and
+    2-bit-packed batches on dev."""
+    import torch
+    lengths = [s.length for s in seqs]
+    out = []
+    for bucket in Hp.length_buckets(lengths):
+        Lp = Hp.round_up(max(max(lengths[i] for i in bucket), Hp.LANE),
+                         Hp.LANE)
+        out.append((torch.as_tensor(bucket, dtype=torch.int64, device=dev),
+                    *Hp.batch_inputs([seqs[i] for i in bucket], k, Lp, dev)))
+    return out
+
+
+def parent_device(Hp, batches, n: int, k: int, dev):
+    """The parent's device work of featurize: a launch and an index-put a
+    bucket, the maximum over hist_dev, the narrowing."""
+    import torch
+    hist = torch.zeros((n, 4 ** k), dtype=torch.int32, device=dev)
+    for rows, packed, lens, valid, inseg in batches:
+        counts, ones, mag, sq = Hp.kmer_hist(packed, lens, valid, inseg, k)
+        hist[rows] = counts
+    sdt = np.dtype(Hp.storage_dtype(int(hist.max())))
+    return hist.to(Hp._TORCH_DTYPE[sdt]) if sdt.itemsize < 4 else hist
+
+
+def this_host(seqs, dev) -> list:
+    """This tree's host work of featurize: the flat inputs on dev."""
+    import torch
+    from meshclust_tpu_torch.ops import histogram as H
+    return [torch.from_numpy(a).to(dev) for a in H.flat_inputs(seqs)]
+
+
+def feat(dev, parent_dir: str) -> None:
+    """kmer_hist and featurize of the parent (parent_dir/kmer_hist.cu and
+    parent_dir/histogram.py) against this tree's, in turns."""
+    import importlib.util
+    import torch
+    from meshclust_tpu_torch import _ext
+    from meshclust_tpu_torch.core import points
+    from meshclust_tpu_torch.io import fasta as fio
+    from meshclust_tpu_torch.ops import histogram as H
+    spec = importlib.util.spec_from_file_location(
+        "parent_histogram", os.path.join(parent_dir, "histogram.py"))
+    Hp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(Hp)
+    nw = os.path.join(_ext.CSRC, "nw_align_long.cu")
+    paths = build_all({"parent": [os.path.abspath(os.path.join(
+        parent_dir, "kmer_hist.cu")), nw], "this": _ext.sources()})
+    parent_lib = _ext.load(paths["parent"])
+    parent_lib.mc_kmer_hist.argtypes = PARENT_KMER_SIGNATURE
+    libs = {"parent": parent_lib, "this": _ext.load(paths["this"])}
+    turns = ["parent", "this", "this", "parent"]
+    flush = smoke.flush_l2(dev)
+    for label, flat, k in smoke.kmer_shapes():
+        seqs = seqs_of(flat)
+        n = len(seqs)
+        split = H.split_mode(np.diff(flat[1]), k)
+        results = {}
+        for name in turns:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "parent":
+                batches = parent_inputs(Hp, seqs, k, dev)
+            else:
+                t = this_host(seqs, dev)
+            torch.cuda.synchronize()
+            host = time.perf_counter() - t0
+            with kernels_from(libs[name]):
+                _ext.reset_launches()
+                if name == "parent":
+                    fn = lambda: parent_device(Hp, batches, n, k, dev)
+                else:
+                    fn = lambda: smoke.featurize_device(t, k, split)
+                out = fn()
+                launches = _ext.launches["kmer_hist"]
+                ms = smoke.cold_ms(fn, 10, flush)
+            results.setdefault("hist", out)
+            same = torch.equal(out, results["hist"])
+            print(f"  {name} {label}: host inputs {host:.4f} s, device "
+                  f"featurization {ms:.4f} ms cold L2, {launches} kmer_hist "
+                  f"launches, equal to the first turn: {same}", flush=True)
+            if not same:
+                smoke.fail(f"{name} featurizes {label} differently")
+            del out
+    for label, fasta, cfg in (
+            ("k-mer path --id 0.90", smoke.bench_corpus(),
+             {"similarity": 0.90}),
+            ("genome align-mode path --id 0.50", smoke.genome_corpus(),
+             {"similarity": 0.50})):
+        run_path(dev, fasta, os.path.join(smoke.WORK, "warm.clstr"), **cfg)
+        clstr = set()
+        for i, name in enumerate(turns):
+            out = os.path.join(smoke.WORK, f"feat_{i}.clstr")
+            saved = points.H
+            points.H = Hp if name == "parent" else H
+            try:
+                with kernels_from(libs[name]):
+                    wall, phases = run_path(dev, fasta, out, **cfg)
+            finally:
+                points.H = saved
+            with open(out, "rb") as f:
+                clstr.add(f.read())
+            print(f"  {name} {label}: wall {wall:.3f} s, featurize "
+                  f"{phases.get('featurize', 0.0):.4f} s (feat_pack "
+                  f"{phases.get('feat_pack', 0.0):.4f}, feat_device "
+                  f"{phases.get('feat_device', 0.0):.4f}, feat_stats "
+                  f"{phases.get('feat_stats', 0.0):.4f})", flush=True)
+        print(f"  {label}: CLSTR byte-equal across the {len(turns)} runs: "
+              f"{len(clstr) == 1}", flush=True)
+
+
+# Probes of kmer_hist for --parts kvariants: edits of csrc/kmer_hist.cu that
+# remove one cost each (their results differ from the kernel's by design).
+KMER_PROBES = {
+    # global-style atomicAdd in place of red.shared at a shared address
+    "@atomic": [("  if (kGlobal)\n    atomicAdd(bins + id, 1);\n  else\n",
+                 "  if (true)\n    atomicAdd(bins + id, 1);\n  else\n")],
+    # the ids computed, nothing added to the bins
+    "@noatom": [("count_id<kGlobal>(bins, bins_s,\n                        "
+                 "__funnelshift_r(cur, prev, 30 - 2 * t) & mask);",
+                 "tl.n0 ^= __funnelshift_r(cur, prev, 30 - 2 * t) & mask;")],
+    # loads, shuffles, epilogue and stores only: no id, no count
+    "@loadonly": [("  uint32_t inseg = 0xffffffffu;",
+                   "  tl.n0 += (cur ^ prev) & 1u;\n  return;\n"
+                   "  uint32_t inseg = 0xffffffffu;")],
+}
+
+
+def kmer_variant_source(spec: str) -> str:
+    """A copy of csrc/kmer_hist.cu under build/kvariants/ with the edits of
+    spec ("kWarps=4,@noatom": constants set, probes applied); returns its
+    path."""
+    from meshclust_tpu_torch import _ext
+    with open(os.path.join(_ext.CSRC, "kmer_hist.cu")) as f:
+        src = f.read()
+    for item in spec.split(","):
+        if item.startswith("@"):
+            for old, new in KMER_PROBES[item]:
+                if old not in src:
+                    smoke.fail(f"kmer_hist.cu: probe {item} does not apply")
+                src = src.replace(old, new)
+            continue
+        name, value = item.split("=")
+        src, n = re.subn(rf"constexpr int {name} = \d+;",
+                         f"constexpr int {name} = {int(value)};", src)
+        if n != 1:
+            smoke.fail(f"kmer_hist.cu: no constant {name}")
+    out = os.path.join(os.path.dirname(_ext.BUILD_DIR), "kvariants",
+                       re.sub(r"[^A-Za-z0-9]+", "_", spec), "kmer_hist.cu")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        f.write(src)
+    return out
+
+
+def kvariants(dev, specs: str) -> None:
+    """kmer_hist built side by side with the edits of each spec (or from
+    another source, file:PATH) and timed in turns at chip_smoke.py's
+    kmer_shapes with the L2 flushed; results held against the plain
+    version; the genome shape also in the other mode. First, the card's
+    own floor at each shape: a fill of the rows and a copy of the codes."""
+    import torch
+    from meshclust_tpu_torch import _ext
+    from meshclust_tpu_torch.ops import histogram as H
+    nw = os.path.join(_ext.CSRC, "nw_align_long.cu")
+    builds = {"this": _ext.sources()}
+    for spec in specs.split():
+        src = spec[5:] if spec.startswith("file:") \
+            else kmer_variant_source(spec)
+        builds[spec] = [os.path.abspath(src), nw]
+    paths = build_all(builds)
+    libs = {name: _ext.load(path) for name, path in paths.items()}
+    flush = smoke.flush_l2(dev)
+    for label, flat, k in smoke.kmer_shapes():
+        t = [torch.from_numpy(a).to(dev) for a in flat]
+        rows = torch.empty((len(flat[1]) - 1, 4 ** k), dtype=torch.int32,
+                           device=dev)
+        print(f"  floor {label}: fill of the rows "
+              f"{smoke.cold_ms(lambda: rows.fill_(1), 10, flush):.4f} ms, "
+              f"copy of the codes "
+              f"{smoke.cold_ms(lambda: t[0].clone(), 10, flush):.4f} ms",
+              flush=True)
+        del rows
+        split = H.split_mode(np.diff(flat[1]), k)
+        want = H.kmer_hist_plain(*t, k)
+        b = smoke.kmer_bound(t, want)
+        for name in list(libs) + list(libs)[::-1]:
+            with kernels_from(libs[name]):
+                got = H.kmer_hist(*t, k, split=split)
+                same = all(torch.equal(g, w) for g, w in zip(got, want))
+                ms = smoke.cold_ms(lambda: H.kmer_hist(*t, k, split=split),
+                                   10, flush)
+                other = smoke.cold_ms(
+                    lambda: H.kmer_hist(*t, k, split=not split), 5, flush) \
+                    if split else None
+            print(f"  {name} {label}: {ms:.4f} ms cold L2, share of bound "
+                  f"{b['bound_ms'] / ms:.4f}"
+                  + (f", rows mode {other:.4f} ms" if split else "")
+                  + f", equal to the plain version {same}", flush=True)
+        del want
+
+
+SASS_KERNELS = ("nw_align_long_kernel", "kmer_rows_kernelILb0E",
+                "kmer_split_kernel")
+
+
 def sass() -> None:
-    """Opcode counts of nw_align_long_kernel in every library built in this
-    run: the whole function, and its longest straight-line block (the fast
-    path's step)."""
-    import collections
-    import re
+    """Opcode counts of each kernel of SASS_KERNELS in every library built
+    in this run: the whole function, and its longest straight-line block
+    (the NW fast path's step; kmer_hist's fast path over one 16-base
+    block)."""
     import subprocess
     from meshclust_tpu_torch import _ext
     tool = os.path.join(os.path.dirname(_ext.nvcc()), "cuobjdump")
@@ -278,28 +520,36 @@ def sass() -> None:
         seen.add(path)
         text = subprocess.run([tool, "-sass", path], capture_output=True,
                               text=True, timeout=300).stdout
-        func = text[text.index("nw_align_long_kernel"):]
-        end = func.find("Function :", 1)
-        func = func if end < 0 else func[:end]
-        blocks, block = [], []
-        for line in func.splitlines():
-            if line.lstrip().startswith(".L_"):
+        for chunk in text.split("Function : ")[1:]:
+            kernel = [k for k in SASS_KERNELS
+                      if k in chunk.split("\n", 1)[0]]
+            if kernel:
+                sass_counts(f"{name} {kernel[0]}", chunk, op)
+
+
+def sass_counts(label: str, func: str, op) -> None:
+    """Opcode counts of one function's SASS and of its longest
+    straight-line block."""
+    import collections
+    blocks, block = [], []
+    for line in func.splitlines():
+        if line.lstrip().startswith(".L_"):
+            blocks.append(block)
+            block = []
+        m = op.search(line)
+        if m:
+            block.append(m.group(1))
+            if m.group(1).startswith(("BRA", "EXIT", "BAR")):
                 blocks.append(block)
                 block = []
-            m = op.search(line)
-            if m:
-                block.append(m.group(1))
-                if m.group(1).startswith(("BRA", "EXIT", "BAR")):
-                    blocks.append(block)
-                    block = []
-        blocks.append(block)
-        longest = max(blocks, key=len)
-        ops = collections.Counter(o for b in blocks for o in b)
-        print(f"  {name}: {sum(ops.values())} instructions in all; longest "
-              f"block {len(longest)}: "
-              + ", ".join(f"{o} {n}" for o, n in
-                          collections.Counter(longest).most_common()),
-              flush=True)
+    blocks.append(block)
+    longest = max(blocks, key=len)
+    ops = collections.Counter(o for b in blocks for o in b)
+    print(f"  {label}: {sum(ops.values())} instructions in all; longest "
+          f"block {len(longest)}: "
+          + ", ".join(f"{o} {n}" for o, n in
+                      collections.Counter(longest).most_common()),
+          flush=True)
 
 
 def main() -> int:
@@ -308,6 +558,13 @@ def main() -> int:
     ap.add_argument("--parts", default="throughput,busy")
     ap.add_argument("--against", nargs="+", default=[],
                     help="NW sources for the compare and e2e parts")
+    ap.add_argument("--parent", default="build/parent",
+                    help="directory with the parent's kmer_hist.cu and "
+                    "ops/histogram.py, for the feat part")
+    ap.add_argument("--kmer-variants", default="kWarps=4 kClusterCtas=2 "
+                    "kClusterCtas=8 @atomic @noatom @loadonly",
+                    help="kmer_hist edits (NAME=VALUE, @probe) or "
+                    "file:PATH sources for the kvariants part")
     ap.add_argument("--variants", default="4,128,8 6,128,8 12,128,8 "
                     "16,128,8 8,256,8 8,128,1 8,128,4")
     args = ap.parse_args()
@@ -338,8 +595,15 @@ def main() -> int:
         print(f"NW kernel against {' '.join(args.against)}, in turns",
               flush=True)
         compare(dev, args.against, "compare" in parts, "e2e" in parts)
+    if "kvariants" in parts:
+        print("kmer_hist's variants and probes, side by side", flush=True)
+        kvariants(dev, args.kmer_variants)
+    if "feat" in parts:
+        print(f"kmer_hist and featurize against {args.parent}, in turns",
+              flush=True)
+        feat(dev, args.parent)
     if "sass" in parts:
-        print("SASS of the NW kernel", flush=True)
+        print("SASS of the kernels", flush=True)
         sass()
     if "busy" in parts:
         print("device busy share of the main paths", flush=True)

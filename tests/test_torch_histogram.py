@@ -1,8 +1,9 @@
 """The port's k-mer featurization (meshclust_tpu_torch.ops.histogram) against
 the JAX package's: the plain PyTorch version of the kmer_hist kernel on the
-CPU must give bit-equal histograms, 1-mer counts, magnitudes, sums of
-squares and largest counts, and histograms equal to the Pallas kernel
-(histogram_pallas) run in interpret mode. Tolerance: exact equality, since
+CPU, fed the parser's flat codes, must give bit-equal histograms, storage
+dtypes, 1-mer counts, magnitudes, sums of squares and largest counts, and
+histograms equal to the Pallas kernel (histogram_pallas) run in interpret
+mode, for k from 1 to 8. Tolerance: exact equality, since
 every compared quantity is an integer.
 """
 import numpy as np
@@ -41,9 +42,14 @@ def _seqs(records):
     return [jfio.encode_record(h, s) for h, s in records]
 
 
-@pytest.mark.parametrize("k", [1, 3, 4, 5, 7])
-def test_featurize_equals_jax(k):
-    seqs = _seqs(_records(k))
+KS = [1, 3, 4, 5, 6, 7, 8]
+
+
+def _flat(seqs):
+    return tuple(torch.from_numpy(a) for a in H.flat_inputs(seqs))
+
+
+def _check_featurize(seqs, k):
     want = JH.featurize(seqs, k, use_pallas=False)
     got = H.featurize(seqs, k, torch.device("cpu"))
     hist = got["hist_dev"].numpy()
@@ -57,51 +63,117 @@ def test_featurize_equals_jax(k):
     assert got["V"] == want["V"] == 4 ** k
 
 
-@pytest.mark.parametrize("k", [1, 3, 4, 5, 7])
+@pytest.mark.parametrize("k", KS)
+def test_featurize_equals_jax(k):
+    _check_featurize(_seqs(_records(k)), k)
+
+
+@pytest.mark.parametrize("k", [4, 6])
+def test_featurize_chunked_segment_equals_jax(k):
+    """A record longer than 2 x SEG_LENGTH, whose segment is chunked (no
+    k-mer spans the chunk boundary), beside two short records and an N
+    run: few records, so the JAX side's padded batch stays small."""
+    rng = np.random.default_rng(20 + k)
+    L = 2 * jfio.SEG_LENGTH + 2307
+    raw = LETTERS[rng.integers(0, 4, size=L)].copy()
+    raw[1500: 1530] = ord("N")
+    seqs = _seqs([(">long", raw.tobytes())] + _records(k, n=2)[:2])
+    assert seqs[0].segments.shape[0] == 3
+    assert seqs[0].segments[1, 0] == seqs[0].segments[0, 1] + 1 \
+        or seqs[0].segments[2, 0] == seqs[0].segments[1, 1] + 1
+    _check_featurize(seqs, k)
+
+
+@pytest.mark.parametrize("k", KS)
 def test_plain_version_equals_pallas_interpret(k):
-    """kmer_hist's plain version on one padded batch with explicit masks,
-    against histogram_pallas (the TPU kernel) under the interpreter."""
+    """kmer_hist (its plain version, on the CPU) on the flat codes, against
+    histogram_pallas (the TPU kernel) under the interpreter on the JAX
+    package's padded batch with explicit masks."""
     import jax.numpy as jnp
     seqs = _seqs(_records(100 + k, n=12))
-    Lp = H.round_up(max(max(s.length for s in seqs), H.LANE), H.LANE)
-    codes, valid, inseg = JH.pad_batch(seqs, k, pad_to=Lp)
+    codes, valid, inseg = JH.pad_batch(seqs, k)
     want = np.asarray(JH.histogram_pallas(
         jnp.asarray(codes), jnp.asarray(valid), k, init=1, interpret=True))
-    packed, lens, valid_t, inseg_t = H.batch_inputs(seqs, k, Lp, "cpu")
-    counts, ones, mag, sq = H.kmer_hist(packed, lens, valid_t, inseg_t, k)
+    counts, ones, mag, sq, largest = H.kmer_hist(*_flat(seqs), k)
     np.testing.assert_array_equal(counts.numpy(), want)
     np.testing.assert_array_equal(mag.numpy(), want.astype(np.int64).sum(1))
+    np.testing.assert_array_equal(
+        sq.numpy(), (want.astype(np.int64) ** 2).sum(1))
+    assert int(largest[0]) == int(want.max())
+    np.testing.assert_array_equal(ones.numpy(), np.asarray(
+        JH.one_mer_counts(jnp.asarray(codes), jnp.asarray(inseg))))
 
 
 def test_length_masks_equal_explicit_masks():
-    """Single-segment batches derive their masks from the lengths; that
-    must count exactly what the explicit masks of pad_batch count."""
+    """Records that are one whole segment, and the same records with their
+    segments spelt out as explicit lists of pieces that touch (as chunking
+    leaves them): the first count what the length-derived masks count,
+    the second what io.fasta's explicit masks count."""
     rng = np.random.default_rng(7)
     seqs = _seqs([(f">r{i}", LETTERS[rng.integers(0, 4, size=int(
         rng.integers(20, 300)))].tobytes()) for i in range(30)])
-    Lp = 384
-    packed, lens, valid, inseg = H.batch_inputs(seqs, 4, Lp, "cpu")
-    assert valid is None and inseg is None
-    codes, v, s = H.pad_batch(seqs, 4, pad_to=Lp)
-    derived = H.kmer_hist(packed, lens, None, None, 4)
-    explicit = H.kmer_hist(packed, lens, torch.from_numpy(v),
-                           torch.from_numpy(s), 4)
-    for a, b in zip(derived, explicit):
-        assert torch.equal(a, b)
+    assert all(s.segments.tolist() == [[0, s.length - 1]] for s in seqs)
+    pieces = []
+    for s in seqs:
+        cut = int(rng.integers(1, s.length))
+        pieces.append(jfio.Sequence(s.header, s.codes, np.asarray(
+            [[0, cut - 1], [cut, s.length - 1]], np.int64)))
+    k = 4
+    for batch in (seqs, pieces):
+        counts, ones, _, _, _ = H.kmer_hist(*_flat(batch), k, init=0)
+        for r, s in enumerate(batch):
+            starts = np.nonzero(jfio.kmer_valid_starts(s, k))[0]
+            ids = np.zeros(starts.shape[0], np.int64)
+            for i in range(k):
+                ids = ids * 4 + s.codes[starts + i]
+            np.testing.assert_array_equal(
+                counts[r].numpy(), np.bincount(ids, minlength=4 ** k))
+            np.testing.assert_array_equal(ones[r].numpy(), np.bincount(
+                s.codes[jfio.in_segment_mask(s)], minlength=4))
+    whole = H.kmer_hist(*_flat(seqs), k)[0]
+    split = H.kmer_hist(*_flat(pieces), k)[0]
+    assert int((whole - split).min()) >= 0
+    assert int((whole - split).sum()) == sum(
+        min(k - 1, c, s.length - c) for s, c in
+        zip(seqs, (int(p.segments[1, 0]) for p in pieces)))
+
+
+def test_flat_inputs_equal_the_native_parser(tmp_path):
+    """flat_inputs of the parsed records is what parse_fasta_native
+    returns, the codes padded to a multiple of BLOCK bytes."""
+    from meshclust_tpu_torch import native
+    from meshclust_tpu_torch.io import fasta as fio
+    path = tmp_path / "c.fasta"
+    with open(path, "wb") as f:
+        for h, s in _records(5):
+            f.write(h.encode() + b"\n" + s + b"\n")
+    parsed = native.parse_fasta_native(str(path))
+    if parsed is None:
+        pytest.skip("the native parser did not build here (no g++)")
+    _, codes, rec_off, segs, seg_off = parsed
+    got = H.flat_inputs(fio.read_fasta(str(path)))
+    assert got[0].shape[0] % H.BLOCK == 0
+    np.testing.assert_array_equal(got[0][: codes.shape[0]], codes)
+    assert not got[0][codes.shape[0]:].any()
+    for a, b in zip(got[1:], (rec_off, segs, seg_off)):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == np.int64
 
 
 def test_kmer_hist_rejects_bad_operands():
-    packed = torch.zeros((2, 32), dtype=torch.uint8)
-    lens = torch.tensor([10, 20], dtype=torch.int32)
+    codes, rec_off, segs, seg_off = _flat(_seqs(_records(1, n=3)))
     with pytest.raises(ValueError):
-        H.kmer_hist(packed.to(torch.int32), lens, None, None, 3)
+        H.kmer_hist(codes.to(torch.int32), rec_off, segs, seg_off, 3)
     with pytest.raises(ValueError):
-        H.kmer_hist(packed, lens.to(torch.int64), None, None, 3)
+        H.kmer_hist(codes[:-1], rec_off, segs, seg_off, 3)
     with pytest.raises(ValueError):
-        H.kmer_hist(packed, lens, torch.zeros((2, 128), dtype=torch.uint8),
-                    None, 3)
+        H.kmer_hist(codes, rec_off.to(torch.int32), segs, seg_off, 3)
     with pytest.raises(ValueError):
-        H.kmer_hist(packed, lens, None, None, 16)
+        H.kmer_hist(codes, rec_off, segs.reshape(-1), seg_off, 3)
+    with pytest.raises(ValueError):
+        H.kmer_hist(codes, rec_off, segs, seg_off[:-1], 3)
+    with pytest.raises(ValueError):
+        H.kmer_hist(codes, rec_off, segs, seg_off, 16)
 
 
 def test_find_k_and_storage_dtype_equal_jax():

@@ -33,9 +33,6 @@ COPIED_OBJECTS = [
     ("core.points", "core.points", "_fma_1_minus_sq"),
     ("core.points", "core.points", "PointSet.distance"),
     ("core.points", "core.points", "PointSet.distance_row"),
-    ("ops.histogram", "ops.histogram", "pack_2bit"),
-    ("ops.histogram", "ops.histogram", "pad_batch"),
-    ("ops.histogram", "ops.histogram", "length_buckets"),
     ("ops.histogram", "ops.histogram", "find_k"),
     ("ops.histogram", "ops.histogram", "storage_dtype"),
     ("core.trainer", "core.trainer", "Trainer.split"),

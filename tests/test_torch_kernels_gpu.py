@@ -43,19 +43,33 @@ def _records(seed, n, lo, hi, n_frac=0.0, short=0):
     return out
 
 
-@pytest.mark.parametrize("k,n_frac,short", [(1, 0.0, 0), (4, 0.0, 0),
-                                            (7, 0.0, 0), (8, 0.0, 0),
-                                            (5, 0.5, 20)])
-def test_kmer_hist_kernel_equals_plain(cuda, k, n_frac, short):
-    seqs = _records(k, 300, 100, 1100, n_frac, short)
-    Lp = H.round_up(max(s.length for s in seqs), H.LANE)
-    packed, lens, valid, inseg = H.batch_inputs(seqs, k, Lp, cuda)
+def _kernel_equals_plain(cuda, flat, k, split):
+    t = [torch.from_numpy(a).to(cuda) for a in flat]
     before = _ext.launches["kmer_hist"]
-    got = H.kmer_hist(packed, lens, valid, inseg, k)
+    got = H.kmer_hist(*t, k, split=split)
     assert _ext.launches["kmer_hist"] == before + 1
-    want = H.kmer_hist_plain(packed, lens, valid, inseg, k)
+    want = H.kmer_hist_plain(*t, k)
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k,n_frac,short", [(1, 0.0, 0), (2, 0.0, 0),
+                                            (3, 0.0, 0), (4, 0.0, 0),
+                                            (6, 0.0, 0), (7, 0.0, 0),
+                                            (8, 0.0, 0), (5, 0.5, 20)])
+def test_kmer_hist_kernel_equals_plain(cuda, k, n_frac, short):
+    """Reads with N runs and records under 20 bp, and the schedule model's
+    edge corpus at the kernel's own shape (lengths at its block, step and
+    cluster-share edges, segments that touch or are shorter than k, record
+    offsets off the 16-byte grid), in rows and in split mode."""
+    from test_torch_kmer_schedule import OWN, corpus, edge_lengths
+    seqs = _records(k, 300, 100, 1100, n_frac, short)
+    edges = edge_lengths(**OWN) + [[(0, 30), (40, 90)],
+                                   [(0, 49), (50, 99), (100, 180)],
+                                   [(3, 5), (20, 60)], 10500]
+    for split in (False, True):
+        _kernel_equals_plain(cuda, H.flat_inputs(seqs), k, split)
+        _kernel_equals_plain(cuda, corpus(k, edges, lead=3), k, split)
 
 
 def test_device_aligner_cuda_equals_cpu(cuda):
