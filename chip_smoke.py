@@ -22,10 +22,14 @@ Phases (any failure exits non-zero before the last line):
   4. run each path on the GPU with the launch counts set to 0 just before
      it, and check that it launched both kernels, kmer_hist exactly once:
      - k-mer mode: 15,000 synthetic reads of ~1 kb, --id 0.90, default
-       flags; the native host libraries must have loaded and the partition
-       must match the planted species (NMI >= 0.95); then a small corpus
-       clustered on the GPU and on the CPU (plain versions) must give
-       byte-equal CLSTR files;
+       flags; the native host libraries must have loaded, the run must have
+       clustered on the device (DeviceBackend, device Phase A, the fused
+       Phase B with no replay fallback; its accumulate and phase_b seconds,
+       absorb iterations and readbacks printed) and the partition must
+       match the planted species (NMI >= 0.95); the same corpus rerun with
+       exact=True (HostBackend, host Phase A and B) must write a
+       byte-equal CLSTR file; then a small corpus clustered on the GPU and
+       on the CPU (plain versions) must give byte-equal CLSTR files;
      - align mode on genomes: a 6-virus mix of 9-12 kb genomes at --id 0.50,
        NMI against the planted species >= 0.889, and 32 pairs of the run's identity memo re-aligned
        by the plain version must give the same identities;
@@ -521,14 +525,58 @@ def check_nmi(clstr_path: str, least: float) -> None:
 
 
 def main_path(dev) -> dict:
+    """The k-mer path on the device, then the same corpus with exact=True
+    (the float64 host classifier and the host Phase A and B): the two
+    CLSTR files must be byte-equal."""
     from meshclust_tpu_torch import native
-    res, launches = drive(dev, "k-mer path --id 0.90", bench_corpus(),
-                          os.path.join(WORK, "smoke_15k.clstr"),
-                          similarity=0.90)
+    from meshclust_tpu_torch.core.classify import DeviceBackend, HostBackend
+    from meshclust_tpu_torch.core.meanshift import MeanShift
+    from meshclust_tpu_torch.utils import perf
+    out = os.path.join(WORK, "smoke_15k.clstr")
+    fused = []          # per call of the fused Phase B: its result was kept
+    run_phase_b = MeanShift.run_phase_b_device
+
+    def spy(self, centers):
+        kept = run_phase_b(self, centers)
+        fused.append(kept is not None)
+        return kept
+
+    MeanShift.run_phase_b_device = spy
+    try:
+        res, launches = drive(dev, "k-mer path --id 0.90", bench_corpus(),
+                              out, similarity=0.90)
+    finally:
+        MeanShift.run_phase_b_device = run_phase_b
+    phases, counters = perf.phases(), perf.counters()
     expect_launches("k-mer", launches)
     if native.get_lib() is None or native.get_refsort() is None:
         fail("the native fasta_parser or refsort library did not load")
-    check_nmi(os.path.join(WORK, "smoke_15k.clstr"), NMI_MIN)
+    if not isinstance(res["backend"], DeviceBackend):
+        fail(f"the k-mer run clustered on {type(res['backend']).__name__}, "
+             f"not DeviceBackend")
+    if counters.get("accum_centers", 0) <= 0:
+        fail("device Phase A did not run in the k-mer run")
+    if fused != [True]:
+        fail(f"the fused Phase B fell back to the host or did not run "
+             f"(kept per call: {fused})")
+    print(f"  clustered on the device: accumulate "
+          f"{phases.get('accumulate', 0.0):.4f} s, phase_b "
+          f"{phases.get('phase_b', 0.0):.4f} s, accum_iters "
+          f"{counters['accum_iters']:.0f}, accum_centers "
+          f"{counters['accum_centers']:.0f}, accum_readbacks "
+          f"{counters['accum_readbacks']:.0f}", flush=True)
+    check_nmi(out, NMI_MIN)
+    exact_out = os.path.join(WORK, "smoke_15k_exact.clstr")
+    res, _ = drive(dev, "k-mer path --id 0.90 --exact", bench_corpus(),
+                   exact_out, similarity=0.90, exact=True)
+    if not isinstance(res["backend"], HostBackend):
+        fail("the exact=True run did not cluster on HostBackend")
+    with open(out, "rb") as a, open(exact_out, "rb") as b:
+        same = a.read() == b.read()
+    print(f"  k-mer path device vs exact=True (host) CLSTR byte-equal: "
+          f"{same}", flush=True)
+    if not same:
+        fail("the k-mer run on the device and its exact=True rerun differ")
     return launches
 
 
@@ -651,6 +699,7 @@ def main() -> int:
               "meshclust_tpu_torch/csrc beside this script)", file=sys.stderr)
         return 1
     from meshclust_tpu_torch import _ext
+    t_start = time.time()
     os.makedirs(WORK, exist_ok=True)
     os.environ.setdefault("MESHCLUST_QUIET", "1")
     dev = torch.device("cuda", 0)
@@ -685,6 +734,7 @@ def main() -> int:
     small_parity(dev)
     genome = genome_path(dev)
     short_align_parity(dev)
+    print(f"  phases 1-4 took {time.time() - t_start:.1f} s", flush=True)
     # each kernel's launches from the two main paths
     for row in rows:
         row["launches"] = kmer[row["name"]] + genome[row["name"]]

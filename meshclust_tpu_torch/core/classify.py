@@ -9,22 +9,44 @@ Trainer.cpp:34-157,334-349) evaluates, for a (center, candidate) pair:
     positive <=> round(sigmoid(score)) == 1 <=> score >= 0
 f1 = the FIRST combo column value — the similarity used for argmax decisions.
 
-HostBackend: exact float64 numpy from integer sums, the k-mer-mode backend.
+DeviceBackend: the k-mer-mode default. The same float64 arithmetic as
+HostBackend, op for op, in torch on the histogram's device: man and dot are
+exact int64 sums, so decisions and f1 are bit-equal to HostBackend's. It
+also runs the fused Phase B (phase_b_loop) and lets MeanShift run Phase A
+on the device (core/accumulate_device.py).
+HostBackend: exact float64 numpy from integer sums (the parity oracle; the
+backend under --exact, and for features DeviceBackend does not compute).
 AlignBackend: align mode (--align or --id < 0.60), where the only feature is
 the global-alignment identity, computed in batches by the device aligner
-(ops/align_device.py:DeviceAligner) and memoized in _PairMemo. All three are
-carried over from meshclust_tpu/core/classify.py unchanged. The device
-classifier (DeviceBackend) is a later slice of the port (ROADMAP.md,
-queue 1).
+(ops/align_device.py:DeviceAligner) and memoized in _PairMemo.
+HostBackend, _PairMemo and AlignBackend are carried over from
+meshclust_tpu/core/classify.py unchanged.
+
+Float64 traps on the device, named where they bite below:
+  * an integer tensor divided by a number gives float32 in torch: every
+    integer statistic is cast to float64 before any division;
+  * on CUDA, a float tensor divided by a Python number (a CPU scalar) is
+    computed as a product with its reciprocal, one rounding off a true
+    division: every divisor here is a tensor on the device, or the power
+    of two 2.0, whose reciprocal product is exact;
+  * torch.addcmul, lerp and torch.compile may contract a*b + c into one
+    rounding (an FMA); no decision path uses them.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
+from meshclust_tpu_torch.core.meanshift import _DBL_MIN
 from meshclust_tpu_torch.core.points import PointSet
 from meshclust_tpu_torch.ops import features as F
+from meshclust_tpu_torch.utils.log import log
+
+# 46340^2 < 2^31: rows whose counts are at most this multiply in int32.
+_INT32_PRODUCT_MAX = 46340
 
 
 class HostBackend:
@@ -353,10 +375,352 @@ class AlignBackend:
         return out
 
 
+def row_dtype(largest: int) -> torch.dtype:
+    """Dtype of the histogram rows that the device classifier sums: int32
+    while the product of two counts fits it, else int64. Sums are int64,
+    so man, dot and the mean's sums are exact."""
+    return torch.int32 if largest <= _INT32_PRODUCT_MAX else torch.int64
+
+
+def mean_floor(sums: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """floor(sums / count), float64, as the reference truncates its double
+    mean (mean_select, ClusterFactory.cpp:382-425). count is an integer
+    tensor that broadcasts against sums; both are cast to float64 first
+    (an integer tensor divided would give float32) and the divisor stays a
+    device tensor (a Python number would divide as a reciprocal product on
+    CUDA)."""
+    return torch.floor(sums.to(torch.float64) / count.to(torch.float64))
+
+
+class Scorer:
+    """The trained classifier in float64 on one device.
+
+    __call__ is features.raw_from_sums followed by HostBackend.classify's
+    normalisation and combo sum, step for step and in the same order, so
+    positives and f1 are bit-equal to the host oracle's. The divisor V is a
+    device tensor (a Python number would be a CPU scalar; see the module
+    docstring)."""
+
+    def __init__(self, params: F.FeatureParams, V: int, device):
+        self.singles = tuple(params.singles)
+        self.combos = tuple((c, tuple(ix)) for c, ix in params.combos)
+        self.need_dot = bool({F.FEAT_SIMRATIO, F.FEAT_PEARSON}
+                             & set(self.singles))
+        f64 = {"dtype": torch.float64, "device": device}
+        self.V = torch.tensor(float(V), **f64)
+        self.mins = torch.as_tensor(params.mins, **f64)
+        self.spans = torch.as_tensor(params.maxs - params.mins, **f64)
+        self.is_sim = torch.as_tensor(params.is_sim, dtype=torch.bool,
+                                      device=device)
+        self.weights = [float(w) for w in params.weights]
+
+    def sums(self, h_a: torch.Tensor, h_b: torch.Tensor):
+        """(man, dot): sum |a - b| and sum a * b over the last axis, int64
+        (dot None when no feature reads it). Rows in row_dtype."""
+        man = (h_a - h_b).abs().sum(-1, dtype=torch.int64)
+        dot = (h_a * h_b).sum(-1, dtype=torch.int64) if self.need_dot \
+            else None
+        return man, dot
+
+    def __call__(self, man, dot, mag_a, mag_b, sq_a, sq_b, len_a, len_b):
+        """-> (positive bool, f1 float64). man and dot are int64 sums; the
+        per-sequence statistics are float64 and broadcast (a: the center
+        or the candidate center, b: the rows classified against it)."""
+        V = self.V
+        man = man.to(torch.float64)
+        dot = dot.to(torch.float64) if dot is not None else None
+        cols = []
+        for flag in self.singles:
+            if flag == F.FEAT_LD:
+                v = (len_a - len_b).abs()
+            elif flag == F.FEAT_MANHATTAN:
+                v = man
+            elif flag == F.FEAT_INTERSECTION:
+                min_sum = (mag_a + mag_b - man) / 2.0
+                v = 2.0 * min_sum / (mag_a + mag_b)
+            elif flag == F.FEAT_KULCZYNSKI2:
+                ap = mag_a / V
+                aq = mag_b / V
+                min_sum = (mag_a + mag_b - man) / 2.0
+                coeff = V * (ap + aq) / (2.0 * ap * aq)
+                v = coeff * min_sum
+            elif flag == F.FEAT_SIMRATIO:
+                norm2 = sq_a + sq_b - 2.0 * dot
+                v = dot / (dot + torch.sqrt(torch.clamp(norm2, min=0.0)))
+            elif flag == F.FEAT_PEARSON:
+                # C++ round(): half away from zero (mag/V > 0 => floor(x+0.5))
+                ap = torch.floor(mag_a / V + 0.5)
+                aq = torch.floor(mag_b / V + 0.5)
+                np_ = sq_a - 2.0 * ap * mag_a + V * ap * ap
+                nq_ = sq_b - 2.0 * aq * mag_b + V * aq * aq
+                dotc = dot - ap * mag_b - aq * mag_a + V * ap * aq
+                v = dotc / torch.sqrt(torch.clamp(np_ * nq_, min=0.5))
+            else:
+                raise AssertionError(flag)
+            cols.append(v)
+        cache = torch.stack(cols, dim=-1)
+        norm = (cache - self.mins) / self.spans
+        norm = torch.where(self.is_sim, norm, 1.0 - norm)
+        score = torch.full(cache.shape[:-1], self.weights[0],
+                           dtype=torch.float64, device=cache.device)
+        f1 = None
+        for j, (combo, idx) in enumerate(self.combos):
+            prod = torch.ones_like(score)
+            for i in idx:
+                c = norm[..., i]
+                prod = prod * (c * c if combo == F.COMBO_SQUARED else c)
+            if j == 0:
+                f1 = prod
+            score = score + self.weights[j + 1] * prod
+        return score >= 0.0, f1
+
+
+class DeviceBackend:
+    """The float64 classifier in torch, where the histogram lives.
+
+    The histogram stays where featurization left it (ps.hist_dev, storage
+    dtype); gathered rows are widened to row_dtype. mag, sq and lengths are
+    on the device once, as float64 (exact integers). Each call makes its
+    decisions on the device and reads back once. Only the default singles
+    are computed here; a model with ALIGN, JS, SQCHORD or RREE_K_R raises
+    ValueError, and make_backend gives it HostBackend."""
+
+    SUPPORTED = (F.FEAT_LD, F.FEAT_MANHATTAN, F.FEAT_INTERSECTION,
+                 F.FEAT_PEARSON, F.FEAT_SIMRATIO, F.FEAT_KULCZYNSKI2)
+    supports_device_accumulate = True
+
+    def __init__(self, ps: PointSet, params: F.FeatureParams, mesh=None):
+        for s in params.singles:
+            if s not in self.SUPPORTED:
+                raise ValueError(f"single {s} not supported on device")
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-GPU clustering is not ported yet (ROADMAP.md queue 1, "
+                "slice 9 of the port)")
+        self.ps = ps
+        self.params = params
+        # cheap always-on numerics guard: degenerate normalization bounds or
+        # non-finite weights produce NaN scores downstream
+        spans = (np.asarray(params.maxs, np.float64)
+                 - np.asarray(params.mins, np.float64))
+        if np.any(spans <= 0) or not np.all(np.isfinite(params.weights)):
+            log(f"WARNING: degenerate classifier params (bound spans "
+                f"{spans.tolist()}, weights finite="
+                f"{bool(np.all(np.isfinite(params.weights)))}) — scores may "
+                f"be NaN")
+        dev = ps.device
+        self.hist_dev = ps.hist_dev
+        largest = int(ps.hist_dev.max()) if ps.hist_dev.numel() else 0
+        self.rows = row_dtype(largest)
+        f64 = {"dtype": torch.float64, "device": dev}
+        self.mag = torch.as_tensor(ps.mag, **f64)
+        self.sq = torch.as_tensor(ps.sq, **f64)
+        self.len = torch.as_tensor(ps.lengths, **f64)
+        self.scorer = Scorer(params, ps.V, dev)
+
+    def _idx(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int64), device=self.ps.device)
+
+    def _score(self, a: torch.Tensor, b: torch.Tensor, h_b=None):
+        """(positive, f1) of the pairs (a[t], b[t]) (a may be one row);
+        h_b: b's rows when the caller holds them. Indices are 1-D tensors:
+        torch reads a 0-dim index tensor back to the host, like .item()."""
+        h_a = self.hist_dev[a].to(self.rows)
+        if h_b is None:
+            h_b = self.hist_dev[b].to(self.rows)
+        man, dot = self.scorer.sums(h_a, h_b)
+        return self.scorer(man, dot, self.mag[a], self.mag[b], self.sq[a],
+                           self.sq[b], self.len[a], self.len[b])
+
+    def classify(self, center: int, window: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """-> (positive bool [W], f1 float64 [W])."""
+        if window.shape[0] == 0:
+            return np.zeros(0, bool), np.zeros(0)
+        pos, f1 = self._score(self._idx([center]), self._idx(window))
+        return pos.cpu().numpy(), f1.cpu().numpy()
+
+    def get_close(self, center: int, window: np.ndarray
+                  ) -> Tuple[np.ndarray, bool, int]:
+        """Fused accumulate step: (marks bool [W], is_min, best_pos), best
+        the first max of f1. One readback (ref Trainer::get_close)."""
+        W = window.shape[0]
+        if W == 0:
+            return np.zeros(0, bool), True, -1
+        pos, f1 = self._score(self._idx([center]), self._idx(window))
+        # the first max: a masked min over indices, not argmax's choice
+        best = torch.where(f1 == f1.max(), torch.arange(W, device=f1.device),
+                           W).min()
+        out = torch.cat([pos.to(torch.int64),
+                         torch.stack([(~pos.any()).to(torch.int64), best])])
+        out = out.cpu().numpy()
+        best = int(out[W + 1])
+        return out[:W] != 0, bool(out[W]), (best if best < W else -1)
+
+    def classify_pairs(self, a_idx: np.ndarray, b_idx: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """Batched (a, b) pair classification — one device call for e.g. a
+        whole merge band (ref Trainer::merge window, batched)."""
+        if a_idx.shape[0] == 0:
+            return np.zeros(0, bool), np.zeros(0)
+        pos, f1 = self._score(self._idx(a_idx), self._idx(b_idx))
+        return pos.cpu().numpy(), f1.cpu().numpy()
+
+    # -- Phase B ------------------------------------------------------------
+    def _band_argmin(self, m_idx, h_m, assign, c_idx, c_valid, delta):
+        """The banded mean_shift_update (ClusterFactory.cpp:290-380,
+        382-425): for each center j, its pool is the members m with
+        |assign[m] - j| <= delta; the classifier-positive pool members give
+        the mean; the positive member closest to the mean by distance_d
+        wins, the first in pool order (member position) on ties. Returns the
+        winner's member position per center, M for none.
+
+        assign need not be sorted (after a merge it is not): every segment
+        reduction is index_add_ on int64 or scatter_reduce_ "amin", exact
+        whatever the order of the atomics."""
+        M, V = h_m.shape
+        C = c_idx.shape[0]
+        dev = h_m.device
+        sums = torch.zeros((C, V), dtype=torch.int64, device=dev)
+        counts = torch.zeros(C, dtype=torch.int64, device=dev)
+        pos_all, jcs = [], []
+        for o in range(-delta, delta + 1):
+            j = assign + o
+            jc = j.clamp(0, C - 1)
+            pos, _ = self._score(c_idx[jc], m_idx, h_b=h_m)
+            pos = pos & (j >= 0) & (j < C) & c_valid[jc]
+            sums.index_add_(0, jc, torch.where(pos[:, None], h_m, 0).to(
+                torch.int64))
+            counts.index_add_(0, jc, pos.to(torch.int64))
+            pos_all.append(pos)
+            jcs.append(jc)
+        cw = mean_floor(sums, counts.clamp(min=1)[:, None])
+        cw_rows = cw.to(self.rows)
+        cw_sum = cw.sum(1)                 # exact: integers below 2^53
+        mag_m = self.mag[m_idx]
+        best_d = torch.full((C,), float("inf"), dtype=torch.float64,
+                            device=dev)
+        ds = []
+        for pos, jc in zip(pos_all, jcs):
+            dist = 2 * torch.minimum(h_m, cw_rows[jc]).sum(
+                1, dtype=torch.int64)
+            # floor(h + mean) = h + floor(mean) for integer h, so mean_select's
+            # mag, sum(floor(h + mean)), is mag + sum(floor(mean))
+            frac = dist.to(torch.float64) / (mag_m + cw_sum[jc])
+            # two roundings, as mean_select: no FMA
+            d = 10000.0 * (1.0 - frac * frac)
+            d = torch.where(pos, d, float("inf"))
+            best_d.scatter_reduce_(0, jc, d, reduce="amin")
+            ds.append(d)
+        best_pos = torch.full((C,), M, dtype=torch.int64, device=dev)
+        pool_pos = torch.arange(M, device=dev)
+        for pos, jc, d in zip(pos_all, jcs, ds):
+            tie = (d == best_d[jc]) & pos
+            best_pos.scatter_reduce_(0, jc, torch.where(tie, pool_pos, M),
+                                     reduce="amin")
+        return best_pos
+
+    def update_banded(self, members: np.ndarray, assign: np.ndarray,
+                      center_rows: np.ndarray, delta: int) -> np.ndarray:
+        """One full update sweep. members [M] point rows in pool order,
+        assign [M] center indices, center_rows [C]. Returns the new center
+        point row per center (or -1 = none)."""
+        C = center_rows.shape[0]
+        M = members.shape[0]
+        if C == 0 or M == 0:
+            return np.full(C, -1, np.int64)
+        m_idx = self._idx(members)
+        c_idx = self._idx(center_rows)
+        valid = torch.ones(C, dtype=torch.bool, device=c_idx.device)
+        best_pos = self._band_argmin(
+            m_idx, self.hist_dev[m_idx].to(self.rows), self._idx(assign),
+            c_idx, valid, delta).cpu().numpy()
+        out = np.full(C, -1, np.int64)
+        ok = best_pos < M
+        out[ok] = members[best_pos[ok]]
+        return out
+
+    def phase_b_loop(self, members: np.ndarray, assign: np.ndarray,
+                     center_rows: np.ndarray, delta: int, iterations: int):
+        """All Phase B iterations (update, then merge; ClusterFactory.cpp
+        738-753) as host-issued rounds of device ops, read back once at the
+        end. Returns (assign [M] center per original member slot,
+        center_rows [C], valid [C], t_hist [iterations, C]) as numpy;
+        valid centers are a dense prefix, and t_hist[i] holds iteration i's
+        merge target per center slot (its own slot when it stays), which
+        MeanShift.run_phase_b_device replays on the host.
+
+        Member pools keep the static original member order, where the
+        reference re-concatenates member lists after each merge: on a
+        distance tie between members that a merge brought together, this
+        loop and the per-iteration path (update_banded) may pick different
+        members."""
+        M = members.shape[0]
+        C = center_rows.shape[0]
+        m_idx = self._idx(members)
+        h_m = self.hist_dev[m_idx].to(self.rows)      # once per phase
+        assign_t = self._idx(assign)
+        c_idx = self._idx(center_rows)
+        dev = c_idx.device
+        c_valid = torch.ones(C, dtype=torch.bool, device=dev)
+        idx_c = torch.arange(C, device=dev)
+        n_jump = max(1, math.ceil(math.log2(max(2, C))))
+        t_hist = torch.empty((iterations, C), dtype=torch.int64, device=dev)
+        for it in range(iterations):
+            best_pos = self._band_argmin(m_idx, h_m, assign_t, c_idx,
+                                         c_valid, delta)
+            moved = (best_pos < M) & c_valid
+            c_idx = torch.where(moved, m_idx[best_pos.clamp(max=M - 1)],
+                                c_idx)
+            # merge (ClusterFactory.cpp:427-493, Trainer::merge): each center
+            # i takes the first max f1 among the classifier-positive centers
+            # in (i, i + delta], strictly above DBL_MIN (Trainer.cpp:132-135)
+            best_f1 = torch.full((C,), _DBL_MIN, dtype=torch.float64,
+                                 device=dev)
+            best_t = idx_c
+            h_i = self.hist_dev[c_idx].to(self.rows)
+            for o in range(1, delta + 1):
+                j = idx_c + o
+                jc = j.clamp(max=C - 1)
+                pos, f1 = self._score(c_idx[jc], c_idx, h_b=h_i)
+                cand = pos & (j < C) & c_valid & c_valid[jc] & (f1 > best_f1)
+                best_f1 = torch.where(cand, f1, best_f1)
+                best_t = torch.where(cand, jc, best_t)
+            t = torch.where(c_valid, best_t, idx_c)
+            t_hist[it] = t
+            # follow the merge chains i -> t(i) -> ...: t only moves up, so
+            # ceil(log2 C) pointer jumps reach each chain's end
+            T = t
+            for _ in range(n_jump):
+                T = T[T]
+            kept = c_valid & (t == idx_c)
+            newpos = torch.cumsum(kept.to(torch.int64), 0) - 1
+            assign_t = newpos[T[assign_t]]
+            dest = torch.where(kept, newpos, C)
+            c_idx = torch.zeros(C + 1, dtype=torch.int64, device=dev
+                                ).scatter_(0, dest, c_idx)[:C]
+            c_valid = torch.zeros(C + 1, dtype=torch.bool, device=dev
+                                  ).scatter_(0, dest, kept)[:C]
+        out = torch.cat([assign_t, c_idx, c_valid.to(torch.int64),
+                         t_hist.flatten()]).cpu().numpy()
+        return (out[:M], out[M: M + C], out[M + C: M + 2 * C] != 0,
+                out[M + 2 * C:].reshape(iterations, C))
+
+
 def make_backend(ps: PointSet, params: F.FeatureParams,
-                 align_fn: Optional[Callable] = None, aligner=None):
+                 align_fn: Optional[Callable] = None, exact: bool = False,
+                 aligner=None):
     """AlignBackend for an align-mode model (the alignment identity is its
-    only feature) when an aligner is given; HostBackend otherwise."""
-    if tuple(params.singles) == (F.FEAT_ALIGN,) and aligner is not None:
-        return AlignBackend(ps, params, aligner)
+    only feature) when an aligner is given; DeviceBackend otherwise; the
+    float64 host oracle, HostBackend, under `exact` or for a model with a
+    feature DeviceBackend does not compute (a choice between feature sets,
+    not a fallback from the device)."""
+    if not exact:
+        if (tuple(params.singles) == (F.FEAT_ALIGN,)
+                and aligner is not None):
+            return AlignBackend(ps, params, aligner)
+        try:
+            return DeviceBackend(ps, params)
+        except ValueError:
+            pass
     return HostBackend(ps, params, align_fn=align_fn)

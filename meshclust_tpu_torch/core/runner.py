@@ -4,9 +4,12 @@ Pipeline (Runner.cpp:25-90, 321-375): input collection (basename-sorted),
 auto-k, featurization, dtype scan, training, bvec fill, mean-shift, CLSTR.
 
 Featurization, the pivot distance rows and every alignment run on the
-device. In k-mer mode clustering runs through the float64 host classifier
-(HostBackend); in align mode (--align or --id < 0.60) every decision is an
-alignment identity from the device aligner (AlignBackend).
+device. In k-mer mode clustering runs there too: the float64 device
+classifier (DeviceBackend), Phase A on the device and the fused Phase B;
+--exact (cfg.exact) selects the float64 host classifier (HostBackend) and
+the host Phase A and B instead. In align mode (--align or --id < 0.60)
+every decision is an alignment identity from the device aligner
+(AlignBackend).
 """
 from __future__ import annotations
 
@@ -51,8 +54,9 @@ def run(cfg: ClusterConfig,
         device: Optional[Union[str, torch.device]] = None) -> dict:
     """Cluster cfg.files into cfg.output on `device` (None: CUDA).
 
-    cfg.exact changes nothing here: the classifier is already the float64
-    host backend. The checkpoint option is not carried over yet."""
+    cfg.exact selects HostBackend, the float64 host oracle, for every
+    clustering decision, as in the JAX package. The checkpoint option is not
+    carried over yet."""
     dev = D.resolve(device)
     if cfg.checkpoint:
         raise NotImplementedError(
@@ -103,7 +107,7 @@ def run(cfg: ClusterConfig,
         return aligner.identities([(int(j), center) for j in idxs])
 
     backend = C.make_backend(ps, model.params, align_fn=align_fn,
-                             aligner=aligner)
+                             exact=cfg.exact, aligner=aligner)
 
     bv = BVec(ps.lengths.copy(), cfg.bin_size)
     bv.bulk_insert(ps.lengths)

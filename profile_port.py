@@ -3,7 +3,7 @@
 
 Run from the repository root, after chip_smoke.py has passed:
     python3 profile_port.py [--parts throughput,busy,variants,compare,e2e,
-                                     feat,kvariants,sass]
+                                     feat,kvariants,sass,cluster]
                             [--against OLD.cu ...] [--variants "R,T,K ..."]
                             [--parent DIR] [--kmer-variants "SPEC ..."]
 
@@ -53,6 +53,16 @@ Parts (default: throughput,busy):
               of the rows, a copy of the codes).
   sass        opcode counts of nw_align_long_kernel and the kmer_hist
               kernels in each library built by the run (cuobjdump -sass).
+  cluster     k-mer-mode clustering on the device (DeviceBackend, Phase A
+              in core/accumulate_device.py, the fused Phase B), on the
+              smoke's 15k-read corpus (after a warm-up run) and on the
+              150k-read corpus of bench.py:make_dataset: one run's wall,
+              phases and counters (ms per absorb iteration and per Phase B
+              iteration from its phase times); the busy share of a profiled
+              run; then Phase A and Phase B alone on that run's points and
+              model under the profiler: wall, device time, busy share, and
+              kernel launches, host-device copies, wall and device ms per
+              iteration.
 Every line starts with the card's name and power limit or follows one that
 does, so each number can be kept beside the card it came from.
 """
@@ -112,14 +122,16 @@ def nw_throughput(dev) -> None:
                                  ms), flush=True)
 
 
-def busy_share(dev, label: str, fasta: str, **cfg) -> None:
+def busy_share(dev, label: str, fasta: str, warm: bool = True,
+               **cfg) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     from meshclust_tpu_torch.config import ClusterConfig
     from meshclust_tpu_torch.core.runner import run
     from meshclust_tpu_torch.utils import perf
-    run(ClusterConfig(files=[fasta], output=os.path.join(
-        smoke.WORK, "warm.clstr"), **cfg), device=dev)
+    if warm:
+        run(ClusterConfig(files=[fasta], output=os.path.join(
+            smoke.WORK, "warm.clstr"), **cfg), device=dev)
     perf.reset()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -130,12 +142,110 @@ def busy_share(dev, label: str, fasta: str, **cfg) -> None:
         torch.cuda.synchronize()
     wall = time.time() - t0
     ka = prof.key_averages()
-    dev_s = sum(e.self_device_time_total for e in ka) / 1e6
+    dev_s = device_seconds(ka)
     print(f"  {label} profiled wall {wall:.3f} s, device self time "
           f"{dev_s:.4f} s, busy share {dev_s / wall:.4f}", flush=True)
     print(f"  phases {json.dumps(perf.phases())}", flush=True)
     print(ka.table(sort_by="self_device_time_total", row_limit=12),
           flush=True)
+
+
+def device_seconds(ka) -> float:
+    """Device time of a profile's key_averages: the device's own events
+    (kernels, copies) only. The host ops that launched them carry the same
+    time as their self device time, so summing every event counts it
+    twice (as the profiler's table does not)."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in ka
+               if e.device_type == DeviceType.CUDA) / 1e6
+
+
+# host-side events of torch.profiler that launch a kernel or copy memory
+LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+COPY_EVENTS = ("cudaMemcpyAsync", "cudaMemcpy")
+
+
+def profiled(fn):
+    """(fn(), wall s, device self s, kernel launches, memory copies) of one
+    call of fn under torch.profiler, ending in a synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    ka = prof.key_averages()
+    return (out, wall, device_seconds(ka),
+            sum(e.count for e in ka if e.key in LAUNCH_EVENTS),
+            sum(e.count for e in ka if e.key in COPY_EVENTS))
+
+
+def piece_line(label: str, wall: float, dev_s: float, launches: int,
+               copies: int, iters: float) -> str:
+    return (f"{label}: wall {wall:.4f} s, device {dev_s:.4f} s, busy share "
+            f"{dev_s / wall:.4f}; {iters:.0f} iterations: {launches} "
+            f"launches ({launches / iters:.1f} an iteration), {copies} "
+            f"copies, wall {wall * 1e3 / iters:.4f} ms and device "
+            f"{dev_s * 1e3 / iters:.4f} ms an iteration")
+
+
+def cluster(dev, label: str, fasta: str, warm: bool, **cfg) -> None:
+    """The k-mer path's clustering on the device (see the cluster part in
+    the module docstring)."""
+    import torch
+    from meshclust_tpu_torch.config import ClusterConfig
+    from meshclust_tpu_torch.core.accumulate_device import accumulate_device
+    from meshclust_tpu_torch.core.bvec import BVec
+    from meshclust_tpu_torch.core.runner import run
+    from meshclust_tpu_torch.utils import perf
+    cfg = ClusterConfig(files=[fasta], output=os.path.join(
+        smoke.WORK, "cluster.clstr"), **cfg).finalize()
+    if warm:
+        run(cfg, device=dev)
+    perf.reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = run(cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    phases, counters = perf.phases(), perf.counters()
+    ps = res["pointset"]
+    print(f"  {label}: {ps.n} sequences, {res['n_clusters']} clusters, "
+          f"backend {type(res['backend']).__name__}, wall {wall:.3f} s",
+          flush=True)
+    print(f"    phases {json.dumps(phases)}", flush=True)
+    print(f"    counters {json.dumps(counters)}", flush=True)
+    iters = counters.get("accum_iters", 0.0)
+    print(f"    ms per absorb iteration (accumulate phase / accum_iters): "
+          f"{phases.get('accumulate', 0.0) * 1e3 / max(iters, 1):.4f}; ms "
+          f"per Phase B iteration (phase_b phase / {cfg.iterations}): "
+          f"{phases.get('phase_b', 0.0) * 1e3 / cfg.iterations:.4f}",
+          flush=True)
+    busy_share(dev, label, fasta, warm=False, similarity=cfg.similarity)
+    # Phase A and the fused Phase B alone, on this run's points and model
+    bv = BVec(ps.lengths.copy(), cfg.bin_size)
+    bv.bulk_insert(ps.lengths)
+    bv.insert_finalize()
+    params = res["model"].params
+    perf.reset()
+    centers, wall, dev_s, launches, copies = profiled(
+        lambda: accumulate_device(ps, bv, params, cfg.similarity))
+    print("    " + piece_line("Phase A alone", wall, dev_s, launches, copies,
+                              perf.counters()["accum_iters"]), flush=True)
+    members = np.asarray([m for c in centers for m in c.members], np.int64)
+    assign = np.repeat(np.arange(len(centers)),
+                       [len(c.members) for c in centers])
+    rows = np.asarray([c.center for c in centers], np.int64)
+    _, wall, dev_s, launches, copies = profiled(
+        lambda: res["backend"].phase_b_loop(members, assign, rows, cfg.delta,
+                                            cfg.iterations))
+    print("    " + piece_line(f"fused Phase B alone ({len(centers)} centers, "
+                              f"{members.shape[0]} members)", wall, dev_s,
+                              launches, copies, cfg.iterations), flush=True)
 
 
 @contextlib.contextmanager
@@ -605,6 +715,12 @@ def main() -> int:
     if "sass" in parts:
         print("SASS of the kernels", flush=True)
         sass()
+    if "cluster" in parts:
+        print("k-mer-mode clustering on the device", flush=True)
+        cluster(dev, "k-mer path --id 0.90, 15k reads", smoke.bench_corpus(),
+                True, similarity=0.90)
+        cluster(dev, "k-mer path --id 0.90, 150k reads",
+                smoke.bench_corpus(n=150000), False, similarity=0.90)
     if "busy" in parts:
         print("device busy share of the main paths", flush=True)
         busy_share(dev, "k-mer path --id 0.90", smoke.bench_corpus(),

@@ -1,9 +1,10 @@
 """End to end, the port against the JAX package on two seeded corpora (one
 with N runs): the port's run() on the CPU (every kernel through its plain
-PyTorch version) must write a CLSTR byte-equal to meshclust_tpu's run() with
-exact=True, and the port's MeanShift, given the JAX-trained model and
-points through convert.py, must find the same centers and members as the
-JAX run.
+PyTorch version), by default (DeviceBackend, device Phase A, fused Phase B)
+and with exact=True (HostBackend), must write a CLSTR byte-equal to
+meshclust_tpu's run() with exact=True, and the port's MeanShift, given the
+JAX-trained model and points through convert.py, must find the same centers
+and members as the JAX run with either backend.
 """
 import numpy as np
 import pytest
@@ -40,11 +41,11 @@ def write_corpus(path, seed, n_runs, n_species=6, per=20, L=160):
     return str(path)
 
 
-def run_port(fasta, out):
+def run_port(fasta, out, exact=False):
     from meshclust_tpu_torch.config import ClusterConfig
     from meshclust_tpu_torch.core.runner import run
     run(ClusterConfig(files=[fasta], similarity=0.90, output=out,
-                      sample_size=300), device="cpu")
+                      sample_size=300, exact=exact), device="cpu")
     with open(out, "rb") as f:
         return f.read()
 
@@ -64,24 +65,31 @@ def runs(request, tmp_path_factory):
     d = tmp_path_factory.mktemp(f"e2e_{request.param}")
     fasta = write_corpus(d / "corpus.fasta", seed, n_runs)
     port = run_port(fasta, str(d / "port.clstr"))
+    port_exact = run_port(fasta, str(d / "port_exact.clstr"), exact=True)
     jax_clstr, jax_res = run_jax(fasta, str(d / "jax_exact.clstr"), True)
-    return port, jax_clstr, jax_res
+    return port, jax_clstr, jax_res, port_exact
 
 
 def test_clstr_equals_jax_exact(runs):
-    port, jax_clstr, jax_res = runs
+    port, jax_clstr, jax_res, _ = runs
     assert jax_res["n_clusters"] >= 2
     assert port == jax_clstr
 
 
-def test_meanshift_equals_jax_given_jax_model(runs):
-    """Clustering alone: the JAX-trained model and points, carried over by
-    convert.py, drive the port's MeanShift to the JAX run's centers."""
+def test_clstr_exact_equals_jax_exact(runs):
+    _, jax_clstr, _, port_exact = runs
+    assert port_exact == jax_clstr
+
+
+def meanshift_given_jax_model(runs, exact):
+    """The port's MeanShift, on make_backend(exact=exact), driven by the
+    JAX-trained model and points carried over by convert.py: (centers,
+    backend)."""
     from meshclust_tpu_torch import convert
     from meshclust_tpu_torch.core.bvec import BVec
     from meshclust_tpu_torch.core.classify import make_backend
     from meshclust_tpu_torch.core.meanshift import MeanShift
-    _, _, jax_res = runs
+    jax_res = runs[2]
     jps = jax_res["pointset"]
     jparams = jax_res["model"].params
     ps = convert.pointset_from_numpy(
@@ -93,10 +101,27 @@ def test_meanshift_equals_jax_given_jax_model(runs):
     bv = BVec(ps.lengths.copy(), 1000)
     bv.bulk_insert(ps.lengths)
     bv.insert_finalize()
-    centers = MeanShift(ps, make_backend(ps, params), sim=0.90, delta=5,
+    backend = make_backend(ps, params, exact=exact)
+    centers = MeanShift(ps, backend, sim=0.90, delta=5,
                         iterations=15).run(bv)
     want = [(c.center, list(c.members)) for c in jax_res["centers"]]
     assert [(c.center, list(c.members)) for c in centers] == want
+    return centers, backend
+
+
+def test_meanshift_equals_jax_given_jax_model(runs):
+    """Clustering alone: the JAX-trained model and points drive the port's
+    MeanShift, on DeviceBackend, to the JAX run's centers."""
+    from meshclust_tpu_torch.core.classify import DeviceBackend
+    _, backend = meanshift_given_jax_model(runs, exact=False)
+    assert isinstance(backend, DeviceBackend)
+
+
+def test_meanshift_host_backend_equals_jax_given_jax_model(runs):
+    """The same on HostBackend (exact=True)."""
+    from meshclust_tpu_torch.core.classify import HostBackend
+    _, backend = meanshift_given_jax_model(runs, exact=True)
+    assert isinstance(backend, HostBackend)
 
 
 def test_make_backend_picks_align_backend(tmp_path):

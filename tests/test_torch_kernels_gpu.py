@@ -1,11 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU,
-and the paths through them (DeviceAligner, k-mer mode, align mode) against
-the same paths on the CPU.
+and the paths through them (DeviceAligner, k-mer mode, align mode) and the
+float64 device classifier (DeviceBackend, Phase A, Phase B) against the
+same on the CPU.
 
 Run on a machine with a CUDA GPU and nvcc (tests/conftest.py imports jax,
 which such a machine may lack, and nothing here needs it):
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu
-Without CUDA every test skips. Tolerance: exact equality (integer outputs).
+Without CUDA every test skips. Tolerance: exact equality (integer outputs,
+float64 decisions and f1).
 """
 import numpy as np
 import pytest
@@ -193,3 +195,56 @@ def test_run_align_mode_cuda_equals_cpu(cuda, tmp_path):
     assert _ext.launches["nw_align_long"] > 0
     with open(outs["gpu"], "rb") as a, open(outs["cpu"], "rb") as b:
         assert a.read() == b.read()
+
+
+def test_device_backend_cuda_equals_host(cuda):
+    """DeviceBackend on the card against HostBackend on the host, on the
+    toy classifier as trained and with scores shifted to within 1e-12 of
+    0, at counts whose products fit int32 and at counts that need int64:
+    decisions and f1 bit-equal. Then Phase A and the fused Phase B on the
+    card against the same on the CPU (which the CPU tests hold to the host
+    path): the same centers, members and merge history."""
+    from test_torch_device_backend import (CENTERS, SHIFTS, shifted,
+                                           toy_model, toy_points)
+    from meshclust_tpu_torch.core import classify as C
+    from meshclust_tpu_torch.core.accumulate_device import accumulate_device
+    from meshclust_tpu_torch.core.bvec import BVec
+    rng = np.random.default_rng(3)
+    for scale in (1, 5000):
+        hist, mag, sq, lens, trained = toy_model(scale=scale)
+        host = toy_points(hist, mag, sq, lens)
+        card = toy_points(hist, mag, sq, lens, device=cuda)
+        window = np.arange(host.n)
+        for q in SHIFTS:
+            params, _ = shifted(trained, host, q)
+            hb = C.HostBackend(host, params)
+            db = C.DeviceBackend(card, params)
+            for center in CENTERS:
+                want_pos, want_f1 = hb.classify(center, window)
+                got_pos, got_f1 = db.classify(center, window)
+                np.testing.assert_array_equal(got_pos, want_pos)
+                assert np.array_equal(got_f1, want_f1)
+            a = rng.integers(0, host.n, size=200)
+            b = rng.integers(0, host.n, size=200)
+            got_pos, got_f1 = db.classify_pairs(a, b)
+            for t in range(a.shape[0]):
+                want_pos, want_f1 = hb.classify(int(a[t]), b[t: t + 1])
+                assert got_pos[t] == want_pos[0]
+                assert got_f1[t] == want_f1[0]
+        params, _ = shifted(trained, host, 0.5)
+        out = {}
+        for name, ps in (("cpu", host), ("cuda", card)):
+            bv = BVec(ps.lengths.copy(), 40)
+            bv.bulk_insert(ps.lengths)
+            bv.insert_finalize()
+            centers = accumulate_device(ps, bv, params, 0.90)
+            members = np.asarray([m for c in centers for m in c.members])
+            assign = np.repeat(np.arange(len(centers)),
+                               [len(c.members) for c in centers])
+            rows = np.asarray([c.center for c in centers])
+            loop = C.DeviceBackend(ps, params).phase_b_loop(
+                members, assign, rows, 5, 4)
+            out[name] = ([(c.center, c.members) for c in centers], loop)
+        assert out["cuda"][0] == out["cpu"][0]
+        for g, w in zip(out["cuda"][1], out["cpu"][1]):
+            np.testing.assert_array_equal(g, w)

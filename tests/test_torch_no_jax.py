@@ -3,8 +3,9 @@ to the CPU.
 
 Each test starts a fresh interpreter in which `import jax` fails (as on a
 GPU machine without jax), imports the port, and drives it: through
-run(device="cpu") on a tiny corpus, in k-mer mode and in align mode, and
-through the CLI with CUDA hidden, which must exit non-zero with a message.
+run(device="cpu") on a tiny corpus, in k-mer mode (DeviceBackend, device
+Phase A, fused Phase B) and in align mode (AlignBackend), and through the
+CLI with CUDA hidden, which must exit non-zero with a message.
 """
 import os
 import subprocess
@@ -31,10 +32,12 @@ def _python(code, tmp_path, env_extra=None):
                           text=True, timeout=300)
 
 
-@pytest.mark.parametrize("mode", ["similarity=0.90, sample_size=200",
-                                  "similarity=0.50"],
+@pytest.mark.parametrize("mode,backend",
+                         [("similarity=0.90, sample_size=200",
+                           "DeviceBackend"),
+                          ("similarity=0.50", "AlignBackend")],
                          ids=["kmer_mode", "align_mode"])
-def test_port_runs_without_jax(mode, tmp_path):
+def test_port_runs_without_jax(mode, backend, tmp_path):
     fasta = write_corpus(tmp_path / "tiny.fasta", 5, True, n_species=3,
                          per=10, L=150)
     out = tmp_path / "tiny.clstr"
@@ -46,6 +49,7 @@ res = run(ClusterConfig(files=[{fasta!r}], output={str(out)!r}, {mode}),
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 assert not any(m == "meshclust_tpu" or m.startswith("meshclust_tpu.")
                for m in sys.modules)
+assert type(res["backend"]).__name__ == {backend!r}
 print("clusters", res["n_clusters"])
 """, tmp_path)
     assert proc.returncode == 0, proc.stderr[-2000:]
