@@ -35,8 +35,22 @@ Phases (any failure exits non-zero before the last line):
        by the plain version must give the same identities;
      - align mode on short reads (--align --id 0.90): GPU and CPU CLSTR
        files must be byte-equal;
-  5. print one JSON line per the contract, the card line, and the final
-     {"ok": true, ...} line.
+  5. checkpoint, trace and Red:
+     - the 15k k-mer run with checkpoint=PREFIX must write both JSON
+       files; its rerun must resume both (no train, no accumulate phase),
+       cluster on DeviceBackend with the fused Phase B, launch kmer_hist
+       once and the NW kernel never, and write the same CLSTR;
+     - the genome align-mode run under MESHCLUST_TRACE must write one
+       trace that names the NW kernel and the kmer_hist kernel it ran, and
+       the same CLSTR as without the trace;
+     - Red (meshclust_tpu_torch.red, host numpy and C++) with -rpt and
+       -msk on a ~13 Mbp genome of two chromosomes, one with N runs and
+       one N-free run cut into three chunks: the native Viterbi must load,
+       every k-mer count must equal an independent per-chunk np.bincount,
+       and at least 0.9 of the planted motif bases and at most 0.05 of the
+       background bases must be masked; each stage's wall is printed;
+  then print one JSON line per the contract, the card line, and the final
+  {"ok": true, ...} line.
 """
 from __future__ import annotations
 
@@ -483,6 +497,9 @@ def species_nmi(clstr_path: str) -> float:
     return nmi(labels, {h: ids[s] for h, s in truth.items()})
 
 
+WALLS = {}      # label -> wall seconds of drive()'s run
+
+
 def drive(dev, label: str, fasta: str, out: str, **cfg) -> tuple:
     """One run of core.runner.run on dev, with the launch counts and the
     perf counters set to 0 just before it and read just after it."""
@@ -497,6 +514,7 @@ def drive(dev, label: str, fasta: str, out: str, **cfg) -> tuple:
     res = run(ClusterConfig(files=[fasta], output=out, **cfg), device=dev)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    WALLS[label] = wall
     launches = dict(_ext.launches)
     print(f"  {label}: {res['pointset'].n} sequences, wall {wall:.3f} s, "
           f"{res['n_clusters']} clusters, k={res['k']}, launches "
@@ -524,29 +542,39 @@ def check_nmi(clstr_path: str, least: float) -> None:
         fail(f"NMI {score} < {least}")
 
 
+def spy_fused_phase_b():
+    """Patch MeanShift.run_phase_b_device to record, per call, whether the
+    fused Phase B's result was kept; -> (record list, undo)."""
+    from meshclust_tpu_torch.core.meanshift import MeanShift
+    kept_calls = []
+    run_phase_b = MeanShift.run_phase_b_device
+
+    def spy(self, centers):
+        kept = run_phase_b(self, centers)
+        kept_calls.append(kept is not None)
+        return kept
+
+    MeanShift.run_phase_b_device = spy
+
+    def undo():
+        MeanShift.run_phase_b_device = run_phase_b
+    return kept_calls, undo
+
+
 def main_path(dev) -> dict:
     """The k-mer path on the device, then the same corpus with exact=True
     (the float64 host classifier and the host Phase A and B): the two
     CLSTR files must be byte-equal."""
     from meshclust_tpu_torch import native
     from meshclust_tpu_torch.core.classify import DeviceBackend, HostBackend
-    from meshclust_tpu_torch.core.meanshift import MeanShift
     from meshclust_tpu_torch.utils import perf
     out = os.path.join(WORK, "smoke_15k.clstr")
-    fused = []          # per call of the fused Phase B: its result was kept
-    run_phase_b = MeanShift.run_phase_b_device
-
-    def spy(self, centers):
-        kept = run_phase_b(self, centers)
-        fused.append(kept is not None)
-        return kept
-
-    MeanShift.run_phase_b_device = spy
+    fused, undo = spy_fused_phase_b()
     try:
         res, launches = drive(dev, "k-mer path --id 0.90", bench_corpus(),
                               out, similarity=0.90)
     finally:
-        MeanShift.run_phase_b_device = run_phase_b
+        undo()
     phases, counters = perf.phases(), perf.counters()
     expect_launches("k-mer", launches)
     if native.get_lib() is None or native.get_refsort() is None:
@@ -689,6 +717,281 @@ def small_parity(dev) -> None:
         fail("GPU and CPU runs of the small corpus differ")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: checkpoint, trace and Red
+# ---------------------------------------------------------------------------
+
+def checkpoint_path(dev, kmer_clstr: str) -> None:
+    """The 15k k-mer run with a checkpoint, then again: the second run must
+    resume both milestones (no train, no accumulate), cluster on the
+    device with the fused Phase B, launch kmer_hist once and the NW kernel
+    never, and write the CLSTR of the first run and of phase 4's run."""
+    from meshclust_tpu_torch.core.classify import DeviceBackend
+    from meshclust_tpu_torch.utils import perf
+    prefix = os.path.join(WORK, "ckpt_15k")
+    for suffix in (".model.json", ".centers.json"):
+        if os.path.exists(prefix + suffix):
+            os.remove(prefix + suffix)
+    outs = [os.path.join(WORK, f"ckpt_15k_{i}.clstr") for i in (1, 2)]
+    _, launches = drive(dev, "k-mer path --checkpoint, first run",
+                        bench_corpus(), outs[0], similarity=0.90,
+                        checkpoint=prefix)
+    expect_launches("checkpointed k-mer", launches)
+    for suffix in (".model.json", ".centers.json"):
+        if not os.path.isfile(prefix + suffix):
+            fail(f"the checkpointed run did not write {prefix}{suffix}")
+    kept_calls, undo = spy_fused_phase_b()
+    try:
+        res, launches = drive(dev, "k-mer path --checkpoint, resumed",
+                              bench_corpus(), outs[1], similarity=0.90,
+                              checkpoint=prefix)
+    finally:
+        undo()
+    phases = perf.phases()
+    resumed = not ({"train", "accumulate"} & set(phases))
+    print(f"  resumed wall "
+          f"{WALLS['k-mer path --checkpoint, resumed']:.3f} s against "
+          f"{WALLS['k-mer path --checkpoint, first run']:.3f} s for the "
+          f"first run", flush=True)
+    print(f"  resumed both milestones: {resumed}; launches {launches}",
+          flush=True)
+    if not resumed:
+        fail(f"the rerun did not resume its checkpoint (phases "
+             f"{sorted(phases)})")
+    if not isinstance(res["backend"], DeviceBackend):
+        fail(f"the resumed run clustered on "
+             f"{type(res['backend']).__name__}, not DeviceBackend")
+    if kept_calls != [True]:
+        fail(f"the resumed run's fused Phase B fell back or did not run "
+             f"(kept per call: {kept_calls})")
+    if launches != {"kmer_hist": 1, "nw_align_long": 0}:
+        fail(f"the resumed run launched {launches}, not kmer_hist once "
+             f"and nw_align_long never")
+    texts = []
+    for path in outs + [kmer_clstr]:
+        with open(path, "rb") as f:
+            texts.append(f.read())
+    same = texts[0] == texts[1] == texts[2]
+    print(f"  resumed CLSTR byte-equal to the first run's and phase 4's: "
+          f"{same}", flush=True)
+    if not same:
+        fail("the resumed run's CLSTR differs from the uninterrupted run's")
+
+
+def trace_path(dev, genome_clstr: str) -> None:
+    """The genome align-mode run under MESHCLUST_TRACE: a trace file must
+    be written that names the NW kernel and the kmer_hist kernel the run
+    took, and the CLSTR must be phase 4's."""
+    import glob
+    import shutil
+    from meshclust_tpu_torch.ops import histogram as H
+    trace_dir = os.path.join(WORK, "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    out = os.path.join(WORK, "viral_genomes_traced.clstr")
+    os.environ["MESHCLUST_TRACE"] = trace_dir
+    try:
+        res, launches = drive(dev, "align path, genomes, MESHCLUST_TRACE",
+                              genome_corpus(), out, similarity=0.50)
+    finally:
+        del os.environ["MESHCLUST_TRACE"]
+    expect_launches("traced genome align-mode", launches)
+    label = "align path, genomes --id 0.50"
+    print(f"  traced wall {WALLS['align path, genomes, MESHCLUST_TRACE']:.3f}"
+          f" s against {WALLS[label]:.3f} s untraced in phase 4", flush=True)
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"MESHCLUST_TRACE wrote {len(traces)} trace files, not one")
+    with open(traces[0]) as f:
+        text = f.read()
+    ps = res["pointset"]
+    hist_kernel = ("kmer_split_kernel" if H.split_mode(ps.lengths, res["k"])
+                   else "kmer_rows_kernel")
+    named = {name: name in text
+             for name in ("nw_align_long_kernel", hist_kernel)}
+    print(f"  trace {os.path.relpath(traces[0], ROOT)}: "
+          f"{os.path.getsize(traces[0])} bytes, names {named}", flush=True)
+    if not all(named.values()):
+        fail(f"the trace does not name every kernel of the run: {named}")
+    with open(out, "rb") as a, open(genome_clstr, "rb") as b:
+        same = a.read() == b.read()
+    print(f"  traced CLSTR byte-equal to phase 4's: {same}", flush=True)
+    if not same:
+        fail("MESHCLUST_TRACE changed the genome run's CLSTR")
+
+
+def random_bases(rng, n: int) -> bytes:
+    """n random bases, drawn as tests/conftest.py:random_dna draws them."""
+    return rng.choice(list("ACGT"), size=n).astype("S1").tobytes()
+
+
+def red_genome(chr1_len: int = 10_000_000, chr2_len: int = 3_000_000):
+    """Red's genome in WORK/red_genome, two files:
+    - chr1: the recipe of tests/test_red.py:genome_dir_10m (seed 11, 5
+      motifs of 800 bp between 3-12 kb of background, an N run of 30-200
+      bp before 8% of them), until chr1_len bases;
+    - chr2: the same motifs in an N-free run (seed 12) of at least
+      chr2_len bases, so its run is cut into chr2_len // SEG_LENGTH
+      chunks, with a motif across each cut.
+    -> (directory, {name: (motif mask, N mask)})."""
+    from meshclust_tpu_torch.io.fasta import SEG_LENGTH
+    gdir = os.path.join(WORK, "red_genome")
+    os.makedirs(gdir, exist_ok=True)
+    rng = np.random.default_rng(11)
+    motifs = [random_bases(rng, 800) for _ in range(5)]
+    truth = {}
+    for name, seed, target, n_runs in (("chr1", None, chr1_len, True),
+                                       ("chr2", 12, chr2_len, False)):
+        if seed is not None:
+            rng = np.random.default_rng(seed)
+        parts, motif_at, n_at, total = [], [], [], 0
+        while total < target:
+            bg = random_bases(rng, int(rng.integers(3000, 12000)))
+            parts.append(bg)
+            total += len(bg)
+            if n_runs and rng.random() < 0.08:
+                nrun = b"N" * int(rng.integers(30, 200))
+                parts.append(nrun)
+                n_at.append((total, len(nrun)))
+                total += len(nrun)
+            m = motifs[int(rng.integers(5))]
+            parts.append(m)
+            motif_at.append((total, len(m)))
+            total += len(m)
+        seq = bytearray(b"".join(parts))
+        if not n_runs:
+            for cut in range(SEG_LENGTH, total - SEG_LENGTH + 1, SEG_LENGTH):
+                m = motifs[cut // SEG_LENGTH % 5]
+                seq[cut - 400: cut + 400] = m
+                motif_at.append((cut - 400, len(m)))
+        motif_mask = np.zeros(total, bool)
+        n_mask = np.zeros(total, bool)
+        for at, ln in motif_at:
+            motif_mask[at: at + ln] = True
+        for at, ln in n_at:
+            n_mask[at: at + ln] = True
+        truth[name] = (motif_mask, n_mask)
+        with open(os.path.join(gdir, f"{name}.fa"), "wb") as f:
+            f.write(b">%s\n" % name.encode())
+            for i in range(0, total, 70):
+                f.write(bytes(seq[i: i + 70]) + b"\n")
+    return gdir, truth
+
+
+def per_chunk_counts(seqs, wl: int) -> np.ndarray:
+    """np.bincount of the wl-mers at fasta.kmer_valid_starts: the windows
+    inside one segment chunk, the reference TableBuilder's count."""
+    from meshclust_tpu_torch.io import fasta as fio
+    out = np.zeros(4 ** wl, np.int64)
+    for s in seqs:
+        n = s.length - wl + 1
+        c = (s.codes & 3).astype(np.int64)
+        ids = np.zeros(n, np.int64)
+        for d in range(wl):
+            ids = ids * 4 + c[d: d + n]
+        out += np.bincount(ids[fio.kmer_valid_starts(s, wl)[:n]],
+                           minlength=4 ** wl)
+    return out
+
+
+def red_path(chr1_len: int = 10_000_000, chr2_len: int = 3_000_000) -> None:
+    """Red (python -m meshclust_tpu_torch.red's run_red) with -rpt and -msk
+    on a ~13 Mbp genome: the native Viterbi must load, the k-mer counts
+    must be the per-chunk counts, at least 0.9 of the motif bases and at
+    most 0.05 of the background bases must be masked; the wall of each
+    stage is printed. Red runs on the host."""
+    from meshclust_tpu_torch import native
+    from meshclust_tpu_torch.io import fasta as fio
+    from meshclust_tpu_torch.red import emv, runner, scanner, scorer
+    from meshclust_tpu_torch.red.hmm import HMM
+    if native.get_red_viterbi() is None:
+        fail("the native Red Viterbi (native/red_viterbi.cpp) did not load")
+    t0 = time.time()
+    gdir, truth = red_genome(chr1_len, chr2_len)
+    print(f"  genome written in {time.time() - t0:.2f} s", flush=True)
+    stages = {}
+    counts = {}
+
+    def timed_stage(owner, attr, stage):
+        fn = getattr(owner, attr)
+
+        def wrapped(*args, **kwargs):
+            t = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stages[stage] = stages.get(stage, 0.0) + time.time() - t
+        setattr(owner, attr, wrapped)
+        return owner, attr, fn
+
+    def keep_counts(*args, **kwargs):
+        got = count_words_multi(*args, **kwargs)
+        counts.update(got)
+        return got
+
+    count_words_multi = emv.count_words_multi
+    emv.count_words_multi = keep_counts
+    patched = [(emv, "count_words_multi", count_words_multi)] + [
+        timed_stage(*spec) for spec in (
+            (fio, "read_fasta", "read"),
+            (emv, "build_table", "table"),
+            (scorer, "score_chromosome", "scoring"),
+            (runner, "detect_chromosome", "candidates"),
+            (HMM, "train", "hmm_training"),
+            (HMM, "normalize", "hmm_training"),
+            (scorer, "take_log", "take_log"),
+            (scanner, "scan_chromosome", "scanning"),
+            (scanner, "write_rpt", "output"),
+            (scanner, "write_masked", "output"),
+            (runner, "_plain_records", "output"))]
+    rpt, msk = os.path.join(WORK, "red_rpt"), os.path.join(WORK, "red_msk")
+    try:
+        t0 = time.time()
+        res = runner.run_red(runner.RedConfig(gnm=gdir, rpt=rpt, msk=msk))
+        wall = time.time() - t0
+    finally:
+        for owner, attr, fn in reversed(patched):
+            setattr(owner, attr, fn)
+    seqs = [s for f in sorted(os.listdir(gdir))
+            for s in fio.read_fasta(os.path.join(gdir, f))]
+    size = sum(s.length for s in seqs)
+    print(f"  Red on {size} bp ({len(seqs)} sequences, "
+          f"{sum(len(s.segments) for s in seqs)} segment chunks): k="
+          f"{res['k']}, order {res['order']}, p {res['p']:.4f}, wall "
+          f"{wall:.3f} s, native Viterbi loaded", flush=True)
+    for stage, secs in stages.items():
+        print(f"    stage {stage:<13s} {secs:10.4f} s", flush=True)
+    k = res["k"]
+    for wl in sorted(counts):
+        if not np.array_equal(counts[wl], per_chunk_counts(seqs, wl)):
+            fail(f"Red's {wl}-mer counts are not the per-chunk counts")
+    print(f"  k-mer counts (word lengths {sorted(counts)}) equal the "
+          f"per-chunk np.bincount over kmer_valid_starts", flush=True)
+    if k not in counts:
+        fail(f"Red did not count {k}-mers")
+    masked = {s.header[1:]: np.zeros(s.length, bool) for s in seqs}
+    for header, regions in res["results"]:
+        for a, b in regions:
+            masked[header[1:]][a: b + 1] = True
+    motif_hit = motif_all = bg_hit = bg_all = 0
+    for name, (motif, n_run) in truth.items():
+        with open(os.path.join(msk, f"{name}.msk")) as f:
+            letters = "".join(line.strip() for line in f
+                              if not line.startswith(">"))
+        lower = np.frombuffer(letters.encode(), np.uint8) >= ord("a")
+        if not np.array_equal(lower, masked[name]):
+            fail(f"{name}.msk does not lower-case the regions Red found")
+        bg = ~motif & ~n_run
+        motif_hit += int(masked[name][motif].sum())
+        motif_all += int(motif.sum())
+        bg_hit += int(masked[name][bg].sum())
+        bg_all += int(bg.sum())
+    recall, bg_share = motif_hit / motif_all, bg_hit / bg_all
+    print(f"  motif bases masked {recall:.6f} (>= 0.9), background bases "
+          f"masked {bg_share:.6f} (<= 0.05)", flush=True)
+    if not (recall >= 0.9 and bg_share <= 0.05):
+        fail(f"Red's masking: motif recall {recall}, background {bg_share}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -735,6 +1038,14 @@ def main() -> int:
     genome = genome_path(dev)
     short_align_parity(dev)
     print(f"  phases 1-4 took {time.time() - t_start:.1f} s", flush=True)
+
+    print("phase 5: checkpoint, trace and Red", flush=True)
+    t5 = time.time()
+    checkpoint_path(dev, os.path.join(WORK, "smoke_15k.clstr"))
+    trace_path(dev, os.path.join(WORK, "viral_genomes.clstr"))
+    red_path()
+    print(f"  phase 5 took {time.time() - t5:.1f} s; all phases "
+          f"{time.time() - t_start:.1f} s", flush=True)
     # each kernel's launches from the two main paths
     for row in rows:
         row["launches"] = kmer[row["name"]] + genome[row["name"]]

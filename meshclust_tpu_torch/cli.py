@@ -2,12 +2,17 @@
 
 Usage: python -m meshclust_tpu_torch.cli *.fasta [--id 0.90] [--kmer K]
        [--delta 5] [--output output.clstr] [--iterations 15] [--align]
-       [--sample 3000] [--pivot 20] [--threads N]
+       [--sample 3000] [--pivot 20] [--threads N] [--exact]
+       [--checkpoint PREFIX]
 
 The flags and defaults are those of meshclust_tpu/cli.py. `--align`, or an
 `--id` below 0.60, runs align mode: every clustering decision is a global
-alignment on the GPU. The run needs a CUDA device and exits non-zero
-without one; `--no-pallas` and `--checkpoint` are refused.
+alignment on the GPU. `--exact` makes every k-mer-mode decision with the
+float64 host classifier. `--checkpoint PREFIX` saves the trained
+classifier and the Phase-A centers under PREFIX.{model,centers}.json (in
+align mode also the Phase-A alignment memo, PREFIX.memo.json) and resumes
+from them when they match the run. The run needs a CUDA device and
+exits non-zero without one; `--no-pallas` is refused.
 """
 from __future__ import annotations
 
@@ -47,10 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="refused: the plain PyTorch versions of the kernels "
                         "are test oracles, not a user path")
     p.add_argument("--exact", action="store_true",
-                   help="accepted for compatibility; the classifier is "
-                        "already the float64 host backend")
+                   help="float64 host classifier (slow, parity debugging)")
     p.add_argument("--checkpoint", default=None, metavar="PREFIX",
-                   help="refused: checkpoints are not ported yet")
+                   help="save/resume run milestones (trained classifier + "
+                        "Phase-A centers) under PREFIX.{model,centers}.json")
     return p
 
 
@@ -66,10 +71,6 @@ def main(argv=None) -> int:
         print("--no-pallas is not supported: the kernels' plain PyTorch "
               "versions are test oracles, not a user path", file=sys.stderr)
         return 2
-    if args.checkpoint:
-        print("--checkpoint is not supported yet: utils/checkpoint is not "
-              "ported", file=sys.stderr)
-        return 2
     cfg = ClusterConfig(
         files=list(args.files),
         similarity=args.similarity,
@@ -82,6 +83,7 @@ def main(argv=None) -> int:
         iterations=args.iterations,
         threads=args.threads,
         exact=args.exact,
+        checkpoint=args.checkpoint,
     )
     try:
         res = run(cfg)

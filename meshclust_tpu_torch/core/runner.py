@@ -10,6 +10,13 @@ classifier (DeviceBackend), Phase A on the device and the fused Phase B;
 the host Phase A and B instead. In align mode (--align or --id < 0.60)
 every decision is an alignment identity from the device aligner
 (AlignBackend).
+
+cfg.checkpoint saves and resumes the trained classifier and the Phase-A
+centers (utils/checkpoint, the JAX package's format: a checkpoint written
+by either package loads in the other), and in align mode the Phase-A
+alignment memo that Phase B reads (utils/align_memo). MESHCLUST_TRACE=DIR
+writes a torch.profiler trace of the run (host and, on CUDA, the card's
+kernels) into DIR.
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ from meshclust_tpu_torch.io import fasta as fio
 from meshclust_tpu_torch.io.clstr import write_clstr
 from meshclust_tpu_torch.ops import histogram as H
 from meshclust_tpu_torch.ops.align_device import DeviceAligner
+from meshclust_tpu_torch.utils import align_memo
+from meshclust_tpu_torch.utils import checkpoint as ckpt
 from meshclust_tpu_torch.utils import perf
 from meshclust_tpu_torch.utils.log import log
 
@@ -55,13 +64,24 @@ def run(cfg: ClusterConfig,
     """Cluster cfg.files into cfg.output on `device` (None: CUDA).
 
     cfg.exact selects HostBackend, the float64 host oracle, for every
-    clustering decision, as in the JAX package. The checkpoint option is not
-    carried over yet."""
+    clustering decision, as in the JAX package."""
     dev = D.resolve(device)
-    if cfg.checkpoint:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (utils/checkpoint is ROADMAP.md "
-            "queue 1, slice 7 of the port)")
+    trace_dir = os.environ.get("MESHCLUST_TRACE")
+    if trace_dir:
+        # a Chrome/TensorBoard trace of host ops and the card's kernels;
+        # complements the phase times and counters of utils/perf.py
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        activities = [ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(trace_dir)):
+            return _run(cfg, dev)
+    return _run(cfg, dev)
+
+
+def _run(cfg: ClusterConfig, dev: torch.device) -> dict:
     cfg = cfg.finalize()
     files = sort_files(list(cfg.files))
     if not files:
@@ -97,8 +117,19 @@ def run(cfg: ClusterConfig,
     if (cfg.match, cfg.mismatch, cfg.gap_open, cfg.gap_continue) \
             == (1, -1, 2, 1):
         trainer._dev_aligner = aligner   # share the staged codes
-    with perf.phase("train"):
-        model = trainer.train(cfg.acc_cutoff)
+    tk = 0 if cfg.align else k
+    model = None
+    if cfg.checkpoint:
+        model = ckpt.load_model(cfg.checkpoint + ".model.json", ps, tk,
+                                cfg.similarity, cfg.seed, cfg)
+        if model is not None:
+            log("Resumed trained classifier from checkpoint")
+    if model is None:
+        with perf.phase("train"):
+            model = trainer.train(cfg.acc_cutoff)
+        if cfg.checkpoint:
+            ckpt.save_model(cfg.checkpoint + ".model.json", model, ps,
+                            cfg.seed, cfg)
 
     def align_fn(center: int, idxs: np.ndarray) -> np.ndarray:
         # (candidate, center) orientation — GlobAlignE identity depends on
@@ -115,8 +146,24 @@ def run(cfg: ClusterConfig,
 
     ms = MeanShift(ps, backend, sim=cfg.similarity, delta=cfg.delta,
                    iterations=cfg.iterations)
+    resume = None
+    on_acc = None
+    if cfg.checkpoint:
+        cpath = cfg.checkpoint + ".centers.json"
+        mpath = cfg.checkpoint + ".memo.json"
+        key = (ps, tk, cfg.similarity, cfg.seed, cfg)
+        resume = ckpt.load_centers(cpath, *key)
+        # align mode: Phase B reads Phase A's identities (utils/align_memo)
+        if cfg.align and resume is not None \
+                and not align_memo.load_memo(mpath, backend, *key):
+            resume = None
+
+        def on_acc(cs):
+            if cfg.align:
+                align_memo.save_memo(mpath, backend, *key)
+            ckpt.save_centers(cpath, cs, *key)
     with perf.phase("cluster"):
-        centers = ms.run(bv)
+        centers = ms.run(bv, resume_centers=resume, on_accumulated=on_acc)
 
     log("Printing output")
     with perf.phase("output"):

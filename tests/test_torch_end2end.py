@@ -184,7 +184,17 @@ def test_perf_report_leaves_out_tpu_utilization_estimates():
 
 @pytest.mark.parametrize("flags", [["--no-pallas"], ["--checkpoint", "ck"]],
                          ids=["no_pallas", "checkpoint"])
-def test_cli_refuses_unported_flags(flags, tmp_path, capsys):
+def test_cli_refuses_unported_flags(flags, tmp_path, capsys, monkeypatch):
+    """--no-pallas is refused. --checkpoint was refused until it was
+    ported; now it reaches run() (tests/test_torch_checkpoint.py drives
+    it)."""
     from meshclust_tpu_torch import cli
-    assert cli.main([str(tmp_path / "in.fasta"), *flags]) == 2
-    assert "not supported" in capsys.readouterr().err
+    seen = []
+    monkeypatch.setattr(cli, "run", lambda cfg: seen.append(cfg) or {
+        "n_clusters": 0})
+    got = cli.main([str(tmp_path / "in.fasta"), *flags])
+    if flags[0] == "--no-pallas":
+        assert got == 2 and not seen
+        assert "not supported" in capsys.readouterr().err
+    else:
+        assert got == 0 and [c.checkpoint for c in seen] == ["ck"]

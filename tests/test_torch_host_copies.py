@@ -22,7 +22,10 @@ COPIED_FILES = [
     "core/rng.py", "core/meanshift.py", "ops/glm.py", "utils/log.py",
     "utils/progress.py", "utils/perf.py", "native/__init__.py",
     "native/fasta_parser.cpp", "native/refsort.cpp",
-    "native/bvec_insert.cpp",
+    "native/bvec_insert.cpp", "native/red_viterbi.cpp",
+    "utils/checkpoint.py", "utils/metrics.py", "ops/align_extra.py",
+    "red/__init__.py", "red/__main__.py", "red/detector.py",
+    "red/scanner.py", "red/scorer.py",
 ]
 
 # (port module, original module, qualified name)
@@ -41,6 +44,11 @@ COPIED_OBJECTS = [
     ("core.trainer", "core.trainer", "Trainer.pair_raw"),
     ("core.trainer", "core.trainer", "resize_vec"),
     ("core.trainer", "core.trainer", "bin_data"),
+    ("red.emv", "red.emv", "valid_mask"),
+    ("red.emv", "red.emv", "count_words"),
+    ("red.emv", "red.emv", "build_table"),
+    ("red.runner", "red.runner", "RedConfig"),
+    ("red.runner", "red.runner", "_genome_files"),
 ]
 
 
@@ -69,6 +77,42 @@ def test_features_copy_equals_original_without_jax():
     original = original.replace("import jax\nimport jax.numpy as jnp\n", "")
     assert _normalise(_read("meshclust_tpu_torch", "ops/features.py")) \
         == original
+
+
+def test_red_hmm_copy_equals_original_without_jax():
+    """red/hmm.py is carried over without decode_states_device, the only
+    jax code (a jax.lax.scan Viterbi with no caller), and the docstring
+    line that names it."""
+    original = _read("meshclust_tpu", "red/hmm.py")
+    start = original.index("    def decode_states_device(")
+    end = original.index("    def decode_regions(")
+    original = original[:start] + original[end:]
+    original = original.replace(
+        "implemented both as a numpy loop\n(oracle) and as a jax.lax.scan "
+        "(device path).\n",
+        "implemented as a numpy loop\n(oracle) and in C++ "
+        "(native/red_viterbi.cpp).\n")
+    copy = _normalise(_read("meshclust_tpu_torch", "red/hmm.py"))
+    assert "jax" not in copy
+    assert copy == original
+
+
+def _masking_span(source):
+    """run_red's source without its masked-output pairing: from the plain
+    reader's cache fill to the one-digit fallback."""
+    start = source.index("                if fpath not in plain_cache:")
+    end = source.index("                    lut = np.array(")
+    return source[:start] + source[end:]
+
+
+def test_red_runner_equals_original_but_pairing():
+    """run_red is verbatim but for the masked output's pairing (by index,
+    not by header and length) and the loop index it needs."""
+    got = _normalise(_source("meshclust_tpu_torch.red.runner", "run_red"))
+    want = _source("meshclust_tpu.red.runner", "run_red")
+    got = got.replace("for fi_file, s in enumerate(fseqs):",
+                      "for s in fseqs:")
+    assert _masking_span(got) == _masking_span(want)
 
 
 def _source(module, qualname):

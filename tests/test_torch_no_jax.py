@@ -4,13 +4,15 @@ to the CPU.
 Each test starts a fresh interpreter in which `import jax` fails (as on a
 GPU machine without jax), imports the port, and drives it: through
 run(device="cpu") on a tiny corpus, in k-mer mode (DeviceBackend, device
-Phase A, fused Phase B) and in align mode (AlignBackend), and through the
-CLI with CUDA hidden, which must exit non-zero with a message.
+Phase A, fused Phase B), in align mode (AlignBackend) and with a
+checkpoint written and resumed; Red on a small genome; and the CLI with
+CUDA hidden, which must exit non-zero with a message.
 """
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from tests.test_torch_end2end import write_corpus
@@ -57,6 +59,71 @@ print("clusters", res["n_clusters"])
     text = out.read_text()
     assert text.startswith(">Cluster 0")
     assert text.count("nt, >sp") == 30
+
+
+NO_MESHCLUST_TPU = """
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+assert not any(m == "meshclust_tpu" or m.startswith("meshclust_tpu.")
+               for m in sys.modules)
+"""
+
+
+def test_checkpoint_run_without_jax(tmp_path):
+    """A --checkpoint run writes both files; its rerun resumes both."""
+    fasta = write_corpus(tmp_path / "tiny.fasta", 7, True, n_species=3,
+                         per=10, L=150)
+    prefix = str(tmp_path / "ck")
+    proc = _python(f"""
+from meshclust_tpu_torch.config import ClusterConfig
+from meshclust_tpu_torch.core.runner import run
+from meshclust_tpu_torch.utils import perf
+outs = []
+for i in range(2):
+    perf.reset()
+    out = {str(tmp_path)!r} + f"/run{{i}}.clstr"
+    run(ClusterConfig(files=[{fasta!r}], output=out, similarity=0.90,
+                      sample_size=200, checkpoint={prefix!r}), device="cpu")
+    outs.append(open(out).read())
+assert "train" not in perf.phases() and "accumulate" not in perf.phases()
+assert outs[0] == outs[1]
+{NO_MESHCLUST_TPU}
+print("resumed")
+""", tmp_path)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "resumed" in proc.stdout
+    assert os.path.exists(prefix + ".model.json")
+    assert os.path.exists(prefix + ".centers.json")
+
+
+def test_red_without_jax(tmp_path):
+    """python -m meshclust_tpu_torch.red on a small planted genome."""
+    rng = np.random.default_rng(9)
+    letters = np.array(list("ACGT"))
+    motif = "".join(letters[rng.integers(0, 4, 300)])
+    seq = "".join("".join(letters[rng.integers(0, 4, 700)]) + motif
+                  for _ in range(40))
+    gdir = tmp_path / "genome"
+    gdir.mkdir()
+    with open(gdir / "chr1.fa", "w") as f:
+        f.write(">chr1\n")
+        for i in range(0, len(seq), 70):
+            f.write(seq[i: i + 70] + "\n")
+    proc = _python(f"""
+import runpy
+sys.argv = ["meshclust_tpu_torch.red", "-gnm", {str(gdir)!r}, "-rpt",
+            {str(tmp_path / "rpt")!r}, "-msk", {str(tmp_path / "msk")!r},
+            "-len", "12"]
+try:
+    runpy.run_module("meshclust_tpu_torch.red", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+{NO_MESHCLUST_TPU}
+""", tmp_path)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "repeat regions" in proc.stdout
+    assert (tmp_path / "rpt" / "chr1.rpt").read_text().strip()
+    assert any(c.islower() for c in (tmp_path / "msk" / "chr1.msk")
+               .read_text())
 
 
 def test_cli_without_cuda_exits_nonzero(tmp_path):
