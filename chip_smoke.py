@@ -49,8 +49,18 @@ Phases (any failure exits non-zero before the last line):
        every k-mer count must equal an independent per-chunk np.bincount,
        and at least 0.9 of the planted motif bases and at most 0.05 of the
        background bases must be masked; each stage's wall is printed;
-  then print one JSON line per the contract, the card line, and the final
-  {"ok": true, ...} line.
+  6. ranks (parallel/dist.launch, one spawned process a rank): the 15k
+     k-mer run at 2 ranks sharing the card (gloo) must write phase 4's
+     CLSTR byte for byte, each rank launching kmer_hist once and the NW
+     kernel as often as phase 4's run; each rank prints its device and
+     backend, rows featurized, launches, featurize/train/accumulate/
+     phase_b seconds and its collectives and bytes by site, and the wall
+     is printed against phase 4's; the small corpus at 3 and 4 ranks and
+     the short-read align-mode corpus at 2 ranks must write their single
+     rank's CLSTR; with 2 or more GPUs, min(4, count) ranks over NCCL on
+     the 15k corpus too; any failing rank fails the script;
+  then print one JSON line per the contract (launches: the two main paths
+  and the 2-rank run), the card line, and the final {"ok": true, ...} line.
 """
 from __future__ import annotations
 
@@ -992,6 +1002,140 @@ def red_path(chr1_len: int = 10_000_000, chr2_len: int = 3_000_000) -> None:
         fail(f"Red's masking: motif recall {recall}, background {bg_share}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: ranks (parallel/dist)
+# ---------------------------------------------------------------------------
+
+def rank_run(cfg: dict) -> dict:
+    """One rank of a multi-rank run of core.runner.run on CUDA, with the
+    launch counts and the perf counters set to 0 just before it; spawned
+    by parallel/dist.launch, which imports it from this script."""
+    import torch
+    from meshclust_tpu_torch import _ext
+    from meshclust_tpu_torch.config import ClusterConfig
+    from meshclust_tpu_torch.core.runner import run
+    from meshclust_tpu_torch.parallel import dist
+    from meshclust_tpu_torch.utils import perf
+    perf.reset()
+    _ext.reset_launches()
+    t0 = time.time()
+    res = run(ClusterConfig(**cfg))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    mesh = dist.get_mesh()
+    return {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+            "backend": mesh.backend, "wall": wall,
+            "clusterer": type(res["backend"]).__name__,
+            "n_clusters": res["n_clusters"], "launches": dict(_ext.launches),
+            "phases": perf.phases(), "counters": perf.counters()}
+
+
+def launch_ranks(label: str, n: int, fasta: str, out: str,
+                 **cfg) -> tuple:
+    """n ranks of the run (rank_run) through parallel/dist.launch; any
+    failing rank fails the script. -> (rank results, launch wall)."""
+    from torch.multiprocessing.spawn import ProcessException
+    from meshclust_tpu_torch.parallel import dist
+    t0 = time.time()
+    try:
+        outs = dist.launch(rank_run, n, None,
+                           dict(files=[fasta], output=out, **cfg))
+    except ProcessException as e:
+        fail(f"a rank of the {label} run failed: {e}")
+    wall = time.time() - t0
+    print(f"  {label}: {n} ranks, launch wall {wall:.3f} s (spawn "
+          f"included)", flush=True)
+    for o in outs:
+        c = o["counters"]
+        colls = ", ".join(
+            f"{site} {c[f'coll_{site}']:.0f} ({c[f'coll_{site}_bytes']:.0f}"
+            f" B)" for site in ("featurize", "accumulate", "phase_b", "run")
+            if f"coll_{site}" in c)
+        secs = ", ".join(f"{ph} {o['phases'].get(ph, 0.0):.4f}"
+                         for ph in ("featurize", "train", "accumulate",
+                                    "phase_b"))
+        print(f"    rank {o['rank']}: {o['device']} {o['backend']}, "
+              f"{o['clusterer']}, rows featurized "
+              f"{c.get('feat_rows', 0):.0f}, wall {o['wall']:.3f} s, "
+              f"launches {o['launches']}; s: {secs}; collectives: "
+              f"{colls}", flush=True)
+    return outs, wall
+
+
+def same_file(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def ranks_path(kmer_launches: dict) -> dict:
+    """The 15k k-mer run at 2 ranks sharing the one card (gloo): its CLSTR
+    must be phase 4's, each rank must launch kmer_hist once and the NW
+    kernel as often as phase 4's run; the small corpus at 3 and 4 ranks
+    and the short-read align-mode corpus at 2 ranks must give their single
+    rank's CLSTR; where there are 2 or more GPUs, min(4, count) ranks over
+    NCCL, one a GPU, on the 15k corpus. Returns the launches of the 2-rank
+    15k run, summed over its ranks."""
+    import torch
+    out = os.path.join(WORK, "ranks2_15k.clstr")
+    outs, wall = launch_ranks("k-mer path --id 0.90", 2, bench_corpus(), out,
+                              similarity=0.90)
+    for o in outs:
+        if o["backend"] != ("gloo" if torch.cuda.device_count() < 2
+                            else "nccl"):
+            fail(f"rank {o['rank']} took backend {o['backend']}")
+        if o["clusterer"] != "DeviceBackend":
+            fail(f"rank {o['rank']} clustered on {o['clusterer']}")
+        if o["launches"]["kmer_hist"] != 1:
+            fail(f"rank {o['rank']} launched kmer_hist "
+                 f"{o['launches']['kmer_hist']} times, not once")
+        if o["launches"]["nw_align_long"] != kmer_launches["nw_align_long"]:
+            fail(f"rank {o['rank']} launched the NW kernel "
+                 f"{o['launches']['nw_align_long']} times, phase 4's run "
+                 f"{kmer_launches['nw_align_long']}")
+        for site in ("featurize", "accumulate", "phase_b"):
+            if o["counters"].get(f"coll_{site}", 0) <= 0:
+                fail(f"rank {o['rank']} issued no collective at {site}")
+    label = "k-mer path --id 0.90"
+    print(f"  2 ranks sharing one card: rank walls "
+          f"{max(o['wall'] for o in outs):.3f} s against {WALLS[label]:.3f} "
+          f"s for phase 4's single rank", flush=True)
+    same = same_file(out, os.path.join(WORK, "smoke_15k.clstr"))
+    print(f"  2-rank 15k CLSTR byte-equal to phase 4's: {same}", flush=True)
+    if not same:
+        fail("the 2-rank 15k run's CLSTR differs from phase 4's")
+    cases = [(3, "small", os.path.join(WORK, "small.fasta"),
+              os.path.join(WORK, "small_gpu.clstr"),
+              dict(similarity=0.90, sample_size=300)),
+             (4, "small", os.path.join(WORK, "small.fasta"),
+              os.path.join(WORK, "small_gpu.clstr"),
+              dict(similarity=0.90, sample_size=300)),
+             (2, "short_align", os.path.join(WORK, "short_align.fasta"),
+              os.path.join(WORK, "short_align_gpu.clstr"),
+              dict(similarity=0.90, align=True))]
+    n_gpu = torch.cuda.device_count()
+    if n_gpu >= 2:
+        cases.append((min(4, n_gpu), "nccl_15k", bench_corpus(),
+                      os.path.join(WORK, "smoke_15k.clstr"),
+                      dict(similarity=0.90)))
+    for n, name, fasta, want, cfg in cases:
+        got = os.path.join(WORK, f"ranks{n}_{name}.clstr")
+        outs_n, _ = launch_ranks(f"{name} corpus", n, fasta, got, **cfg)
+        if any(o["launches"]["kmer_hist"] != 1 for o in outs_n):
+            fail(f"a rank of the {n}-rank {name} run did not launch "
+                 f"kmer_hist once")
+        if name == "nccl_15k" and any(o["backend"] != "nccl"
+                                      for o in outs_n):
+            fail("ranks with a GPU each did not take NCCL")
+        same = same_file(got, want)
+        print(f"  {n}-rank {name} CLSTR byte-equal to its single rank's: "
+              f"{same}", flush=True)
+        if not same:
+            fail(f"the {n}-rank {name} run's CLSTR differs from its single "
+                 f"rank's")
+    return {name: sum(o["launches"][name] for o in outs)
+            for name in outs[0]["launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1044,11 +1188,17 @@ def main() -> int:
     checkpoint_path(dev, os.path.join(WORK, "smoke_15k.clstr"))
     trace_path(dev, os.path.join(WORK, "viral_genomes.clstr"))
     red_path()
-    print(f"  phase 5 took {time.time() - t5:.1f} s; all phases "
+    print(f"  phase 5 took {time.time() - t5:.1f} s", flush=True)
+
+    print("phase 6: ranks", flush=True)
+    t6 = time.time()
+    ranks = ranks_path(kmer)
+    print(f"  phase 6 took {time.time() - t6:.1f} s; all phases "
           f"{time.time() - t_start:.1f} s", flush=True)
-    # each kernel's launches from the two main paths
+    # each kernel's launches from the two main paths and the 2-rank run
     for row in rows:
-        row["launches"] = kmer[row["name"]] + genome[row["name"]]
+        row["launches"] = (kmer[row["name"]] + genome[row["name"]]
+                           + ranks[row["name"]])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -13,15 +13,25 @@ classifier and the Phase-A centers under PREFIX.{model,centers}.json (in
 align mode also the Phase-A alignment memo, PREFIX.memo.json) and resumes
 from them when they match the run. The run needs a CUDA device and
 exits non-zero without one; `--no-pallas` is refused.
+
+Several GPUs: the CLI starts MESHCLUST_DEVICES ranks, one process each
+(default 1: one process with no group), unless it
+already runs as one rank under a launcher (torchrun, or the JAX package's
+MESHCLUST_COORDINATOR / MESHCLUST_NUM_PROCS / MESHCLUST_PROC_ID); see
+parallel/dist.py. It exits non-zero if any rank fails.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
+from torch.multiprocessing.spawn import ProcessException
+
+from meshclust_tpu_torch import device as D
 from meshclust_tpu_torch.config import ClusterConfig
 from meshclust_tpu_torch.core.runner import run
 from meshclust_tpu_torch.device import DeviceUnavailableError
+from meshclust_tpu_torch.parallel import dist
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,12 +96,25 @@ def main(argv=None) -> int:
         checkpoint=args.checkpoint,
     )
     try:
-        res = run(cfg)
+        n = dist.local_ranks()
+        if n > 1 and not dist.under_launcher():
+            D.resolve(None)          # no CUDA: refuse before any rank starts
+            n_clusters = dist.launch(cluster_rank, n, None, cfg)[0]
+        else:
+            n_clusters = cluster_rank(cfg)
     except DeviceUnavailableError as e:
         print(f"meshclust-tpu-torch: {e}", file=sys.stderr)
         return 2
-    print(f"Wrote {res['n_clusters']} clusters to {cfg.output}")
+    except ProcessException as e:
+        print(f"meshclust-tpu-torch: a rank failed: {e}", file=sys.stderr)
+        return 1
+    print(f"Wrote {n_clusters} clusters to {cfg.output}")
     return 0
+
+
+def cluster_rank(cfg: ClusterConfig) -> int:
+    """One rank's run (the whole run without a group); its cluster count."""
+    return run(cfg)["n_clusters"]
 
 
 if __name__ == "__main__":

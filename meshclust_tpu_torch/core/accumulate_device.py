@@ -1,7 +1,7 @@
 """Phase A, mean-shift accumulation (ClusterFactory.cpp:637-714), on the
 device. Twin of meshclust_tpu/core/accumulate_device.py without its TPU
 machinery (chunked dispatch, live-set compaction, compile prewarm, tile
-heuristics, certified float32, mesh).
+heuristics, certified float32).
 
 The reference loop: classify a length-window of live candidates against the
 current center, absorb the positives, move the center to the member closest
@@ -31,9 +31,19 @@ window's lengths (length * sim, length / sim) are computed on the host in
 float64, as MeanShift._accumulate_one computes them, and mapped to bins by
 bvec::index_of once per phase; the in-bin quirks are masked reductions over
 the live slots (cases in window_bounds).
+
+With a mesh (parallel/dist) the feature axis is sharded: each rank keeps
+its [N, V/n] slice of the rows (widened by the largest count of all V), and
+each reduction over V is one SUM across ranks of exact int64 partials: the
+Manhattan and dot sums of a sweep ([2, N]) and the mean's distance sums with
+the sum of the floored mean ([N + 1]). The mean's sums stay on the slice;
+the slot state is replicated and identical on every rank, so each rank
+reads back the same four scalars an iteration. Phase A runs replicated when
+V is not a multiple of the ranks or MESHCLUST_PHASEA_SHARD=0.
 """
 from __future__ import annotations
 
+import os
 from typing import List
 
 import numpy as np
@@ -41,6 +51,7 @@ import torch
 
 from meshclust_tpu_torch.core.classify import Scorer, mean_floor, row_dtype
 from meshclust_tpu_torch.ops import features as F
+from meshclust_tpu_torch.parallel import dist
 from meshclust_tpu_torch.utils import perf
 from meshclust_tpu_torch.utils.progress import Progress
 
@@ -72,7 +83,9 @@ def index_of(x: np.ndarray, begin_bounds) -> tuple:
 class _Slots:
     """Phase A's state on the device, and its steps."""
 
-    def __init__(self, ps, bv, params: F.FeatureParams, sim: float):
+    def __init__(self, ps, bv, params: F.FeatureParams, sim: float,
+                 mesh=None):
+        self.mesh = mesh
         self.point = np.concatenate([np.asarray(b, np.int64)
                                      for b in bv.idx])
         N = self.N = self.point.shape[0]
@@ -90,8 +103,12 @@ class _Slots:
         self.back_bin = put(index_of(hi, bv.begin_bounds)[1])
         sp = put(self.point)
         h = ps.hist_dev[sp]
-        # [N, V] rows widened once per phase
-        self.h = h.to(row_dtype(int(h.max()) if h.numel() else 0))
+        rows = row_dtype(int(h.max()) if h.numel() else 0)
+        if mesh is not None:
+            vl = ps.V // mesh.size
+            h = h[:, mesh.rank * vl: (mesh.rank + 1) * vl].contiguous()
+        # [N, V] rows (this rank's [N, V/n] slice) widened once per phase
+        self.h = h.to(rows)
         f64 = {"dtype": torch.float64, "device": dev}
         self.mag = torch.as_tensor(ps.mag[self.point], **f64)
         self.sq = torch.as_tensor(ps.sq[self.point], **f64)
@@ -153,6 +170,10 @@ class _Slots:
         w0, w1 = self.window_bounds(last)
         ok = self.active & (self.slots >= w0) & (self.slots <= w1)
         man, dot = self.scorer.sums(self.h[last], self.h)
+        if self.mesh is not None:
+            both = dist.psum(torch.stack([man] if dot is None else [man, dot]),
+                             self.mesh, "accumulate")
+            man, dot = both[0], (None if dot is None else both[1])
         pos, f1 = self.scorer(man, dot, self.mag[last], self.mag,
                               self.sq[last], self.sq, self.lenf[last],
                               self.lenf)
@@ -164,11 +185,17 @@ class _Slots:
         member closest by distance_d to the members' mean, the first in
         (stamp, slot) order on ties."""
         cw = mean_floor(sumvec, count)
-        dist = 2 * torch.minimum(self.h, cw.to(self.h.dtype)).sum(
+        dist_ = 2 * torch.minimum(self.h, cw.to(self.h.dtype)).sum(
             1, dtype=torch.int64)
+        cw_sum = cw.sum()                  # exact: integers below 2^53
+        if self.mesh is not None:
+            both = dist.psum(torch.cat([dist_, cw_sum.to(torch.int64)
+                                        .reshape(1)]), self.mesh,
+                             "accumulate")
+            dist_, cw_sum = both[:-1], both[-1].to(torch.float64)
         # floor(h + mean) = h + floor(mean) for integer h: mean_select's
         # sum(floor(h + mean)) is mag + sum(floor(mean))
-        frac = dist.to(torch.float64) / (self.mag + cw.sum())
+        frac = dist_.to(torch.float64) / (self.mag + cw_sum)
         d = 10000.0 * (1.0 - frac * frac)      # two roundings, no FMA
         mask = self.owner == c
         d = torch.where(mask, d, float("inf"))
@@ -183,16 +210,18 @@ def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
     """Run Phase A on ps's device. `bv` must be a finalized BVec (it is
     not changed); returns the Center list in reference semantics (see
     core/meanshift.Center). cmax_hint > 0 stops after that many centers.
-    Counters: accum_iters (absorb iterations), accum_centers and
-    accum_readbacks (device-to-host reads)."""
+    mesh: shard the feature axis over its ranks (module docstring); every
+    rank returns the same centers. Counters: accum_iters (absorb
+    iterations), accum_centers and accum_readbacks (device-to-host
+    reads)."""
     from meshclust_tpu_torch.core.meanshift import Center
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-GPU Phase A is not ported yet (ROADMAP.md queue 1, slice 9 "
-            "of the port)")
+    if mesh is not None and (
+            ps.V % mesh.size
+            or os.environ.get("MESHCLUST_PHASEA_SHARD", "1") != "1"):
+        mesh = None
     if sum(len(b) for b in bv.idx) == 0:
         return []
-    s = _Slots(ps, bv, params, sim)
+    s = _Slots(ps, bv, params, sim, mesh)
     N = s.N
     cmax = cmax_hint or (N + 1)
     center_slot: List[int] = []

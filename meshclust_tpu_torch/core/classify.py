@@ -43,6 +43,7 @@ import torch
 from meshclust_tpu_torch.core.meanshift import _DBL_MIN
 from meshclust_tpu_torch.core.points import PointSet
 from meshclust_tpu_torch.ops import features as F
+from meshclust_tpu_torch.parallel import dist
 from meshclust_tpu_torch.utils.log import log
 
 # 46340^2 < 2^31: rows whose counts are at most this multiply in int32.
@@ -483,7 +484,11 @@ class DeviceBackend:
     on the device once, as float64 (exact integers). Each call makes its
     decisions on the device and reads back once. Only the default singles
     are computed here; a model with ALIGN, JS, SQCHORD or RREE_K_R raises
-    ValueError, and make_backend gives it HostBackend."""
+    ValueError, and make_backend gives it HostBackend.
+
+    With `mesh` (parallel/dist) the fused Phase B shards the member pool
+    over the ranks and device Phase A the feature axis; every other call
+    runs replicated on each rank."""
 
     SUPPORTED = (F.FEAT_LD, F.FEAT_MANHATTAN, F.FEAT_INTERSECTION,
                  F.FEAT_PEARSON, F.FEAT_SIMRATIO, F.FEAT_KULCZYNSKI2)
@@ -493,11 +498,8 @@ class DeviceBackend:
         for s in params.singles:
             if s not in self.SUPPORTED:
                 raise ValueError(f"single {s} not supported on device")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-GPU clustering is not ported yet (ROADMAP.md queue 1, "
-                "slice 9 of the port)")
         self.ps = ps
+        self.mesh = mesh
         self.params = params
         # cheap always-on numerics guard: degenerate normalization bounds or
         # non-finite weights produce NaN scores downstream
@@ -567,7 +569,8 @@ class DeviceBackend:
         return pos.cpu().numpy(), f1.cpu().numpy()
 
     # -- Phase B ------------------------------------------------------------
-    def _band_argmin(self, m_idx, h_m, assign, c_idx, c_valid, delta):
+    def _band_argmin(self, m_idx, h_m, assign, c_idx, c_valid, delta,
+                     mesh=None, m_valid=None):
         """The banded mean_shift_update (ClusterFactory.cpp:290-380,
         382-425): for each center j, its pool is the members m with
         |assign[m] - j| <= delta; the classifier-positive pool members give
@@ -577,10 +580,20 @@ class DeviceBackend:
 
         assign need not be sorted (after a merge it is not): every segment
         reduction is index_add_ on int64 or scatter_reduce_ "amin", exact
-        whatever the order of the atomics."""
+        whatever the order of the atomics.
+
+        With `mesh` the rows are this rank's block of the pool (rank r holds
+        positions r * M .. r * M + M - 1 of n * M, m_valid False on the
+        padding): the int64 sums and counts are summed across ranks, the
+        best distance and then the least global position among the ties are
+        minima across ranks, so every rank returns the single rank's global
+        positions (n * M for none)."""
         M, V = h_m.shape
         C = c_idx.shape[0]
         dev = h_m.device
+        n_ranks, goff = (1, 0) if mesh is None else (mesh.size,
+                                                     mesh.rank * M)
+        M_all = M * n_ranks
         sums = torch.zeros((C, V), dtype=torch.int64, device=dev)
         counts = torch.zeros(C, dtype=torch.int64, device=dev)
         pos_all, jcs = [], []
@@ -589,11 +602,17 @@ class DeviceBackend:
             jc = j.clamp(0, C - 1)
             pos, _ = self._score(c_idx[jc], m_idx, h_b=h_m)
             pos = pos & (j >= 0) & (j < C) & c_valid[jc]
+            if m_valid is not None:
+                pos = pos & m_valid
             sums.index_add_(0, jc, torch.where(pos[:, None], h_m, 0).to(
                 torch.int64))
             counts.index_add_(0, jc, pos.to(torch.int64))
             pos_all.append(pos)
             jcs.append(jc)
+        if mesh is not None:
+            sc = dist.psum(torch.cat([sums, counts[:, None]], 1), mesh,
+                           "phase_b")
+            sums, counts = sc[:, :V], sc[:, V]
         cw = mean_floor(sums, counts.clamp(min=1)[:, None])
         cw_rows = cw.to(self.rows)
         cw_sum = cw.sum(1)                 # exact: integers below 2^53
@@ -602,22 +621,26 @@ class DeviceBackend:
                             device=dev)
         ds = []
         for pos, jc in zip(pos_all, jcs):
-            dist = 2 * torch.minimum(h_m, cw_rows[jc]).sum(
+            dist_ = 2 * torch.minimum(h_m, cw_rows[jc]).sum(
                 1, dtype=torch.int64)
             # floor(h + mean) = h + floor(mean) for integer h, so mean_select's
             # mag, sum(floor(h + mean)), is mag + sum(floor(mean))
-            frac = dist.to(torch.float64) / (mag_m + cw_sum[jc])
+            frac = dist_.to(torch.float64) / (mag_m + cw_sum[jc])
             # two roundings, as mean_select: no FMA
             d = 10000.0 * (1.0 - frac * frac)
             d = torch.where(pos, d, float("inf"))
             best_d.scatter_reduce_(0, jc, d, reduce="amin")
             ds.append(d)
-        best_pos = torch.full((C,), M, dtype=torch.int64, device=dev)
-        pool_pos = torch.arange(M, device=dev)
+        if mesh is not None:
+            best_d = dist.pmin(best_d, mesh, "phase_b")
+        best_pos = torch.full((C,), M_all, dtype=torch.int64, device=dev)
+        pool_pos = goff + torch.arange(M, device=dev)
         for pos, jc, d in zip(pos_all, jcs, ds):
             tie = (d == best_d[jc]) & pos
-            best_pos.scatter_reduce_(0, jc, torch.where(tie, pool_pos, M),
+            best_pos.scatter_reduce_(0, jc, torch.where(tie, pool_pos, M_all),
                                      reduce="amin")
+        if mesh is not None:
+            best_pos = dist.pmin(best_pos, mesh, "phase_b")
         return best_pos
 
     def update_banded(self, members: np.ndarray, assign: np.ndarray,
@@ -654,12 +677,29 @@ class DeviceBackend:
         reference re-concatenates member lists after each merge: on a
         distance tie between members that a merge brought together, this
         loop and the per-iteration path (update_banded) may pick different
-        members."""
+        members.
+
+        With self.mesh each rank scores its block of the pool (see
+        _band_argmin), every rank holds the centers and the merge, and the
+        assignment's blocks are gathered before the readback: every rank
+        returns the single rank's result."""
         M = members.shape[0]
         C = center_rows.shape[0]
-        m_idx = self._idx(members)
+        mesh = self.mesh
+        n, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+        # contiguous blocks of the pool, one a rank, padded to a multiple of
+        # the ranks with rows that never count (m_valid False; None when
+        # nothing is padded)
+        Ml = -(-M // n)
+        pad = np.zeros(Ml * n - M, np.int64)
+        mine = slice(r * Ml, (r + 1) * Ml)
+        m_all = self._idx(np.concatenate([members, pad]))
+        m_idx = m_all[mine]
+        assign_t = self._idx(np.concatenate([assign, pad]))[mine]
+        M_all = m_all.shape[0]
+        m_valid = (torch.arange(M_all, device=m_all.device)[mine] < M
+                   if pad.size else None)
         h_m = self.hist_dev[m_idx].to(self.rows)      # once per phase
-        assign_t = self._idx(assign)
         c_idx = self._idx(center_rows)
         dev = c_idx.device
         c_valid = torch.ones(C, dtype=torch.bool, device=dev)
@@ -668,9 +708,9 @@ class DeviceBackend:
         t_hist = torch.empty((iterations, C), dtype=torch.int64, device=dev)
         for it in range(iterations):
             best_pos = self._band_argmin(m_idx, h_m, assign_t, c_idx,
-                                         c_valid, delta)
-            moved = (best_pos < M) & c_valid
-            c_idx = torch.where(moved, m_idx[best_pos.clamp(max=M - 1)],
+                                         c_valid, delta, mesh, m_valid)
+            moved = (best_pos < M_all) & c_valid
+            c_idx = torch.where(moved, m_all[best_pos.clamp(max=M_all - 1)],
                                 c_idx)
             # merge (ClusterFactory.cpp:427-493, Trainer::merge): each center
             # i takes the first max f1 among the classifier-positive centers
@@ -701,6 +741,10 @@ class DeviceBackend:
                                 ).scatter_(0, dest, c_idx)[:C]
             c_valid = torch.zeros(C + 1, dtype=torch.bool, device=dev
                                   ).scatter_(0, dest, kept)[:C]
+        if mesh is not None:
+            assign_t = dist.gather_rows(
+                assign_t, np.arange(mesh.size + 1) * assign_t.shape[0], mesh,
+                "phase_b")[:M]
         out = torch.cat([assign_t, c_idx, c_valid.to(torch.int64),
                          t_hist.flatten()]).cpu().numpy()
         return (out[:M], out[M: M + C], out[M + C: M + 2 * C] != 0,
@@ -709,18 +753,19 @@ class DeviceBackend:
 
 def make_backend(ps: PointSet, params: F.FeatureParams,
                  align_fn: Optional[Callable] = None, exact: bool = False,
-                 aligner=None):
+                 mesh=None, aligner=None):
     """AlignBackend for an align-mode model (the alignment identity is its
-    only feature) when an aligner is given; DeviceBackend otherwise; the
-    float64 host oracle, HostBackend, under `exact` or for a model with a
-    feature DeviceBackend does not compute (a choice between feature sets,
-    not a fallback from the device)."""
+    only feature) when an aligner is given; DeviceBackend otherwise (over
+    `mesh`'s ranks when given); the float64 host oracle, HostBackend, under
+    `exact` or for a model with a feature DeviceBackend does not compute (a
+    choice between feature sets, not a fallback from the device).
+    AlignBackend and HostBackend run replicated on every rank."""
     if not exact:
         if (tuple(params.singles) == (F.FEAT_ALIGN,)
                 and aligner is not None):
             return AlignBackend(ps, params, aligner)
         try:
-            return DeviceBackend(ps, params)
+            return DeviceBackend(ps, params, mesh=mesh)
         except ValueError:
             pass
     return HostBackend(ps, params, align_fn=align_fn)

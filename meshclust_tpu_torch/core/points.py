@@ -154,10 +154,12 @@ class PointSet:
 
 
 def build_points(seqs: List[fio.Sequence], k: int,
-                 device: torch.device) -> PointSet:
+                 device: torch.device, mesh=None) -> PointSet:
     """Featurize all sequences (ref ClusterFactory::build_points +
-    get_divergence_point); the histogram stays on `device`."""
-    feats = H.featurize(seqs, k, device)
+    get_divergence_point); the histogram stays on `device`. With `mesh`
+    each rank counts a block of the records and every rank gets the whole
+    PointSet (ops/histogram.featurize)."""
+    feats = H.featurize(seqs, k, device, mesh=mesh)
     return PointSet(
         hist=None,
         mag=feats["mag"],

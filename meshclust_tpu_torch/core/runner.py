@@ -16,7 +16,14 @@ centers (utils/checkpoint, the JAX package's format: a checkpoint written
 by either package loads in the other), and in align mode the Phase-A
 alignment memo that Phase B reads (utils/align_memo). MESHCLUST_TRACE=DIR
 writes a torch.profiler trace of the run (host and, on CUDA, the card's
-kernels) into DIR.
+kernels) into DIR, one file a rank.
+
+Several ranks (parallel/dist; the CLI starts them, or a launcher does):
+run() joins the process group first and takes the rank's device. Every
+rank computes the same centers; rank 0 alone writes the CLSTR and the
+checkpoint files, and every rank reads the checkpoint files. Barriers keep
+a rank from reading a file that rank 0 is about to write, and end the run
+with the files in place.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from meshclust_tpu_torch.io import fasta as fio
 from meshclust_tpu_torch.io.clstr import write_clstr
 from meshclust_tpu_torch.ops import histogram as H
 from meshclust_tpu_torch.ops.align_device import DeviceAligner
+from meshclust_tpu_torch.parallel import dist
 from meshclust_tpu_torch.utils import align_memo
 from meshclust_tpu_torch.utils import checkpoint as ckpt
 from meshclust_tpu_torch.utils import perf
@@ -64,10 +72,18 @@ def run(cfg: ClusterConfig,
     """Cluster cfg.files into cfg.output on `device` (None: CUDA).
 
     cfg.exact selects HostBackend, the float64 host oracle, for every
-    clustering decision, as in the JAX package."""
-    dev = D.resolve(device)
-    trace_dir = os.environ.get("MESHCLUST_TRACE")
-    if trace_dir:
+    clustering decision, as in the JAX package. Under a launcher, or in a
+    rank that parallel/dist.launch started, the run is one rank of the
+    group, on the rank's device of `device`'s type; a group that run()
+    joined itself it also leaves (a process that exits still in a group
+    may abort in gloo's teardown)."""
+    joins = dist.get_mesh() is None
+    mesh = dist.init_distributed(device)   # before anything touches the device
+    dev = mesh.device if mesh is not None else D.resolve(device)
+    try:
+        trace_dir = os.environ.get("MESHCLUST_TRACE")
+        if not trace_dir:
+            return _run(cfg, dev)
         # a Chrome/TensorBoard trace of host ops and the card's kernels;
         # complements the phase times and counters of utils/perf.py
         from torch.profiler import (ProfilerActivity, profile,
@@ -78,10 +94,21 @@ def run(cfg: ClusterConfig,
         with profile(activities=activities,
                      on_trace_ready=tensorboard_trace_handler(trace_dir)):
             return _run(cfg, dev)
-    return _run(cfg, dev)
+    finally:
+        if joins and mesh is not None:
+            dist.shutdown()
 
 
 def _run(cfg: ClusterConfig, dev: torch.device) -> dict:
+    mesh = dist.get_mesh()
+    if mesh is not None:
+        log(f"Mesh: {mesh.size} ranks (data-parallel), backend "
+            f"{mesh.backend}")
+    writer = mesh is None or mesh.rank == 0
+
+    def barrier():
+        if mesh is not None:
+            dist.barrier(mesh, "run")
     cfg = cfg.finalize()
     files = sort_files(list(cfg.files))
     if not files:
@@ -104,7 +131,7 @@ def _run(cfg: ClusterConfig, dev: torch.device) -> dict:
 
     log(f"Counting {k}-mers")
     with perf.phase("featurize"):
-        ps = build_points(seqs, k, dev)
+        ps = build_points(seqs, k, dev, mesh)
     bits = int(np.dtype(H.storage_dtype(ps.largest)).itemsize * 8)
     log(f"Using {bits} bit histograms")
 
@@ -124,10 +151,11 @@ def _run(cfg: ClusterConfig, dev: torch.device) -> dict:
                                 cfg.similarity, cfg.seed, cfg)
         if model is not None:
             log("Resumed trained classifier from checkpoint")
+        barrier()
     if model is None:
         with perf.phase("train"):
             model = trainer.train(cfg.acc_cutoff)
-        if cfg.checkpoint:
+        if cfg.checkpoint and writer:
             ckpt.save_model(cfg.checkpoint + ".model.json", model, ps,
                             cfg.seed, cfg)
 
@@ -138,7 +166,7 @@ def _run(cfg: ClusterConfig, dev: torch.device) -> dict:
         return aligner.identities([(int(j), center) for j in idxs])
 
     backend = C.make_backend(ps, model.params, align_fn=align_fn,
-                             exact=cfg.exact, aligner=aligner)
+                             exact=cfg.exact, mesh=mesh, aligner=aligner)
 
     bv = BVec(ps.lengths.copy(), cfg.bin_size)
     bv.bulk_insert(ps.lengths)
@@ -157,8 +185,11 @@ def _run(cfg: ClusterConfig, dev: torch.device) -> dict:
         if cfg.align and resume is not None \
                 and not align_memo.load_memo(mpath, backend, *key):
             resume = None
+        barrier()
 
         def on_acc(cs):
+            if not writer:
+                return
             if cfg.align:
                 align_memo.save_memo(mpath, backend, *key)
             ckpt.save_centers(cpath, cs, *key)
@@ -167,7 +198,9 @@ def _run(cfg: ClusterConfig, dev: torch.device) -> dict:
 
     log("Printing output")
     with perf.phase("output"):
-        write_clstr(cfg.output, centers, ps.headers, ps.lengths)
+        if writer:
+            write_clstr(cfg.output, centers, ps.headers, ps.lengths)
+        barrier()
     if os.environ.get("MESHCLUST_PERF", "0") == "1":
         print(perf_report(), file=sys.stderr, flush=True)
     return {

@@ -24,6 +24,7 @@ import torch
 
 from meshclust_tpu_torch import _ext
 from meshclust_tpu_torch.io import fasta as fio
+from meshclust_tpu_torch.parallel import dist
 from meshclust_tpu_torch.utils import perf
 
 # ids are 2k bits of a 32-bit word
@@ -196,24 +197,43 @@ _TORCH_DTYPE = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
 
 
 def featurize(seqs: List[fio.Sequence], k: int, device: torch.device,
-              init: int = 1) -> dict:
+              init: int = 1, mesh=None) -> dict:
     """Featurize all sequences on `device` in one kmer_hist launch: k-mer
     histograms (+pseudocount, written in place in input order and kept on
     the device in the storage dtype as `hist_dev`), 1-mer counts,
     magnitudes and sums of squares (host int64), lengths.
 
+    With `mesh` (parallel/dist), each rank launches kmer_hist once on its
+    contiguous block of records (balanced by bases), and the rows and
+    statistics are gathered, so every rank returns the whole corpus's. The
+    largest count is a MAX across ranks before the narrowing, and split
+    mode is decided on every record's length, so every rank narrows and
+    launches alike.
+
     Ref: ClusterFactory::build_points + get_divergence_point
     (ClusterFactory.cpp:770-804, 989-1010)."""
     device = torch.device(device)
+    lengths = np.fromiter((s.length for s in seqs), np.int64,
+                          count=len(seqs))
+    mine = seqs
+    if mesh is not None:
+        off = dist.blocks(lengths, mesh.size)
+        mine = seqs[off[mesh.rank]: off[mesh.rank + 1]]
+    perf.add("feat_rows", float(len(mine)))
     with perf.phase("feat_pack"):
-        flat = flat_inputs(seqs)
-        lengths = np.diff(flat[1])
         codes, rec_off, segs, seg_off = (torch.from_numpy(a).to(device)
-                                         for a in flat)
+                                         for a in flat_inputs(mine))
     with perf.phase("feat_device"):
         hist_dev, ones, mag, sq, largest = kmer_hist(
             codes, rec_off, segs, seg_off, k, init,
             split=split_mode(lengths, k))
+        if mesh is not None:
+            hist_dev = dist.gather_rows(hist_dev, off, mesh, "featurize")
+            stats = dist.gather_rows(
+                torch.cat([ones.to(torch.int64), mag[:, None], sq[:, None]],
+                          1), off, mesh, "featurize")
+            ones, mag, sq = stats[:, :4], stats[:, 4], stats[:, 5]
+            largest = dist.pmax(largest.to(torch.int64), mesh, "featurize")
     with perf.phase("feat_stats"):
         largest = int(largest[0])
         sdt = np.dtype(storage_dtype(largest))

@@ -3,7 +3,8 @@
 
 Run from the repository root, after chip_smoke.py has passed:
     python3 profile_port.py [--parts throughput,busy,variants,compare,e2e,
-                                     feat,kvariants,sass,cluster]
+                                     feat,kvariants,sass,cluster,ranks]
+                            [--ranks 2,4]
                             [--against OLD.cu ...] [--variants "R,T,K ..."]
                             [--parent DIR] [--kmer-variants "SPEC ..."]
 
@@ -63,6 +64,19 @@ Parts (default: throughput,busy):
               model under the profiler: wall, device time, busy share, and
               kernel launches, host-device copies, wall and device ms per
               iteration.
+  ranks       several ranks (parallel/dist), for each n of --ranks: n
+              ranks (gloo where they share a card, NCCL where each has its
+              own) time each collective at the 15k k-mer run's shapes (a
+              Phase A sweep's sums, a move of the center, a Phase B
+              iteration's sums, minimum and positions) and the gather of
+              the featurized rows at 15k and, over NCCL, 1M reads in two
+              forms (the port's SUM into zeros and, over NCCL, an
+              all-gather of padded blocks), host
+              clock around a call that ends in a sync, median of 20 after 3
+              warm-ups; then the smoke's 15k-read run (--id 0.90) at one
+              rank in this process and at n ranks, in turns (1, n, n, 1):
+              walls, each rank's phases and collectives, and the CLSTR
+              against the single rank's.
 Every line starts with the card's name and power limit or follows one that
 does, so each number can be kept beside the card it came from.
 """
@@ -662,6 +676,129 @@ def sass_counts(label: str, func: str, op) -> None:
           flush=True)
 
 
+# (label, shape, dtype, reduction) of the collectives timed by --parts
+# ranks: the 15k k-mer run's (N = 15,000, V = 256, ~150 centers)
+COLLECTIVES = (("Phase A sweep [2, 15000] int64 SUM", (2, 15000), "int64",
+                "sum"),
+               ("Phase A move [15001] int64 SUM", (15001,), "int64", "sum"),
+               ("Phase B sums [150, 257] int64 SUM", (150, 257), "int64",
+                "sum"),
+               ("Phase B minimum [150] float64 MIN", (150,), "float64",
+                "min"),
+               ("Phase B position [150] int64 MIN", (150,), "int64", "min"))
+# reads of the featurized rows gathered by --parts ranks, [N, 256] int32 in
+# blocks balanced by bases: the 15k run's, and the 1M-read run's (over
+# NCCL only: through gloo each call stages 1 GB through the host)
+GATHER_ROWS = (15000, 1000000)
+
+
+def _median_ms(mesh, fn, reps: int = 20, warm: int = 3) -> float:
+    """Median ms of fn() to a sync, each call after a barrier."""
+    import torch
+    from meshclust_tpu_torch.parallel import dist
+    times = []
+    for _ in range(warm + reps):
+        dist.barrier(mesh, "bench")
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times[warm:])) * 1e3
+
+
+def _gather_padded(local, off, mesh):
+    """gather_rows as one all-gather of the blocks padded to the largest,
+    then one copy that drops the padding: the form timed against
+    parallel/dist.gather_rows's SUM into zeros over NCCL."""
+    import torch
+    import torch.distributed as tdist
+    sizes = np.diff(off)
+    B = int(sizes.max())
+    if local.shape[0] < B:
+        local = torch.cat([local, local.new_zeros(
+            (B - local.shape[0],) + tuple(local.shape[1:]))])
+    buf = local.new_empty((mesh.size * B,) + tuple(local.shape[1:]))
+    tdist.all_gather_into_tensor(buf, local, group=mesh.group)
+    return torch.cat([buf[r * B: r * B + int(c)] for r, c in enumerate(sizes)])
+
+
+def collective_ms() -> list:
+    """One rank's median ms of each of COLLECTIVES, and of the gather of
+    the rows at GATHER_ROWS: parallel/dist.gather_rows (SUM into zeros)
+    and, over NCCL, _gather_padded (spawned by parallel/dist.launch)."""
+    import torch
+    from meshclust_tpu_torch.parallel import dist
+    mesh = dist.get_mesh()
+    fns = {"sum": dist.psum, "min": dist.pmin}
+    out = []
+    for label, shape, dtype, red in COLLECTIVES:
+        t = torch.ones(shape, dtype=getattr(torch, dtype),
+                       device=mesh.device)
+        out.append((label, t.numel() * t.element_size(),
+                    _median_ms(mesh, lambda: fns[red](t, mesh, "bench"))))
+    forms = {"SUM": lambda x, off: dist.gather_rows(x, off, mesh, "bench")}
+    if mesh.backend == "nccl":
+        forms["padded all-gather"] = lambda x, off: _gather_padded(x, off,
+                                                                   mesh)
+    for n_rows in GATHER_ROWS:
+        if n_rows > 15000 and mesh.backend != "nccl":
+            continue
+        bases = np.random.default_rng(0).integers(900, 1100, n_rows)
+        off = dist.blocks(bases, mesh.size)
+        local = torch.full((int(off[mesh.rank + 1] - off[mesh.rank]), 256),
+                           mesh.rank + 1, dtype=torch.int32,
+                           device=mesh.device)
+        want = torch.repeat_interleave(
+            torch.arange(1, mesh.size + 1, dtype=torch.int32,
+                         device=mesh.device),
+            torch.as_tensor(np.diff(off), device=mesh.device))
+        for name, fn in forms.items():
+            if not torch.equal(fn(local, off)[:, 0], want):
+                raise AssertionError(f"the {name} gather is wrong")
+            ms = _median_ms(mesh, lambda: fn(local, off))
+            out.append((f"featurize rows [{n_rows}, 256] int32 {name}, "
+                        f"blocks {np.diff(off).tolist()}",
+                        n_rows * 256 * 4, ms))
+        del local, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def ranks(dev, counts: list) -> None:
+    """The ranks part (module docstring)."""
+    from meshclust_tpu_torch.parallel import dist
+    fasta = smoke.bench_corpus()
+    one = os.path.join(smoke.WORK, "ranks_one.clstr")
+    walls = {}
+    for n in counts:
+        outs = dist.launch(collective_ms, n, None)
+        print(f"  {n} ranks: collectives, median ms of 20 (rank: ms ...)",
+              flush=True)
+        for i, (label, nbytes, _) in enumerate(outs[0]):
+            ms = [o[i][2] for o in outs]
+            print(f"    {label}, {nbytes} B: "
+                  + ", ".join(f"{r}: {m:.4f}" for r, m in enumerate(ms)),
+                  flush=True)
+        got = os.path.join(smoke.WORK, f"ranks_{n}.clstr")
+        for turn in ("1", "n", "n", "1"):
+            if turn == "1":
+                smoke.drive(dev, "k-mer path, 1 rank", fasta, one,
+                            similarity=0.90)
+                walls.setdefault(1, []).append(
+                    smoke.WALLS["k-mer path, 1 rank"])
+            else:
+                rank_outs, wall = smoke.launch_ranks(
+                    f"k-mer path, {n} ranks", n, fasta, got,
+                    similarity=0.90)
+                walls.setdefault(n, []).append(
+                    (wall, max(o["wall"] for o in rank_outs)))
+        print(f"  {n} ranks: CLSTR byte-equal to 1 rank's: "
+              f"{smoke.same_file(got, one)}", flush=True)
+    print(f"  walls, s: 1 rank {walls[1]}; "
+          + "; ".join(f"{n} ranks (launch, slowest rank's run) {walls[n]}"
+                      for n in counts), flush=True)
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser()
@@ -677,6 +814,8 @@ def main() -> int:
                     "file:PATH sources for the kvariants part")
     ap.add_argument("--variants", default="4,128,8 6,128,8 12,128,8 "
                     "16,128,8 8,256,8 8,128,1 8,128,4")
+    ap.add_argument("--ranks", default="2",
+                    help="rank counts of the ranks part, e.g. 2,4")
     args = ap.parse_args()
     parts = args.parts.split(",")
     if ("compare" in parts or "e2e" in parts) and not args.against:
@@ -721,6 +860,10 @@ def main() -> int:
                 True, similarity=0.90)
         cluster(dev, "k-mer path --id 0.90, 150k reads",
                 smoke.bench_corpus(n=150000), False, similarity=0.90)
+    if "ranks" in parts:
+        print(f"several ranks on {torch.cuda.device_count()} GPUs",
+              flush=True)
+        ranks(dev, [int(n) for n in args.ranks.split(",")])
     if "busy" in parts:
         print("device busy share of the main paths", flush=True)
         busy_share(dev, "k-mer path --id 0.90", smoke.bench_corpus(),

@@ -248,3 +248,26 @@ def test_device_backend_cuda_equals_host(cuda):
         assert out["cuda"][0] == out["cpu"][0]
         for g, w in zip(out["cuda"][1], out["cpu"][1]):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_collectives_of_ranks_sharing_one_card(cuda, n):
+    """parallel/dist's collectives on CUDA tensors, n ranks on one card
+    (gloo, since NCCL refuses two ranks on one device): the values numpy
+    gives on the same inputs."""
+    import torch_dist_ranks as R
+    from meshclust_tpu_torch.parallel import dist
+    from test_torch_dist import OPS, SEED, want
+    if torch.cuda.device_count() != 1:
+        pytest.skip("ranks share a card only where there is one")
+    outs = dist.launch(R.collectives, n, None, SEED)
+    for r, out in enumerate(outs):
+        assert (out["rank"], out["backend"], out["device"]) == \
+            (r, "gloo", "cuda:0")
+        for op in OPS:
+            for dtype in sorted(R.DTYPES):
+                expect = want(op, dtype, n)
+                if isinstance(expect, str):
+                    assert out[op, dtype] == expect
+                else:
+                    np.testing.assert_array_equal(out[op, dtype], expect)

@@ -5,8 +5,10 @@ Each test starts a fresh interpreter in which `import jax` fails (as on a
 GPU machine without jax), imports the port, and drives it: through
 run(device="cpu") on a tiny corpus, in k-mer mode (DeviceBackend, device
 Phase A, fused Phase B), in align mode (AlignBackend) and with a
-checkpoint written and resumed; Red on a small genome; and the CLI with
-CUDA hidden, which must exit non-zero with a message.
+checkpoint written and resumed; two gloo ranks (parallel/dist.launch),
+where a `jax` package that fails to import comes first on every process's
+path; Red on a small genome; and the CLI with CUDA hidden, which must exit
+non-zero with a message, also when asked for several ranks.
 """
 import os
 import subprocess
@@ -95,6 +97,37 @@ print("resumed")
     assert os.path.exists(prefix + ".centers.json")
 
 
+def test_two_ranks_without_jax(tmp_path):
+    """k-mer mode over two gloo ranks, each a spawned process whose path
+    starts with a `jax` that raises ImportError."""
+    blocked = tmp_path / "blocked"
+    (blocked / "jax").mkdir(parents=True)
+    (blocked / "jax" / "__init__.py").write_text(
+        "raise ImportError('jax is not installed here')\n")
+    fasta = write_corpus(tmp_path / "tiny.fasta", 5, True, n_species=3,
+                         per=10, L=150)
+    out = str(tmp_path / "ranks.clstr")
+    path = os.pathsep.join([str(blocked), ROOT, os.path.join(ROOT, "tests")])
+    proc = _python(f"""
+import torch_dist_ranks as R
+from meshclust_tpu_torch.parallel import dist
+outs = dist.launch(R.cluster, 2, "cpu", dict(files=[{fasta!r}], output={out!r},
+                                             similarity=0.90,
+                                             sample_size=200))
+for o in outs:
+    assert o["jax_free"] and o["meshclust_tpu_free"], o
+    assert o["clusterer"] == "DeviceBackend" and o["kmer_hist_calls"] == 1
+    assert o["counters"]["coll_phase_b"] > 0
+{NO_MESHCLUST_TPU}
+print("ranks", [o["n_clusters"] for o in outs])
+""", tmp_path, env_extra={"PYTHONPATH": path})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "ranks" in proc.stdout
+    text = open(out).read()
+    assert text.startswith(">Cluster 0")
+    assert text.count("nt, >sp") == 30
+
+
 def test_red_without_jax(tmp_path):
     """python -m meshclust_tpu_torch.red on a small planted genome."""
     rng = np.random.default_rng(9)
@@ -136,5 +169,22 @@ sys.argv = ["meshclust_tpu_torch.cli", {fasta!r}, "--output", {str(out)!r}]
 runpy.run_module("meshclust_tpu_torch.cli", run_name="__main__")
 """, tmp_path, env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert not out.exists()
+
+
+def test_cli_ranks_without_cuda_exit_nonzero(tmp_path):
+    """MESHCLUST_DEVICES=2 with CUDA hidden: refused before any rank
+    starts."""
+    fasta = write_corpus(tmp_path / "tiny.fasta", 5, False, n_species=2,
+                         per=5, L=150)
+    out = tmp_path / "cli.clstr"
+    proc = _python(f"""
+import runpy
+sys.argv = ["meshclust_tpu_torch.cli", {fasta!r}, "--output", {str(out)!r}]
+runpy.run_module("meshclust_tpu_torch.cli", run_name="__main__")
+""", tmp_path, env_extra={"CUDA_VISIBLE_DEVICES": "",
+                          "MESHCLUST_DEVICES": "2"})
+    assert proc.returncode == 2
     assert "CUDA is not available" in proc.stderr
     assert not out.exists()
