@@ -18,14 +18,23 @@ Phases (any failure exits non-zero before the last line):
      flushed L2, beside its other mode and the device featurization
      (launch + narrowing); the NW kernel also on pairs at its thread, warp
      and strip edges (from the constants ops/align_device.py exports),
-     lopsided pairs and one 40 kb x 40 kb pair;
+     lopsided pairs and one 40 kb x 40 kb pair; Phase A's five kernels
+     (csrc/phase_a.cu) on the 15k-read and the 150k-read k-mer corpora's
+     Phase A inputs (each from one run of the path): each kernel against
+     its plain step over the first 200 absorb iterations, then the whole
+     phase's owner, stamp and center slots against the plain path's, in
+     turns (plain, kernels, kernels, plain) with their walls and ms an
+     iteration, each kernel's device time and its plain step's under the
+     profiler, launches an iteration and the bytes an iteration must move;
   4. run each path on the GPU with the launch counts set to 0 just before
      it, and check that it launched both kernels, kmer_hist exactly once:
      - k-mer mode: 15,000 synthetic reads of ~1 kb, --id 0.90, default
        flags; the native host libraries must have loaded, the run must have
-       clustered on the device (DeviceBackend, device Phase A, the fused
-       Phase B with no replay fallback; its accumulate and phase_b seconds,
-       absorb iterations and readbacks printed) and the partition must
+       clustered on the device (DeviceBackend, device Phase A through its
+       kernels, three an absorb iteration and two a move of the center,
+       the fused Phase B with no replay fallback; its accumulate and
+       phase_b seconds, absorb iterations and readbacks printed) and the
+       partition must
        match the planted species (NMI >= 0.95); the same corpus rerun with
        exact=True (HostBackend, host Phase A and B) must write a
        byte-equal CLSTR file; then a small corpus clustered on the GPU and
@@ -51,8 +60,9 @@ Phases (any failure exits non-zero before the last line):
        background bases must be masked; each stage's wall is printed;
   6. ranks (parallel/dist.launch, one spawned process a rank): the 15k
      k-mer run at 2 ranks sharing the card (gloo) must write phase 4's
-     CLSTR byte for byte, each rank launching kmer_hist once and the NW
-     kernel as often as phase 4's run; each rank prints its device and
+     CLSTR byte for byte, each rank launching kmer_hist once, the NW
+     kernel as often as phase 4's run and pa_absorb once an absorb
+     iteration; each rank prints its device and
      backend, rows featurized, launches, featurize/train/accumulate/
      phase_b seconds and its collectives and bytes by site, and the wall
      is printed against phase 4's; the small corpus at 3 and 4 ranks and
@@ -64,6 +74,7 @@ Phases (any failure exits non-zero before the last line):
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -496,6 +507,365 @@ def check_nw_long(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3: Phase A's kernels (csrc/phase_a.cu)
+# ---------------------------------------------------------------------------
+
+PHASE_A = ("pa_window", "pa_sums", "pa_absorb", "pa_member_dist",
+           "pa_mean_argmin")
+# Float64 operations of the classifier on one slot with the default singles
+# (csrc/phase_a.cu:classify; a division or root counted as one), and one
+# H100 SXM's float64 rate outside the tensor cores (NVIDIA's data sheet).
+CLASSIFY_FP64_OPS = 100
+FP64_OPS_PER_S = 34e12
+# Centers of the profiled Phase A runs (of 150 at 15k and 1,500 at 150k).
+PROFILE_CENTERS = 100
+
+
+@contextlib.contextmanager
+def phase_a_steps(wrap):
+    """ops/phase_a.steps patched so that each step runs as wrap(name, fn)."""
+    import types
+    from meshclust_tpu_torch.ops import phase_a as P
+    steps = P.steps
+    P.steps = lambda plain: types.SimpleNamespace(**{
+        name: wrap(name, getattr(steps(plain), name)) for name in P.STEPS})
+    try:
+        yield
+    finally:
+        P.steps = steps
+
+
+def ranged(name, fn):
+    """fn inside the profiler range phase_a.<name>."""
+    import torch
+
+    def call(*a, **kw):
+        with torch.profiler.record_function(f"phase_a.{name}"):
+            return fn(*a, **kw)
+    return call
+
+
+def phase_a_inputs(dev, n: int) -> tuple:
+    """(points, finalized bvec, model params) of the k-mer path's --id 0.90
+    run on bench_corpus(n), from one run of it on dev."""
+    from meshclust_tpu_torch.config import ClusterConfig
+    from meshclust_tpu_torch.core.bvec import BVec
+    from meshclust_tpu_torch.core.runner import run
+    cfg = ClusterConfig(files=[bench_corpus(n)], similarity=0.90,
+                        output=os.path.join(WORK, f"phase_a_{n}.clstr"))
+    res = run(cfg, device=dev)
+    ps = res["pointset"]
+    bv = BVec(ps.lengths.copy(), cfg.finalize().bin_size)
+    bv.bulk_insert(ps.lengths)
+    bv.insert_finalize()
+    return ps, bv, res["model"].params
+
+
+def phase_a_run(ps, bv, params, plain: bool, cmax: int = 0) -> dict:
+    """One Phase A on the card: wall s, iterations, centers, launches and
+    the final slot state."""
+    import torch
+    from meshclust_tpu_torch import _ext
+    from meshclust_tpu_torch.core.accumulate_device import accumulate_device
+    from meshclust_tpu_torch.utils import perf
+    perf.reset()
+    _ext.reset_launches()
+    state = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    accumulate_device(ps, bv, params, 0.90, cmax_hint=cmax, plain=plain,
+                      state=state)
+    torch.cuda.synchronize()
+    c = perf.counters()
+    return {"wall": time.time() - t0, "iters": c["accum_iters"],
+            "centers": c["accum_centers"], "state": state,
+            "launches": {k: _ext.launches[k] for k in PHASE_A}}
+
+
+def phase_a_traffic(ps, bv, params) -> tuple:
+    """({kernel: bytes}, {kernel: seconds of operations at peak}) that the
+    Phase A kernels must move and do over a run of the kernel path on
+    these inputs: each input read once, each output written once, counted
+    from what the data made each launch do (a replay that reads back,
+    after each step, the window, its live slots, the positives and the
+    members)."""
+    from meshclust_tpu_torch.core.accumulate_device import accumulate_device
+    from meshclust_tpu_torch.ops import features as F
+    from meshclust_tpu_torch.ops import phase_a as P
+    N, V = ps.n, ps.V
+    width = ps.hist_dev.element_size()
+    K = 2 if {F.FEAT_PEARSON, F.FEAT_SIMRATIO} & set(params.singles) else 1
+    nbytes = {k: 0.0 for k in PHASE_A}
+    ops_s = {k: 0.0 for k in PHASE_A}
+    calls = {k: 0 for k in PHASE_A}
+    seen = {}
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            calls[f"pa_{name}"] += 1
+            st = a[0]
+            if name == "window":
+                active = a[1]
+                w0, w1 = st[P.W0: P.W1 + 1].tolist()
+                span = max(0, w1 - w0 + 1)
+                win = int(active[w0: w1 + 1].sum()) if span else 0
+                seen.update(span=span, win=win)
+                # active of every slot, bin and len of the live ones
+                nbytes["pa_window"] += N + 16 * int(active.sum())
+                # the window's active flags, its live rows and the center's,
+                # their sums written
+                nbytes["pa_sums"] += span + (win + 1) * V * width \
+                    + 8 * K * win
+                ops_s["pa_sums"] += 4.0 * win * V / DISPATCH_OPS_PER_S
+            elif name == "absorb":
+                span, win = seen["span"], seen["win"]
+                npos = int(st[P.NPOS])
+                # active; sums, mag, sq and length of the live window slots;
+                # owner, stamp and active written and the row read of each
+                # positive; sumvec read and written
+                nbytes["pa_absorb"] += span + win * (8 * K + 24) \
+                    + npos * (17 + V * width) + 16 * V
+                ops_s["pa_absorb"] += win * CLASSIFY_FP64_OPS / FP64_OPS_PER_S
+            elif name == "member_dist":
+                m = seen["m"] = int((a[1] == a[2]).sum())
+                # owner of every slot, each member's row, sumvec; each
+                # member's distance written
+                nbytes["pa_member_dist"] += 8 * N + m * (V * width + 8) \
+                    + 8 * V
+            elif name == "mean_argmin":
+                # owner of every slot; dist, mag and stamp of each member
+                nbytes["pa_mean_argmin"] += 8 * N + 24 * seen["m"]
+            return out
+        return call
+
+    with phase_a_steps(wrap):
+        accumulate_device(ps, bv, params, 0.90, plain=False)
+    n = {k: max(1, calls[k]) for k in PHASE_A}
+    return ({k: nbytes[k] / n[k] for k in PHASE_A},
+            {k: ops_s[k] / n[k] for k in PHASE_A}, sum(nbytes.values()))
+
+
+def device_total_us(event) -> float:
+    """Device time of a profiler range, its children's kernels included."""
+    total = getattr(event, "device_time_total", None)
+    return float(event.cuda_time_total if total is None else total)
+
+
+def phase_a_device_ms(ps, bv, params, plain: bool, cmax: int) -> tuple:
+    """(device ms a call of each step, device ms an iteration) of a Phase A
+    cut at cmax centers under torch.profiler: on the kernel path each
+    kernel's own time, on the plain path the device time of the step's
+    range (its ops' kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from meshclust_tpu_torch.core.accumulate_device import accumulate_device
+    from meshclust_tpu_torch.ops import phase_a as P
+    from meshclust_tpu_torch.utils import perf
+    perf.reset()
+    torch.cuda.synchronize()
+    with phase_a_steps(ranged), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        accumulate_device(ps, bv, params, 0.90, cmax_hint=cmax, plain=plain)
+        torch.cuda.synchronize()
+    iters = perf.counters()["accum_iters"]
+    ka = prof.key_averages()
+    out = {}
+    for name in P.STEPS:
+        if plain:
+            evs = [e for e in prof.events() if e.name == f"phase_a.{name}"
+                   and e.device_type == DeviceType.CPU]
+            out[f"pa_{name}"] = (sum(device_total_us(e) for e in evs)
+                                 / 1e3 / max(1, len(evs)))
+        else:
+            ks = [e for e in ka if e.device_type == DeviceType.CUDA
+                  and f"pa_{name}_kernel" in e.key]
+            out[f"pa_{name}"] = (sum(e.self_device_time_total for e in ks)
+                                 / 1e3 / max(1, sum(e.count for e in ks)))
+    # the ranges' own device-side annotations span their gaps: not counted
+    dev_ms = sum(e.self_device_time_total for e in ka
+                 if e.device_type == DeviceType.CUDA
+                 and not e.key.startswith("phase_a.")) / 1e3
+    return out, dev_ms / iters
+
+
+def phase_a_lockstep_errors(ps, bv, params, iters: int) -> dict:
+    """Each Phase A kernel against its plain step on the same inputs, for
+    the first `iters` absorb iterations: both _Slots driven as
+    accumulate_device drives them, the max abs difference of every value
+    the next step reads (state buffer, owner, stamp, active, sumvec; sums
+    of the window's live slots; members' distances), per kernel."""
+    import torch
+    from meshclust_tpu_torch.core import accumulate_device as A
+    from meshclust_tpu_torch.ops import phase_a as P
+    plain = A._Slots(ps, bv, params, 0.90, plain=True)
+    kern = A._Slots(ps, bv, params, 0.90, plain=False)
+    both, N = (plain, kern), plain.N
+    err = {k: 0 for k in PHASE_A}
+
+    def diff(name, *pairs):
+        for a, b in pairs:
+            err[name] = max(err[name], max_abs_err(
+                a.to(torch.int64), b.to(torch.int64)))
+
+    def state(name, *attrs):
+        diff(name, (plain.st[: P.COUNT + 1], kern.st[: P.COUNT + 1]),
+             *((getattr(plain, x), getattr(kern, x)) for x in attrs))
+
+    for sl in both:
+        sl.active[:1] = False
+    c = t = seed = done = 0
+    while done < iters:
+        for sl in both:
+            sl.begin(seed, c, t)
+        t += 1
+        while done < iters:
+            for sl in both:
+                sl.step.window(sl.st, sl.active, sl.bin, sl.len, sl.lo,
+                               sl.hi, sl.front_bin, sl.back_bin)
+            state("pa_window")
+            for sl in both:
+                sl.step.sums(sl.st, sl.active, sl.h, sl.sums)
+            w0, w1 = kern.st[P.W0: P.W1 + 1].tolist()
+            live = torch.nonzero(kern.active[w0: w1 + 1]).flatten() + w0
+            diff("pa_sums", (plain.sums[:, live], kern.sums[:, live]))
+            for sl in both:
+                sl.step.absorb(sl.st, sl.sums, sl.model, sl.mag, sl.sq,
+                               sl.lenf, sl.owner, sl.stamp, sl.active, sl.h,
+                               sl.sumvec, c, t, sl.part)
+            state("pa_absorb", "owner", "stamp", "active", "sumvec")
+            n_pos, best, _, live_slot = kern.st[: P.LIVE + 1].tolist()
+            t += 1
+            done += 1
+            if n_pos == 0:
+                break
+            for sl in both:
+                sl.step.member_dist(sl.st, sl.owner, c, sl.h, sl.sumvec,
+                                    sl.dist)
+            members = torch.nonzero(kern.owner == c).flatten()
+            diff("pa_member_dist", (plain.dist[members], kern.dist[members]),
+                 (plain.dist[N:], kern.dist[N:]))
+            for sl in both:
+                sl.step.mean_argmin(sl.st, sl.dist, sl.mag, sl.owner,
+                                    sl.stamp, c, sl.part)
+            state("pa_mean_argmin")
+        c += 1
+        seed = best if best < N else live_slot
+        if seed >= N:
+            break
+        for sl in both:
+            sl.active[seed] = False
+    return err
+
+
+def phase_a_profile_child(paths: list) -> int:
+    """The child process of check_phase_a: for each saved (points, bvec,
+    params) file, the device ms of each step on both paths; prints one
+    JSON line {path: [kernel ms, plain ms, kernel ms an iteration, plain
+    ms an iteration]}. A process of its own, so that the smoke's later
+    traced run starts with no earlier profiler session in its process."""
+    import torch
+    out = {}
+    for path in paths:
+        ps, bv, params = torch.load(path, weights_only=False)
+        ms, dev_ms = phase_a_device_ms(ps, bv, params, False,
+                                       PROFILE_CENTERS)
+        plain_ms, plain_dev_ms = phase_a_device_ms(ps, bv, params, True,
+                                                   PROFILE_CENTERS)
+        out[path] = [ms, plain_ms, dev_ms, plain_dev_ms]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def check_phase_a(dev) -> list:
+    """Phase A through its kernels against the plain steps on the 15k and
+    150k corpora's Phase A inputs: each kernel step by step over the first
+    iterations, then the whole phase (owner, stamp, center slots) bit for
+    bit, timed in turns (plain, kernels, kernels, plain); then, in a child
+    process, each kernel's device time and its plain step's under the
+    profiler; and the bound. Returns the five kernels' rows (at 15k, the
+    main path's shapes)."""
+    import torch
+    found = {}
+    for n in (15000, 150000):
+        t0 = time.time()
+        ps, bv, params = phase_a_inputs(dev, n)
+        err = phase_a_lockstep_errors(ps, bv, params, 200)
+        runs = [phase_a_run(ps, bv, params, plain)
+                for plain in (True, False, False, True)]
+        for r in runs[1:]:
+            for key in ("owner", "stamp", "center_slot"):
+                a, b = runs[0]["state"][key], r["state"][key]
+                if a.shape != b.shape or not np.array_equal(a, b):
+                    fail(f"Phase A at {n} reads: the kernels' {key} differs "
+                         f"from the plain path's")
+        if any(err.values()):
+            fail(f"Phase A at {n} reads: a kernel differs from its plain "
+                 f"step ({err})")
+        iters, centers = runs[1]["iters"], runs[1]["centers"]
+        launched = runs[1]["launches"]
+        want = dict.fromkeys(PHASE_A[:3], iters)
+        want.update(dict.fromkeys(PHASE_A[3:], iters - centers))
+        if launched != want:
+            fail(f"Phase A at {n} reads launched {launched}, not {want}")
+        per_launch, ops_s, total_bytes = phase_a_traffic(ps, bv, params)
+        path = os.path.join(WORK, f"phase_a_inputs_{n}.pt")
+        torch.save((ps, bv, params), path)
+        k_it = [r["wall"] * 1e3 / iters for r in runs[1:3]]
+        p_it = [r["wall"] * 1e3 / iters for r in (runs[0], runs[3])]
+        print(f"  Phase A at {n} reads (k-mer path --id 0.90, "
+              f"{ps.hist_dev.dtype} rows, V = {ps.V}): {iters:.0f} absorb "
+              f"iterations, {centers:.0f} centers; owner, stamp and center "
+              f"slots bit-equal to the plain path; each kernel bit-equal to "
+              f"its plain step over the first 200 iterations", flush=True)
+        print(f"    accumulate_device wall s, in turns: plain "
+              f"{runs[0]['wall']:.4f}, kernels {runs[1]['wall']:.4f}, "
+              f"kernels {runs[2]['wall']:.4f}, plain {runs[3]['wall']:.4f}; "
+              f"ms an iteration: kernels {k_it[0]:.4f}-{k_it[1]:.4f}, plain "
+              f"{p_it[0]:.4f}-{p_it[1]:.4f}; Phase A launches an iteration "
+              f"{sum(launched.values()) / iters:.4f} ({launched}); bound "
+              f"{total_bytes / iters / HBM_BYTES_PER_S * 1e3:.5f} ms an "
+              f"iteration ({total_bytes / iters:.0f} B at "
+              f"{HBM_BYTES_PER_S:.3g} B/s) (took {time.time() - t0:.1f} s, "
+              f"its inputs' run included)", flush=True)
+        found[n] = (path, err, per_launch, ops_s)
+    t0 = time.time()
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phase-a-profile",
+         *(found[n][0] for n in found)], capture_output=True, text=True,
+        timeout=600, cwd=ROOT)
+    if child.returncode != 0:
+        fail(f"the Phase A profile failed:\n{child.stderr[-3000:]}")
+    timed_ = json.loads(child.stdout.strip().splitlines()[-1])
+    rows = None
+    for n, (path, err, per_launch, ops_s) in found.items():
+        ms, plain_ms, dev_ms, plain_dev_ms = timed_[path]
+        print(f"  Phase A at {n} reads under the profiler (first "
+              f"{PROFILE_CENTERS} centers, a child process, "
+              f"{time.time() - t0:.1f} s for both corpora): device ms an "
+              f"iteration: kernels "
+              f"{dev_ms:.5f}, plain {plain_dev_ms:.5f}", flush=True)
+        for k in PHASE_A:
+            b = bound(per_launch[k], ops_s[k])
+            print(f"    {k}: {ms[k]:.5f} ms a launch (plain step "
+                  f"{plain_ms[k]:.5f} ms), bound {b['bound_ms']:.6f} ms "
+                  f"({b['bound_by']}, {per_launch[k]:.0f} B a launch), "
+                  f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4f} of it, "
+                  f"max abs err {err[k]}", flush=True)
+        if rows is None:
+            # No PyTorch call computes these functions on integer rows
+            # (cdist takes floats): library_ms is null.
+            rows = [{"name": k, "route": "cuda",
+                     "source": "meshclust_tpu_torch/csrc/phase_a.cu",
+                     "replaces": "meshclust_tpu/core/accumulate_device.py:87",
+                     "ms": ms[k], "plain_ms": plain_ms[k],
+                     "library_ms": None, "max_abs_err": err[k],
+                     **bound(per_launch[k], ops_s[k])} for k in PHASE_A]
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main paths
 # ---------------------------------------------------------------------------
 
@@ -597,6 +967,13 @@ def main_path(dev) -> dict:
     if fused != [True]:
         fail(f"the fused Phase B fell back to the host or did not run "
              f"(kept per call: {fused})")
+    iters, centers = counters["accum_iters"], counters["accum_centers"]
+    want = dict.fromkeys(PHASE_A[:3], iters)
+    want.update(dict.fromkeys(PHASE_A[3:], iters - centers))
+    if {k: launches[k] for k in PHASE_A} != want:
+        fail(f"the k-mer run's Phase A kernels launched "
+             f"{ {k: launches[k] for k in PHASE_A} }, not {want} (three an "
+             f"absorb iteration, two more a move of the center)")
     print(f"  clustered on the device: accumulate "
           f"{phases.get('accumulate', 0.0):.4f} s, phase_b "
           f"{phases.get('phase_b', 0.0):.4f} s, accum_iters "
@@ -774,9 +1151,9 @@ def checkpoint_path(dev, kmer_clstr: str) -> None:
     if kept_calls != [True]:
         fail(f"the resumed run's fused Phase B fell back or did not run "
              f"(kept per call: {kept_calls})")
-    if launches != {"kmer_hist": 1, "nw_align_long": 0}:
+    if launches != {**dict.fromkeys(launches, 0), "kmer_hist": 1}:
         fail(f"the resumed run launched {launches}, not kmer_hist once "
-             f"and nw_align_long never")
+             f"and no other kernel (no NW, no Phase A)")
     texts = []
     for path in outs + [kmer_clstr]:
         with open(path, "rb") as f:
@@ -1092,6 +1469,10 @@ def ranks_path(kmer_launches: dict) -> dict:
             fail(f"rank {o['rank']} launched the NW kernel "
                  f"{o['launches']['nw_align_long']} times, phase 4's run "
                  f"{kmer_launches['nw_align_long']}")
+        if o["launches"]["pa_absorb"] != o["counters"]["accum_iters"]:
+            fail(f"rank {o['rank']} launched pa_absorb "
+                 f"{o['launches']['pa_absorb']} times in "
+                 f"{o['counters']['accum_iters']:.0f} absorb iterations")
         for site in ("featurize", "accumulate", "phase_b"):
             if o["counters"].get(f"coll_{site}", 0) <= 0:
                 fail(f"rank {o['rank']} issued no collective at {site}")
@@ -1174,7 +1555,7 @@ def main() -> int:
                     print(f"    {line.strip()}", flush=True)
 
     print("phase 3: kernels against their plain versions", flush=True)
-    rows = [check_histogram(dev), check_nw_long(dev)]
+    rows = [check_histogram(dev), check_nw_long(dev), *check_phase_a(dev)]
 
     print("phase 4: main paths", flush=True)
     kmer = main_path(dev)
@@ -1211,4 +1592,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase-a-profile"]:
+        os.environ.setdefault("MESHCLUST_QUIET", "1")
+        sys.exit(phase_a_profile_child(sys.argv[2:]))
     sys.exit(main())

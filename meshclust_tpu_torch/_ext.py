@@ -31,13 +31,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Launch counts by kernel name; the wrappers add one per launch.
-launches: Dict[str, int] = {"kmer_hist": 0, "nw_align_long": 0}
+launches: Dict[str, int] = {"kmer_hist": 0, "nw_align_long": 0,
+                             "pa_window": 0, "pa_sums": 0, "pa_absorb": 0,
+                             "pa_member_dist": 0, "pa_mean_argmin": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # codes, rec_off, segs, seg_off, n, k, init, split, counts, ones, mag,
     # sq, largest, stream
@@ -45,8 +48,21 @@ _SIGNATURES = {
                      _P],
     # codes, lpad, lengths, ia, ib, P, stride, match, mismatch, go, gc, bnd,
     # alen, amatch, stream
-    "mc_nw_align_long": [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _P, _P, _P, _P],
+    "mc_nw_align_long": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                         _P, _P],
+    # st, active, bin, len, lo, hi, front_bin, back_bin, n, stream
+    "mc_pa_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # st, active, rows, row stride, V, width, n, with_dot, sums, stream
+    "mc_pa_sums": [_P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
+    # st, sums, with_dot, spec, n_spec, coef, n_coef, mag, sq, lenf, owner,
+    # stamp, active, rows, row stride, V, width, sumvec, n, c, t, part,
+    # stream
+    "mc_pa_absorb": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                     _L, _I, _I, _P, _I, _L, _L, _P, _P],
+    # st, owner, c, rows, row stride, V, width, sumvec, n, dist, stream
+    "mc_pa_member_dist": [_P, _P, _L, _P, _L, _I, _I, _P, _I, _P, _P],
+    # st, dist, mag, owner, stamp, c, n, part, stream
+    "mc_pa_mean_argmin": [_P, _P, _P, _P, _P, _L, _I, _P, _P],
 }
 
 

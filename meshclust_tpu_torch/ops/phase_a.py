@@ -1,0 +1,384 @@
+"""Phase A's absorb iteration: five CUDA kernels (csrc/phase_a.cu) and
+their plain PyTorch versions.
+
+They take the place, on the card, of the torch ops of one absorb iteration
+of core/accumulate_device.py (the JAX package runs the iteration as XLA
+inside build_accumulate's lax.while_loop,
+meshclust_tpu/core/accumulate_device.py:87). An iteration is
+
+  window(st, ...)       the live window [w0, w1] of the center st[LAST]
+                        and the first live slot;
+  sums(st, ...)         man and dot of the center's row against the rows
+                        (the kernel: only the live rows of the window);
+  absorb(st, ...)       the float64 classifier, the absorb of the positives
+                        (owner, stamp, active, sumvec, st[COUNT]), n_pos and
+                        the first max of f1;
+and, when it absorbed, the move of the center:
+  member_dist(st, ...)  2 * sum min(h, floor(mean)) of the rows (the
+                        kernel: of the members only) and sum floor(mean);
+  mean_argmin(st, ...)  the member closest to the mean -> st[LAST].
+
+The scalars live in one int64 state buffer on the device (new_state), so
+nothing is read back between the steps; st[:LIVE + 1] is the iteration's
+readback [n_pos, best, center slot, first live slot]. A wrapper takes the
+plain version for tensors on the CPU and launches its kernel for tensors on
+a CUDA device; it never falls back. The plain versions compute over all N
+slots, as the port's Phase A did before these kernels; they agree with the
+kernels on every value the next step reads (the window's live slots, the
+members).
+"""
+from __future__ import annotations
+
+import types
+
+import numpy as np
+import torch
+
+from meshclust_tpu_torch import _ext
+from meshclust_tpu_torch.core.classify import Scorer, mean_floor
+from meshclust_tpu_torch.ops import features as F
+
+# Slots of the state buffer, as csrc/phase_a.cu's constants give them.
+NPOS, BEST, LAST, LIVE, W0, W1, COUNT = range(7)
+SCRATCH = 8         # pa_window's eight reductions (kScratch)
+TICKETS = 16        # one ticket each: pa_window, pa_absorb, pa_mean_argmin
+STATE_LEN = 24
+# The persistent grid (kBlocks), and the partials each of its blocks writes
+# in pa_absorb (four) and pa_mean_argmin (three).
+BLOCKS = 528
+THREADS = 256
+PARTIALS = 4
+# Most singles a model may have (kMaxSingles), and the shared memory of its
+# packed arrays that a launch may take without an attribute.
+MAX_SINGLES = 16
+MAX_MODEL_BYTES = 48 * 1024
+SUPPORTED = (F.FEAT_LD, F.FEAT_MANHATTAN, F.FEAT_INTERSECTION,
+             F.FEAT_PEARSON, F.FEAT_SIMRATIO, F.FEAT_KULCZYNSKI2)
+_WIDTHS = {torch.int8: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8}
+
+
+def window_init(n: int) -> list:
+    """pa_window's reductions before a launch (it restores them after):
+    the firsts start at n, the lasts at -1."""
+    return [n, -1, n, -1, n, -1, -1, -1]
+
+
+def new_state(n: int, device) -> tuple:
+    """(st [STATE_LEN] int64, part [PARTIALS * BLOCKS] int64) for n slots."""
+    st = torch.zeros(STATE_LEN, dtype=torch.int64)
+    st[SCRATCH: SCRATCH + 8] = torch.tensor(window_init(n))
+    return (st.to(device),
+            torch.zeros(PARTIALS * BLOCKS, dtype=torch.int64, device=device))
+
+
+class Model:
+    """The classifier of pa_absorb: the plain version's Scorer, and the
+    kernel's packed arrays
+      spec int32: S, J, singles[S], is_sim[S], kinds[J], off[J + 1], idx
+      coef f64:   V, mins[S], spans[S], weights[J + 1]
+    (J combos; combo j multiplies the normalized singles idx[off[j]:
+    off[j + 1]])."""
+
+    def __init__(self, params: F.FeatureParams, V: int, device):
+        singles = [int(f) for f in params.singles]
+        if any(f not in SUPPORTED for f in singles):
+            raise ValueError(f"singles {singles}: the Phase A kernels "
+                             f"compute only {SUPPORTED}")
+        if not params.combos or len(singles) > MAX_SINGLES:
+            raise ValueError(f"{len(params.combos)} combos, {len(singles)} "
+                             f"singles: need >= 1 and <= {MAX_SINGLES}")
+        self.scorer = Scorer(params, V, device)
+        self.with_dot = self.scorer.need_dot
+        kinds = [int(c) for c, _ in params.combos]
+        idx = [int(i) for _, ix in params.combos for i in ix]
+        off = np.cumsum([0] + [len(ix) for _, ix in params.combos])
+        spec = ([len(singles), len(kinds)] + singles
+                + [int(bool(s)) for s in params.is_sim] + kinds
+                + off.tolist() + idx)
+        mins = np.asarray(params.mins, np.float64)
+        coef = np.concatenate([[float(V)], mins,
+                               np.asarray(params.maxs, np.float64) - mins,
+                               np.asarray(params.weights, np.float64)])
+        if len(spec) * 4 + coef.shape[0] * 8 > MAX_MODEL_BYTES:
+            raise ValueError("the classifier does not fit pa_absorb's shared "
+                             "memory")
+        self.spec = torch.as_tensor(np.asarray(spec, np.int32), device=device)
+        self.coef = torch.as_tensor(coef, device=device)
+
+
+# -- checks -------------------------------------------------------------------
+
+def _device(*ts) -> torch.device:
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _vec(t: torch.Tensor, dtype, n: int, name: str) -> None:
+    if t.dtype != dtype or t.shape != (n,) or not t.is_contiguous():
+        raise ValueError(f"{name}: need contiguous [{n}] {dtype}, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def _state(st: torch.Tensor) -> None:
+    _vec(st, torch.int64, STATE_LEN, "st")
+
+
+def _rows(rows: torch.Tensor, n: int) -> int:
+    """The rows' element width in bytes; rows [n, V] with unit lane stride
+    (a rank's column slice keeps its row stride)."""
+    if rows.dim() != 2 or rows.shape[0] != n or rows.dtype not in _WIDTHS \
+            or (rows.shape[1] > 1 and rows.stride(1) != 1):
+        raise ValueError(f"rows: need [{n}, V] int8/16/32/64 with unit lane "
+                         f"stride, got {tuple(rows.shape)} {rows.dtype} "
+                         f"strides {rows.stride()}")
+    return _WIDTHS[rows.dtype]
+
+
+def _slot_arrays(n: int, active, **int64s) -> None:
+    _vec(active, torch.bool, n, "active")
+    for name, t in int64s.items():
+        _vec(t, torch.int64, n, name)
+
+
+def _launched(err: int, name: str) -> None:
+    _ext.check(err, name)
+    _ext.launches[name] += 1
+
+
+def _first(mask: torch.Tensor, slots: torch.Tensor, n: int) -> torch.Tensor:
+    """The first slot of a mask, n if none (a masked min: ties never
+    depend on argmax's choice)."""
+    return torch.where(mask, slots, n).min()
+
+
+def _last(mask: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, slots, -1).max()
+
+
+# -- pa_window ----------------------------------------------------------------
+
+def window(st, active, bin_, len_, lo, hi, front_bin, back_bin) -> None:
+    """st[W0], st[W1]: the inclusive slot range of bvec::get_range(lo, hi)
+    of the center at slot st[LAST] over the live slots; st[LIVE]: the
+    first live slot (n if none). Every slot array is [n]: active bool, the
+    rest int64 (window_plain lists the cases)."""
+    n = active.shape[0]
+    _state(st)
+    _slot_arrays(n, active, bin_=bin_, len_=len_, lo=lo, hi=hi,
+                 front_bin=front_bin, back_bin=back_bin)
+    if _device(st, active, bin_, len_, lo, hi, front_bin,
+               back_bin).type == "cpu":
+        return window_plain(st, active, bin_, len_, lo, hi, front_bin,
+                            back_bin)
+    _launched(_ext.lib().mc_pa_window(
+        st.data_ptr(), active.data_ptr(), bin_.data_ptr(), len_.data_ptr(),
+        lo.data_ptr(), hi.data_ptr(), front_bin.data_ptr(),
+        back_bin.data_ptr(), n, _ext.stream_of(st)), "pa_window")
+
+
+def window_plain(st, active, bin_, len_, lo, hi, front_bin, back_bin):
+    """Lengths and bins are sorted over slots, so every case of
+    bvec::inner_index_of is a first or last live slot under a mask:
+      front: the first live slot of the front bin with length >= lo;
+             none: the LAST live slot of that bin; an empty bin: the first
+             live slot overall;
+      back:  the last live slot of the back bin with length == hi; else
+             its first live slot with length > hi; else its last live slot;
+             an empty bin: the FIRST live slot of the LAST non-empty bin
+             (the truncation quirk), -1 if none."""
+    n = active.shape[0]
+    slots = torch.arange(n, device=active.device)
+    last = st[LAST: LAST + 1]
+    in_f = active & (bin_ == front_bin[last])
+    s_ge = _first(in_f & (len_ >= lo[last]), slots, n)
+    s_last_f = _last(in_f, slots)
+    first_live = _first(active, slots, n)
+    w0 = torch.where(s_last_f >= 0, torch.where(s_ge < n, s_ge, s_last_f),
+                     first_live)
+    hi_c = hi[last]
+    in_b = active & (bin_ == back_bin[last])
+    s_eq_last = _last(in_b & (len_ == hi_c), slots)
+    s_gt = _first(in_b & (len_ > hi_c), slots, n)
+    s_last_b = _last(in_b, slots)
+    live_last = _last(active, slots)
+    first_of_last = _first(
+        active & (bin_ == bin_[live_last.clamp(min=0).reshape(1)]), slots, n)
+    w1 = torch.where(
+        s_last_b >= 0,
+        torch.where(s_eq_last >= 0, s_eq_last,
+                    torch.where(s_gt < n, s_gt, s_last_b)),
+        torch.where(live_last >= 0, first_of_last, -1))
+    st[W0] = w0
+    st[W1] = w1
+    st[LIVE] = first_live
+
+
+# -- pa_sums ------------------------------------------------------------------
+
+def sums(st, active, rows, out) -> None:
+    """out[0, s] = sum_v |h[c, v] - h[s, v]| and, when out has two rows,
+    out[1, s] = sum_v h[c, v] * h[s, v] (int64), c = st[LAST], for every
+    live slot s of [st[W0], st[W1]]; the kernel leaves the other slots as
+    they were. rows [n, V] in any integer dtype (a rank's column slice)."""
+    n = active.shape[0]
+    _state(st)
+    _vec(active, torch.bool, n, "active")
+    width = _rows(rows, n)
+    if out.dtype != torch.int64 or out.dim() != 2 \
+            or out.shape[0] not in (1, 2) or out.shape[1] != n \
+            or not out.is_contiguous():
+        raise ValueError(f"out: need contiguous [1 or 2, {n}] int64")
+    if _device(st, active, rows, out).type == "cpu":
+        return sums_plain(st, active, rows.to(torch.int64), out)
+    _launched(_ext.lib().mc_pa_sums(
+        st.data_ptr(), active.data_ptr(), rows.data_ptr(), rows.stride(0),
+        rows.shape[1], width, n, int(out.shape[0] == 2), out.data_ptr(),
+        _ext.stream_of(st)), "pa_sums")
+
+
+def sums_plain(st, active, rows, out):
+    """Every slot; rows whose products of two counts fit their dtype
+    (core/classify.py:row_dtype)."""
+    h_a = rows[st[LAST: LAST + 1]]
+    out[0] = (h_a - rows).abs().sum(-1, dtype=torch.int64)
+    if out.shape[0] == 2:
+        out[1] = (h_a * rows).sum(-1, dtype=torch.int64)
+
+
+# -- pa_absorb ----------------------------------------------------------------
+
+def absorb(st, sums_, model: Model, mag, sq, lenf, owner, stamp, active,
+           rows, sumvec, c: int, t: int, part) -> None:
+    """Classify every live slot of [st[W0], st[W1]] against the center
+    st[LAST] (Scorer.__call__ on sums_, float64 mag, sq and lengths [n])
+    and absorb the positives: owner = c, stamp = t, active = False, their
+    rows added into sumvec [V] int64; st[NPOS] = their count, added to
+    st[COUNT]; st[BEST] = the first max of f1 over the window (least slot
+    among equal f1), n if the window is empty."""
+    n = active.shape[0]
+    _state(st)
+    _slot_arrays(n, active, owner=owner, stamp=stamp)
+    for name, x in (("mag", mag), ("sq", sq), ("lenf", lenf)):
+        _vec(x, torch.float64, n, name)
+    width = _rows(rows, n)
+    _vec(sumvec, torch.int64, rows.shape[1], "sumvec")
+    k = 2 if model.with_dot else 1
+    if sums_.dtype != torch.int64 or sums_.shape != (k, n) \
+            or not sums_.is_contiguous():
+        raise ValueError(f"sums: need contiguous [{k}, {n}] int64")
+    _vec(part, torch.int64, PARTIALS * BLOCKS, "part")
+    dev = _device(st, sums_, model.spec, model.coef, mag, sq, lenf, owner,
+                  stamp, active, rows, sumvec, part)
+    if dev.type == "cpu":
+        return absorb_plain(st, sums_, model, mag, sq, lenf, owner, stamp,
+                            active, rows, sumvec, c, t, part)
+    _launched(_ext.lib().mc_pa_absorb(
+        st.data_ptr(), sums_.data_ptr(), int(model.with_dot),
+        model.spec.data_ptr(), model.spec.shape[0], model.coef.data_ptr(),
+        model.coef.shape[0], mag.data_ptr(), sq.data_ptr(), lenf.data_ptr(),
+        owner.data_ptr(), stamp.data_ptr(), active.data_ptr(),
+        rows.data_ptr(), rows.stride(0), rows.shape[1], width,
+        sumvec.data_ptr(), n, c, t, part.data_ptr(), _ext.stream_of(st)),
+        "pa_absorb")
+
+
+def absorb_plain(st, sums_, model, mag, sq, lenf, owner, stamp, active,
+                 rows, sumvec, c, t, part):
+    n = active.shape[0]
+    slots = torch.arange(n, device=active.device)
+    last = st[LAST: LAST + 1]
+    ok = active & (slots >= st[W0]) & (slots <= st[W1])
+    pos, f1 = model.scorer(sums_[0], sums_[1] if model.with_dot else None,
+                           mag[last], mag, sq[last], sq, lenf[last], lenf)
+    f1 = torch.where(ok, f1, float("-inf"))
+    best = _first(ok & (f1 == f1.max()), slots, n)
+    pos &= ok
+    owner.masked_fill_(pos, c)
+    stamp.masked_fill_(pos, t)
+    active &= ~pos
+    sumvec += torch.where(pos[:, None], rows, 0).sum(0, dtype=torch.int64)
+    n_pos = pos.sum()
+    st[NPOS] = n_pos
+    st[BEST] = best
+    st[COUNT: COUNT + 1] += n_pos
+
+
+# -- pa_member_dist -----------------------------------------------------------
+
+def member_dist(st, owner, c: int, rows, sumvec, out) -> None:
+    """cw = floor(sumvec / st[COUNT]) (float64, as mean_floor); out[s] =
+    2 * sum_v min(h[s, v], cw[v]) for every member s (owner == c; the
+    kernel leaves the other slots as they were) and out[n] = sum_v cw[v],
+    int64."""
+    n = owner.shape[0]
+    _state(st)
+    _vec(owner, torch.int64, n, "owner")
+    width = _rows(rows, n)
+    _vec(sumvec, torch.int64, rows.shape[1], "sumvec")
+    _vec(out, torch.int64, n + 1, "out")
+    if _device(st, owner, rows, sumvec, out).type == "cpu":
+        return member_dist_plain(st, owner, c, rows, sumvec, out)
+    _launched(_ext.lib().mc_pa_member_dist(
+        st.data_ptr(), owner.data_ptr(), c, rows.data_ptr(), rows.stride(0),
+        rows.shape[1], width, sumvec.data_ptr(), n, out.data_ptr(),
+        _ext.stream_of(st)), "pa_member_dist")
+
+
+def member_dist_plain(st, owner, c, rows, sumvec, out):
+    """Every slot. floor(mean) is at most the largest count, so it fits
+    the rows' dtype."""
+    cw = mean_floor(sumvec, st[COUNT])
+    out[:-1] = 2 * torch.minimum(rows, cw.to(rows.dtype)).sum(
+        1, dtype=torch.int64)
+    out[-1] = cw.sum()                 # exact: integers below 2^53
+
+
+# -- pa_mean_argmin -----------------------------------------------------------
+
+def mean_argmin(st, dist, mag, owner, stamp, c: int, part) -> None:
+    """get_mean (ClusterFactory.cpp:382-425): st[LAST] = the member of
+    center c closest by distance_d to the members' mean, d = 10000 * (1 -
+    frac^2), frac = dist[s] / (mag[s] + dist[n]) (floor(h + mean) = h +
+    floor(mean) for integer h); ties go to the least stamp, then the least
+    slot (the reference's member-list order)."""
+    n = owner.shape[0]
+    _state(st)
+    _vec(dist, torch.int64, n + 1, "dist")
+    _vec(mag, torch.float64, n, "mag")
+    _vec(owner, torch.int64, n, "owner")
+    _vec(stamp, torch.int64, n, "stamp")
+    _vec(part, torch.int64, PARTIALS * BLOCKS, "part")
+    if _device(st, dist, mag, owner, stamp, part).type == "cpu":
+        return mean_argmin_plain(st, dist, mag, owner, stamp, c, part)
+    _launched(_ext.lib().mc_pa_mean_argmin(
+        st.data_ptr(), dist.data_ptr(), mag.data_ptr(), owner.data_ptr(),
+        stamp.data_ptr(), c, n, part.data_ptr(), _ext.stream_of(st)),
+        "pa_mean_argmin")
+
+
+def mean_argmin_plain(st, dist, mag, owner, stamp, c, part):
+    n = owner.shape[0]
+    slots = torch.arange(n, device=owner.device)
+    frac = dist[:n].to(torch.float64) / (mag + dist[n].to(torch.float64))
+    d = 10000.0 * (1.0 - frac * frac)      # two roundings, no FMA
+    mask = owner == c
+    d = torch.where(mask, d, float("inf"))
+    cand = mask & (d == d.min())
+    first_stamp = torch.where(cand, stamp,
+                              torch.iinfo(torch.int64).max).min()
+    st[LAST] = _first(cand & (stamp == first_stamp), slots, n)
+
+
+STEPS = ("window", "sums", "absorb", "member_dist", "mean_argmin")
+
+
+def steps(plain: bool) -> types.SimpleNamespace:
+    """The five steps: the wrappers, or (plain) their plain versions."""
+    return types.SimpleNamespace(**{
+        name: globals()[f"{name}_plain" if plain else name]
+        for name in STEPS})

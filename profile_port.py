@@ -4,7 +4,7 @@
 Run from the repository root, after chip_smoke.py has passed:
     python3 profile_port.py [--parts throughput,busy,variants,compare,e2e,
                                      feat,kvariants,sass,cluster,ranks]
-                            [--ranks 2,4]
+                            [--ranks 2,4] [--sizes 15000,150000,1000000]
                             [--against OLD.cu ...] [--variants "R,T,K ..."]
                             [--parent DIR] [--kmer-variants "SPEC ..."]
 
@@ -55,15 +55,19 @@ Parts (default: throughput,busy):
   sass        opcode counts of nw_align_long_kernel and the kmer_hist
               kernels in each library built by the run (cuobjdump -sass).
   cluster     k-mer-mode clustering on the device (DeviceBackend, Phase A
-              in core/accumulate_device.py, the fused Phase B), on the
-              smoke's 15k-read corpus (after a warm-up run) and on the
-              150k-read corpus of bench.py:make_dataset: one run's wall,
-              phases and counters (ms per absorb iteration and per Phase B
-              iteration from its phase times); the busy share of a profiled
-              run; then Phase A and Phase B alone on that run's points and
-              model under the profiler: wall, device time, busy share, and
-              kernel launches, host-device copies, wall and device ms per
-              iteration.
+              through csrc/phase_a.cu, the fused Phase B) at --id 0.90 on
+              bench.py:make_dataset's corpus at each read count of --sizes
+              (the first after a warm-up run): one run's wall, phases,
+              counters, NMI against the planted species and CLSTR digest
+              (ms per absorb iteration and per Phase B iteration from its
+              phase times). Up to 150k reads also: the busy share of a
+              profiled run; Phase A alone on that run's points and model
+              through the kernels and through the plain steps, unprofiled
+              in turns (plain, kernels, kernels, plain) and then each under
+              the profiler (wall, device time, busy share, kernel launches,
+              host-device copies, wall and device ms per iteration); the
+              fused Phase B alone under the profiler. Larger corpora (the
+              1M row) run once.
   ranks       several ranks (parallel/dist), for each n of --ranks: n
               ranks (gloo where they share a card, NCCL where each has its
               own) time each collective at the 15k k-mer run's shapes (a
@@ -85,6 +89,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -106,6 +111,8 @@ SHAPES = (("2,048 x 700-1,300 bp", 2048, 700, 1300),
           ("1,024 x 9-12 kb", 1024, 9000, 12000),
           ("1 x 10.5 kb", 1, 10500, 10500))
 BUILT: dict = {}    # {name: library path} of the builds of this run
+# the cluster part profiles corpora up to this size; larger ones run once
+FULL_CLUSTER_READS = 150000
 
 
 def sorted_pairs(rng, n: int, lo: int, hi: int) -> list:
@@ -207,17 +214,21 @@ def piece_line(label: str, wall: float, dev_s: float, launches: int,
             f"{dev_s * 1e3 / iters:.4f} ms an iteration")
 
 
-def cluster(dev, label: str, fasta: str, warm: bool, **cfg) -> None:
-    """The k-mer path's clustering on the device (see the cluster part in
-    the module docstring)."""
+def cluster(dev, n: int, warm: bool, full: bool) -> None:
+    """The k-mer path's clustering on the device on bench_corpus(n) at
+    --id 0.90 (see the cluster part in the module docstring); without
+    `full` only the one run, its phases, counters and NMI."""
     import torch
     from meshclust_tpu_torch.config import ClusterConfig
     from meshclust_tpu_torch.core.accumulate_device import accumulate_device
     from meshclust_tpu_torch.core.bvec import BVec
     from meshclust_tpu_torch.core.runner import run
     from meshclust_tpu_torch.utils import perf
-    cfg = ClusterConfig(files=[fasta], output=os.path.join(
-        smoke.WORK, "cluster.clstr"), **cfg).finalize()
+    label = f"k-mer path --id 0.90, {n} reads"
+    fasta = smoke.bench_corpus(n=n)
+    out = os.path.join(smoke.WORK, f"cluster_{n}.clstr")
+    cfg = ClusterConfig(files=[fasta], output=out,
+                        similarity=0.90).finalize()
     if warm:
         run(cfg, device=dev)
     perf.reset()
@@ -228,9 +239,12 @@ def cluster(dev, label: str, fasta: str, warm: bool, **cfg) -> None:
     wall = time.time() - t0
     phases, counters = perf.phases(), perf.counters()
     ps = res["pointset"]
+    with open(out, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
     print(f"  {label}: {ps.n} sequences, {res['n_clusters']} clusters, "
-          f"backend {type(res['backend']).__name__}, wall {wall:.3f} s",
-          flush=True)
+          f"backend {type(res['backend']).__name__}, wall {wall:.3f} s, "
+          f"NMI vs species {smoke.species_nmi(out):.6f}, CLSTR sha256 "
+          f"{digest}", flush=True)
     print(f"    phases {json.dumps(phases)}", flush=True)
     print(f"    counters {json.dumps(counters)}", flush=True)
     iters = counters.get("accum_iters", 0.0)
@@ -239,17 +253,36 @@ def cluster(dev, label: str, fasta: str, warm: bool, **cfg) -> None:
           f"per Phase B iteration (phase_b phase / {cfg.iterations}): "
           f"{phases.get('phase_b', 0.0) * 1e3 / cfg.iterations:.4f}",
           flush=True)
+    if not full:
+        return
     busy_share(dev, label, fasta, warm=False, similarity=cfg.similarity)
-    # Phase A and the fused Phase B alone, on this run's points and model
+    # Phase A (kernels, then plain) and the fused Phase B alone, on this
+    # run's points and model
     bv = BVec(ps.lengths.copy(), cfg.bin_size)
     bv.bulk_insert(ps.lengths)
     bv.insert_finalize()
     params = res["model"].params
-    perf.reset()
-    centers, wall, dev_s, launches, copies = profiled(
-        lambda: accumulate_device(ps, bv, params, cfg.similarity))
-    print("    " + piece_line("Phase A alone", wall, dev_s, launches, copies,
-                              perf.counters()["accum_iters"]), flush=True)
+    walls = {True: [], False: []}
+    for plain in (True, False, False, True):
+        perf.reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        accumulate_device(ps, bv, params, cfg.similarity, plain=plain)
+        torch.cuda.synchronize()
+        walls[plain].append(time.time() - t0)
+    for plain, name in ((False, "kernels"), (True, "plain")):
+        print(f"    Phase A alone ({name}), unprofiled walls (in turns: "
+              f"plain, kernels, kernels, plain): "
+              + ", ".join(f"{w:.4f} s ({w * 1e3 / iters:.4f} ms an "
+                          f"iteration)" for w in walls[plain]), flush=True)
+        perf.reset()
+        centers, wall, dev_s, launches, copies = profiled(
+            lambda: accumulate_device(ps, bv, params, cfg.similarity,
+                                      plain=plain))
+        print("    " + piece_line(f"Phase A alone ({name})", wall, dev_s,
+                                  launches, copies,
+                                  perf.counters()["accum_iters"]),
+              flush=True)
     members = np.asarray([m for c in centers for m in c.members], np.int64)
     assign = np.repeat(np.arange(len(centers)),
                        [len(c.members) for c in centers])
@@ -816,6 +849,9 @@ def main() -> int:
                     "16,128,8 8,256,8 8,128,1 8,128,4")
     ap.add_argument("--ranks", default="2",
                     help="rank counts of the ranks part, e.g. 2,4")
+    ap.add_argument("--sizes", default="15000,150000",
+                    help="read counts of the cluster part's corpora, e.g. "
+                    "15000,150000,1000000")
     args = ap.parse_args()
     parts = args.parts.split(",")
     if ("compare" in parts or "e2e" in parts) and not args.against:
@@ -856,10 +892,8 @@ def main() -> int:
         sass()
     if "cluster" in parts:
         print("k-mer-mode clustering on the device", flush=True)
-        cluster(dev, "k-mer path --id 0.90, 15k reads", smoke.bench_corpus(),
-                True, similarity=0.90)
-        cluster(dev, "k-mer path --id 0.90, 150k reads",
-                smoke.bench_corpus(n=150000), False, similarity=0.90)
+        for k, n in enumerate(int(x) for x in args.sizes.split(",")):
+            cluster(dev, n, warm=k == 0, full=n <= FULL_CLUSTER_READS)
     if "ranks" in parts:
         print(f"several ranks on {torch.cuda.device_count()} GPUs",
               flush=True)

@@ -271,3 +271,161 @@ def test_collectives_of_ranks_sharing_one_card(cuda, n):
                     assert out[op, dtype] == expect
                 else:
                     np.testing.assert_array_equal(out[op, dtype], expect)
+
+
+# -- Phase A (csrc/phase_a.cu) -------------------------------------------------
+
+# toy counts scaled into each storage dtype of the rows the kernels read
+PHASE_A_SCALES = {"int8": 1, "int16": 1000, "int32": 5000}
+
+
+def _phase_a_case(scale, device, n=512):
+    """Toy points on `device` whose counts are `scale` times 1-12, and the
+    toy classifier with its intercept moved to the median score, so that
+    some pairs classify positive and rows duplicate (f1 and d tie)."""
+    from test_torch_device_backend import shifted, toy_model, toy_points
+    hist, mag, sq, lens, trained = toy_model(n=n, scale=scale)
+    params, _ = shifted(trained, toy_points(hist, mag, sq, lens), 0.5)
+    arrays = {"hist": hist, "mag": mag, "sq": sq, "lengths": lens,
+              "one_mers": np.zeros((n, 4), np.int64),
+              "codes": [np.zeros(0, np.uint8)] * n,
+              "headers": [f">s{i}" for i in range(n)], "k": 4}
+    return toy_points(hist, mag, sq, lens, device=device), params, arrays
+
+
+def _bvec(ps, bin_size=40):
+    """The bvec that torch_dist_ranks.phase_a builds."""
+    from meshclust_tpu_torch.core.bvec import BVec
+    bv = BVec(ps.lengths.copy(), bin_size)
+    for i in range(ps.n):
+        bv.insert(i, int(ps.lengths[i]))
+    bv.insert_finalize()
+    return bv
+
+
+def _listed(centers):
+    return [(c.center, list(c.members)) for c in centers]
+
+
+def phase_a_lockstep(ps, params, sim, bv):
+    """Phase A driven as accumulate_device drives it, each step by the
+    plain _Slots and by the kernels' _Slots on the same card, every value
+    the next step reads compared bit for bit (the state buffer, active,
+    owner, stamp, sumvec; the sums of the window's live slots; the members'
+    distances). -> (iterations, launches of each kernel)."""
+    from meshclust_tpu_torch.core import accumulate_device as A
+    from meshclust_tpu_torch.ops import phase_a as P
+    plain = A._Slots(ps, bv, params, sim, plain=True)
+    kern = A._Slots(ps, bv, params, sim, plain=False)
+    assert kern.h.dtype == ps.hist_dev.dtype
+    both, N = (plain, kern), plain.N
+
+    def same(*names):
+        for name in names:
+            assert torch.equal(getattr(plain, name), getattr(kern, name)), \
+                name
+        assert torch.equal(plain.st[: P.COUNT + 1], kern.st[: P.COUNT + 1])
+
+    before = dict(_ext.launches)
+    for sl in both:
+        sl.active[:1] = False
+    c = t = seed = iters = 0
+    while True:
+        for sl in both:
+            sl.begin(seed, c, t)
+        t += 1
+        while True:
+            for sl in both:
+                sl.step.window(sl.st, sl.active, sl.bin, sl.len, sl.lo,
+                               sl.hi, sl.front_bin, sl.back_bin)
+                sl.step.sums(sl.st, sl.active, sl.h, sl.sums)
+            same("active")
+            w0, w1 = kern.st[P.W0: P.W1 + 1].tolist()
+            live = torch.nonzero(kern.active[w0: w1 + 1]).flatten() + w0
+            assert torch.equal(plain.sums[:, live], kern.sums[:, live])
+            for sl in both:
+                sl.step.absorb(sl.st, sl.sums, sl.model, sl.mag, sl.sq,
+                               sl.lenf, sl.owner, sl.stamp, sl.active, sl.h,
+                               sl.sumvec, c, t, sl.part)
+            same("active", "owner", "stamp", "sumvec")
+            n_pos, best, _, live_slot = kern.st[: P.LIVE + 1].tolist()
+            t += 1
+            iters += 1
+            if n_pos == 0:
+                break
+            for sl in both:
+                sl.step.member_dist(sl.st, sl.owner, c, sl.h, sl.sumvec,
+                                    sl.dist)
+            members = torch.nonzero(kern.owner == c).flatten()
+            assert torch.equal(plain.dist[members], kern.dist[members])
+            assert torch.equal(plain.dist[N], kern.dist[N])
+            for sl in both:
+                sl.step.mean_argmin(sl.st, sl.dist, sl.mag, sl.owner,
+                                    sl.stamp, c, sl.part)
+            same()
+        c += 1
+        seed = best if best < N else live_slot
+        if seed >= N:
+            break
+        for sl in both:
+            sl.active[seed] = False
+    return iters, {k: _ext.launches[k] - before[k] for k in _ext.launches}
+
+
+@pytest.mark.parametrize("dtype", sorted(PHASE_A_SCALES))
+def test_phase_a_kernels_equal_plain_steps(cuda, dtype):
+    """Each Phase A kernel against its plain step on the card, iteration
+    by iteration, with the rows in each storage dtype; pa_window, pa_sums
+    and pa_absorb launch once an absorb iteration, the move's two kernels
+    once an iteration that absorbed."""
+    ps, params, _ = _phase_a_case(PHASE_A_SCALES[dtype], cuda)
+    assert ps.hist_dev.dtype == getattr(torch, dtype)
+    iters, launched = phase_a_lockstep(ps, params, 0.90, _bvec(ps))
+    assert launched["pa_window"] == launched["pa_sums"] == \
+        launched["pa_absorb"] == iters
+    assert 0 < launched["pa_member_dist"] == launched["pa_mean_argmin"] \
+        < iters
+
+
+@pytest.mark.parametrize("dtype", sorted(PHASE_A_SCALES))
+def test_phase_a_on_the_card_equals_plain_and_cpu(cuda, dtype):
+    """The whole Phase A through the kernels against plain=True on the
+    card and the CPU path: the same centers with the same members in the
+    same order; at most five Phase A launches an absorb iteration."""
+    from meshclust_tpu_torch.core.accumulate_device import accumulate_device
+    from meshclust_tpu_torch.utils import perf
+    ps, params, arrays = _phase_a_case(PHASE_A_SCALES[dtype], cuda)
+    host, _, _ = _phase_a_case(PHASE_A_SCALES[dtype], "cpu")
+    perf.reset()
+    _ext.reset_launches()
+    got = _listed(accumulate_device(ps, _bvec(ps), params, 0.90))
+    iters = perf.counters()["accum_iters"]
+    pa = sum(v for k, v in _ext.launches.items() if k.startswith("pa_"))
+    assert 3 * iters <= pa <= 5 * iters
+    assert got == _listed(accumulate_device(ps, _bvec(ps), params, 0.90,
+                                            plain=True))
+    assert got == _listed(accumulate_device(host, _bvec(host), params, 0.90))
+
+
+def test_phase_a_at_two_ranks_sharing_the_card(cuda):
+    """Phase A feature-sharded over 2 ranks on the one card (gloo), each
+    rank launching the kernels on its [N, V/2] slice: every rank's centers
+    equal one rank's, with one or two collectives an absorb iteration."""
+    import torch_dist_ranks as R
+    from meshclust_tpu_torch.core.accumulate_device import accumulate_device
+    from meshclust_tpu_torch.parallel import dist
+    if torch.cuda.device_count() != 1:
+        pytest.skip("ranks share a card only where there is one")
+    cases, want = [], []
+    for dtype in sorted(PHASE_A_SCALES):
+        ps, params, arrays = _phase_a_case(PHASE_A_SCALES[dtype], cuda)
+        want.append(_listed(accumulate_device(ps, _bvec(ps), params, 0.90)))
+        cases.append((arrays, params, 40, 0.90))
+    outs = dist.launch(R.phase_a, 2, None, cases)
+    for out in outs:
+        for res, w in zip(out, want):
+            c = res["counters"]
+            assert res["centers"] == w
+            assert res["launches"]["pa_absorb"] == c["accum_iters"]
+            assert c["accum_iters"] < c["coll_accumulate"] \
+                <= 2 * c["accum_iters"]

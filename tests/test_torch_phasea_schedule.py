@@ -1,0 +1,644 @@
+"""What the Phase A kernels (meshclust_tpu_torch/csrc/phase_a.cu) rely on,
+checked on the CPU through a numpy model of their decomposition.
+
+The kernels run only on a CUDA card. The model below replays each one with
+its grid (blocks of threads walking a slot range, grid-strided; warps of
+lanes striding over the V counts), its reductions (each thread's own
+slots, then its block, then the blocks' atomics or partials combined by
+the last block, here in a random block order) and its tie rules:
+  pa_window       masked min and max over the live slots, and the first
+                  live slot of the last non-empty bin as the maximum of
+                  bin * (N + 1) + (N - slot);
+  pa_sums         a warp a live slot of [w0, w1]; no other row is read;
+  pa_absorb       the float64 classifier read from ops/phase_a.Model's
+                  packed arrays in the kernel's order, the first max of f1
+                  as (max, least slot) with NaN making it N, positives'
+                  rows added into sumvec;
+  pa_member_dist  only the members' rows (owner == c), warp by warp;
+  pa_mean_argmin  the least (d, stamp, slot).
+The rows may be cut into feature shards whose partials are summed, as
+under a mesh. The model is held equal, step by step and iteration by
+iteration, to the plain steps of core/accumulate_device._Slots, on the edge
+corpora of tests/test_torch_accumulate.py (--id 0.60 and 0.97 at their
+window-limit edges, 0.90 on species corpora), with duplicate rows planted
+so that f1 and d tie, with empty windows and with a lone read whose length
+window holds only itself; a copy of the model with either tie rule turned
+around must disagree. The whole phase's centers are held equal to the JAX
+package's accumulate_device. Tolerance: exact equality.
+"""
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from meshclust_tpu_torch.core import accumulate_device as A
+from meshclust_tpu_torch.ops import features as F
+from meshclust_tpu_torch.ops import phase_a as P
+from tests.test_torch_accumulate import (CORPORA, edge_points, jax_points,
+                                         listed, port_bv, port_case, shifted)
+from tests.test_torch_device_backend import toy_model, toy_points
+
+torch.set_num_threads(1)
+os.environ.setdefault("MESHCLUST_QUIET", "1")
+# grid shapes: the kernels' own, and a small one whose blocks each see many
+# slots (blocks, threads a block, lanes a warp)
+OWN = dict(blocks=P.BLOCKS, threads=P.THREADS, lanes=32)
+SMALL = dict(blocks=3, threads=8, lanes=4)
+SOURCE = os.path.join(os.path.dirname(A.__file__), "..", "csrc", "phase_a.cu")
+
+
+# -- the model -----------------------------------------------------------------
+
+def grid_owner(start: int, stop: int, blocks: int, per_block: int) -> dict:
+    """{block: [units in the order its workers take them]}: units start,
+    start + 1, ... < stop grid-strided over blocks * per_block workers
+    (threads or warps), worker w of block b taking start + b * per_block +
+    w + k * blocks * per_block."""
+    out = {}
+    width = blocks * per_block
+    for u in range(start, stop):
+        b = ((u - start) % width) // per_block
+        out.setdefault(b, []).append(u)
+    return out
+
+
+def combine(parts: list, op, rng):
+    """Partials combined in a random block order (the last block's, or the
+    atomics' order, is not fixed)."""
+    out = None
+    for i in rng.permutation(len(parts)):
+        out = parts[i] if out is None else op(out, parts[i])
+    return out
+
+
+def f1_op(a, b, least_slot=True):
+    """(f1, slot, nan): the greater f1, the least slot among equal f1 (or,
+    for the broken copy, the greatest)."""
+    tie = (b[1] < a[1]) if least_slot else (b[1] > a[1])
+    pick = b if (b[0] > a[0] or (b[0] == a[0] and tie)) else a
+    return (pick[0], pick[1], a[2] or b[2])
+
+
+def d_op(a, b, stamp_first=True):
+    """(d, stamp, slot): the least d, then stamp, then slot (or, for the
+    broken copy, slot alone)."""
+    ka = (a[0], a[1], a[2]) if stamp_first else (a[0], a[2])
+    kb = (b[0], b[1], b[2]) if stamp_first else (b[0], b[2])
+    return b if kb < ka else a
+
+
+def model_window(st, s, grid, rng):
+    """pa_window on the numpy slot arrays of s (a dict)."""
+    N = s["active"].shape[0]
+    last = st[P.LAST]
+    fb, lo_c = s["front_bin"][last], s["lo"][last]
+    bb, hi_c = s["back_bin"][last], s["hi"][last]
+    parts = []
+    for slots in grid_owner(0, N, grid["blocks"],
+                            grid["threads"]).values():
+        r = [N, -1, N, -1, N, -1, -1, -1]
+        for x in slots:
+            if not s["active"][x]:
+                continue
+            b, L = s["bin"][x], s["len"][x]
+            if b == fb:
+                if L >= lo_c:
+                    r[0] = min(r[0], x)
+                r[1] = max(r[1], x)
+            r[2] = min(r[2], x)
+            if b == bb:
+                if L == hi_c:
+                    r[3] = max(r[3], x)
+                if L > hi_c:
+                    r[4] = min(r[4], x)
+                r[5] = max(r[5], x)
+            r[6] = max(r[6], x)
+            r[7] = max(r[7], b * (N + 1) + (N - x))
+        parts.append(r)
+    a = list(st[P.SCRATCH: P.SCRATCH + 8])
+    assert a == P.window_init(N)                # restored by the last launch
+    a = combine(parts + [a], lambda u, v: [
+        min(u[i], v[i]) if i in (0, 2, 4) else max(u[i], v[i])
+        for i in range(8)], rng)
+    w0 = (a[0] if a[0] < N else a[1]) if a[1] >= 0 else a[2]
+    w1 = ((a[3] if a[3] >= 0 else (a[4] if a[4] < N else a[5]))
+          if a[5] >= 0 else (N - a[7] % (N + 1) if a[6] >= 0 else -1))
+    st[P.W0], st[P.W1], st[P.LIVE] = w0, w1, a[2]
+
+
+def model_sums(st, s, shards, out, with_dot, grid):
+    """pa_sums over feature shards (rank partials summed); returns the
+    slots whose rows it read."""
+    N = s["active"].shape[0]
+    w0, w1, last = st[P.W0], st[P.W1], st[P.LAST]
+    warps = grid["threads"] // grid["lanes"]
+    read = []
+    out[:, :] = -7                      # the kernel leaves other slots be
+    for slots in grid_owner(w0, w1 + 1, grid["blocks"], warps).values():
+        for x in slots:
+            if not s["active"][x]:
+                continue
+            read.append(x)
+            man = dot = 0
+            for h in shards:
+                a, b = h[last].astype(np.int64), h[x].astype(np.int64)
+                for lane in range(grid["lanes"]):
+                    man += int(np.abs(a[lane::grid["lanes"]]
+                                      - b[lane::grid["lanes"]]).sum())
+                    dot += int((a[lane::grid["lanes"]]
+                                * b[lane::grid["lanes"]]).sum())
+            out[0, x] = man
+            if with_dot:
+                out[1, x] = dot
+    assert all(w0 <= x <= w1 for x in read)
+    return sorted(read)
+
+
+def classify(spec, coef, man, dot, mag_a, mag_b, sq_a, sq_b, len_a, len_b):
+    """csrc/phase_a.cu:classify in numpy float64 scalars (IEEE, no FMA),
+    reading Model's packed arrays as the kernel does."""
+    f8 = np.float64
+    S, J = int(spec[0]), int(spec[1])
+    singles, is_sim = spec[2: 2 + S], spec[2 + S: 2 + 2 * S]
+    kinds = spec[2 + 2 * S: 2 + 2 * S + J]
+    off = spec[2 + 2 * S + J: 3 + 2 * S + 2 * J]
+    idx = spec[3 + 2 * S + 2 * J:]
+    V, mins, spans = f8(coef[0]), coef[1: 1 + S], coef[1 + S: 1 + 2 * S]
+    weights = coef[1 + 2 * S:]
+    man, dot = f8(man), f8(dot)
+    norm = []
+    with np.errstate(all="ignore"):
+        for i in range(S):
+            flag = int(singles[i])
+            if flag == F.FEAT_LD:
+                v = abs(len_a - len_b)
+            elif flag == F.FEAT_MANHATTAN:
+                v = man
+            elif flag == F.FEAT_INTERSECTION:
+                ms = (mag_a + mag_b - man) / f8(2.0)
+                v = f8(2.0) * ms / (mag_a + mag_b)
+            elif flag == F.FEAT_KULCZYNSKI2:
+                ap, aq = mag_a / V, mag_b / V
+                ms = (mag_a + mag_b - man) / f8(2.0)
+                v = (V * (ap + aq) / (f8(2.0) * ap * aq)) * ms
+            elif flag == F.FEAT_SIMRATIO:
+                n2 = sq_a + sq_b - f8(2.0) * dot
+                n2 = f8(0.0) if n2 < 0.0 else n2
+                v = dot / (dot + np.sqrt(n2))
+            elif flag == F.FEAT_PEARSON:
+                ap = np.floor(mag_a / V + f8(0.5))
+                aq = np.floor(mag_b / V + f8(0.5))
+                np_ = sq_a - f8(2.0) * ap * mag_a + V * ap * ap
+                nq_ = sq_b - f8(2.0) * aq * mag_b + V * aq * aq
+                dotc = dot - ap * mag_b - aq * mag_a + V * ap * aq
+                p = np_ * nq_
+                v = dotc / np.sqrt(f8(0.5) if p < 0.5 else p)
+            else:
+                raise AssertionError(flag)
+            nv = (f8(v) - mins[i]) / spans[i]
+            norm.append(nv if is_sim[i] else f8(1.0) - nv)
+        score, f1 = f8(weights[0]), None
+        for j in range(J):
+            prod = f8(1.0)
+            for e in range(off[j], off[j + 1]):
+                c = norm[idx[e]]
+                prod = prod * (c * c if kinds[j] == F.COMBO_SQUARED else c)
+            if j == 0:
+                f1 = prod
+            score = score + f8(weights[j + 1]) * prod
+    return bool(score >= 0.0), f1
+
+
+def model_absorb(st, s, sums, spec, coef, with_dot, shards, sumvecs, c, t,
+                 grid, rng, least_slot=True):
+    """pa_absorb: block-wide tiles of [w0, w1], a thread a slot."""
+    N = s["active"].shape[0]
+    w0, w1, last = st[P.W0], st[P.W1], st[P.LAST]
+    T, G = grid["threads"], grid["blocks"]
+    parts = []
+    for b in range(G):
+        best, npos = (-np.inf, N, False), 0
+        for base in range(w0 + b * T, w1 + 1, G * T):
+            tile = []
+            for x in range(base, min(base + T, w1 + 1)):
+                if not s["active"][x]:
+                    continue
+                pos, f1 = classify(
+                    spec, coef, sums[0, x], sums[1, x] if with_dot else 0,
+                    s["mag"][last], s["mag"][x], s["sq"][last], s["sq"][x],
+                    s["lenf"][last], s["lenf"][x])
+                if np.isnan(f1):
+                    best = (best[0], best[1], True)
+                else:
+                    best = f1_op(best, (f1, x, False), least_slot)
+                if pos:
+                    s["owner"][x], s["stamp"][x] = c, t
+                    s["active"][x] = False
+                    npos += 1
+                    tile.append(x)
+            for x in rng.permutation(tile):     # atomics: any order
+                for h, sv in zip(shards, sumvecs):
+                    sv += h[x].astype(np.int64)
+        parts.append((best, npos))
+    best = combine([p[0] for p in parts],
+                   lambda a, b: f1_op(a, b, least_slot), rng)
+    npos = sum(p[1] for p in parts)
+    st[P.NPOS] = npos
+    st[P.BEST] = N if best[2] else best[1]
+    st[P.COUNT] += npos
+
+
+def model_member_dist(st, s, c, shards, sumvecs, grid):
+    """pa_member_dist over feature shards: -> (dist [N + 1] with -7 where
+    the kernel writes nothing, the slots whose rows it read)."""
+    N = s["owner"].shape[0]
+    L = grid["lanes"]
+    count = np.float64(st[P.COUNT])
+    dist = np.full(N + 1, -7, np.int64)
+    dist[N] = 0
+    read = []
+    warps = grid["threads"] // L
+    chunks = grid_owner(0, -(-N // L), grid["blocks"], warps)
+    for h, sv in zip(shards, sumvecs):
+        cw = np.floor(sv.astype(np.float64) / count).astype(np.int64)
+        for units in chunks.values():
+            for u in units:
+                for x in range(u * L, min(u * L + L, N)):
+                    if s["owner"][x] != c:
+                        continue
+                    read.append(x)
+                    part = 2 * int(np.minimum(h[x].astype(np.int64),
+                                              cw).sum())
+                    dist[x] = part if dist[x] == -7 else dist[x] + part
+        dist[N] += int(cw.sum())
+    return dist, sorted(set(read))
+
+
+def model_mean_argmin(st, s, dist, c, grid, rng, stamp_first=True):
+    N = s["owner"].shape[0]
+    cw_sum = np.float64(dist[N])
+    parts = []
+    for slots in grid_owner(0, N, grid["blocks"],
+                            grid["threads"]).values():
+        best = (np.inf, np.iinfo(np.int64).max, N)
+        for x in slots:
+            if s["owner"][x] != c:
+                continue
+            frac = np.float64(dist[x]) / (s["mag"][x] + cw_sum)
+            d = np.float64(10000.0) * (np.float64(1.0) - frac * frac)
+            best = d_op(best, (d, int(s["stamp"][x]), x), stamp_first)
+        parts.append(best)
+    st[P.LAST] = combine(parts, lambda a, b: d_op(a, b, stamp_first),
+                         rng)[2]
+
+
+# -- lockstep against _Slots' plain steps -----------------------------------------
+
+def numpy_slots(sl):
+    """The numpy copy of a plain _Slots' arrays that the model works on."""
+    keys = ("active", "bin", "len", "lo", "hi", "front_bin", "back_bin",
+            "mag", "sq", "lenf", "owner", "stamp")
+    return {k: getattr(sl, k).numpy().copy() for k in keys}
+
+
+def lockstep(ps, bv, params, sim, n_shards=1, grid=SMALL, seed=0,
+             least_slot=True, stamp_first=True):
+    """Phase A driven as accumulate_device drives it, each step by the
+    plain _Slots and by the model, every value the next step reads
+    compared. -> (center slots, owner, stamp, slots, record) where record
+    counts empty windows, ties and iterations."""
+    rng = np.random.default_rng(seed)
+    sl = A._Slots(ps, bv, params, sim, plain=True)
+    N, step = sl.N, sl.step
+    s = numpy_slots(sl)
+    st = sl.st.numpy().copy()
+    storage = ps.hist_dev[torch.as_tensor(sl.point)].numpy()
+    shards = np.array_split(storage, n_shards, axis=1)
+    spec, coef = sl.model.spec.numpy(), sl.model.coef.numpy()
+    with_dot = sl.model.with_dot
+    msums = np.zeros((2 if with_dot else 1, N), np.int64)
+    rec = {"iters": 0, "empty": 0, "f1_ties": 0, "d_ties": 0}
+    center_slot, t, seed_slot = [], 0, 0
+
+    def same_state():
+        for k in ("active", "owner", "stamp"):
+            np.testing.assert_array_equal(getattr(sl, k).numpy(), s[k])
+        np.testing.assert_array_equal(sl.st.numpy()[:P.COUNT + 1],
+                                      st[:P.COUNT + 1])
+
+    sl.active[:1] = False
+    s["active"][0] = False
+    while True:
+        c = len(center_slot)
+        sl.begin(seed_slot, c, t)
+        s["owner"][seed_slot], s["stamp"][seed_slot] = c, t
+        st[P.LAST], st[P.COUNT] = seed_slot, 1
+        sumvecs = [h[seed_slot].astype(np.int64) for h in shards]
+        t += 1
+        while True:
+            step.window(sl.st, sl.active, sl.bin, sl.len, sl.lo, sl.hi,
+                        sl.front_bin, sl.back_bin)
+            model_window(st, s, grid, rng)
+            same_state()
+            w0, w1 = st[P.W0], st[P.W1]
+            rec.setdefault("first_window", (w0, w1))
+            rec["empty"] += int(not (s["active"][max(w0, 0): w1 + 1]).any())
+            step.sums(sl.st, sl.active, sl.h, sl.sums)
+            read = model_sums(st, s, shards, msums, with_dot, grid)
+            live = [x for x in range(max(w0, 0), min(w1, N - 1) + 1)
+                    if s["active"][x]]
+            assert read == live
+            np.testing.assert_array_equal(msums[:, live],
+                                          sl.sums.numpy()[:, live])
+            f1_live = _f1_of(sl, live)
+            rec["f1_ties"] += int(len(f1_live) > 1 and np.sum(
+                f1_live == f1_live.max()) > 1)
+            step.absorb(sl.st, sl.sums, sl.model, sl.mag, sl.sq, sl.lenf,
+                        sl.owner, sl.stamp, sl.active, sl.h, sl.sumvec, c, t,
+                        sl.part)
+            model_absorb(st, s, msums, spec, coef, with_dot, shards, sumvecs,
+                         c, t, grid, rng, least_slot)
+            same_state()
+            np.testing.assert_array_equal(np.concatenate(sumvecs),
+                                          sl.sumvec.numpy())
+            n_pos, best, last_h, live_slot = sl.st[:P.LIVE + 1].tolist()
+            t += 1
+            rec["iters"] += 1
+            if n_pos == 0:
+                break
+            step.member_dist(sl.st, sl.owner, c, sl.h, sl.sumvec, sl.dist)
+            mdist, read = model_member_dist(st, s, c, shards, sumvecs, grid)
+            members = np.flatnonzero(s["owner"] == c).tolist()
+            assert read == members
+            np.testing.assert_array_equal(mdist[members + [N]],
+                                          sl.dist.numpy()[members + [N]])
+            d = _d_of(sl, members)
+            rec["d_ties"] += int(np.sum(d == d.min()) > 1)
+            step.mean_argmin(sl.st, sl.dist, sl.mag, sl.owner, sl.stamp, c,
+                             sl.part)
+            model_mean_argmin(st, s, mdist, c, grid, rng, stamp_first)
+            same_state()
+        center_slot.append(last_h)
+        seed_slot = best if best < N else live_slot
+        if seed_slot >= N:
+            break
+        sl.active[seed_slot] = False
+        s["active"][seed_slot] = False
+    return center_slot, s["owner"], s["stamp"], sl.point, rec
+
+
+def _f1_of(sl, live):
+    """The plain f1 of the live window slots (for counting ties)."""
+    if not live:
+        return np.zeros(0)
+    last = sl.st[P.LAST: P.LAST + 1]
+    sums = sl.sums
+    _, f1 = sl.model.scorer(sums[0], sums[1] if sl.model.with_dot else None,
+                            sl.mag[last], sl.mag, sl.sq[last], sl.sq,
+                            sl.lenf[last], sl.lenf)
+    return f1.numpy()[live]
+
+
+def _d_of(sl, members):
+    N = sl.N
+    dist = sl.dist.numpy()
+    frac = dist[members].astype(np.float64) / (sl.mag.numpy()[members]
+                                               + np.float64(dist[N]))
+    return 10000.0 * (1.0 - frac * frac)
+
+
+def centers_of(center_slot, owner, stamp, point):
+    """accumulate_device's grouping: (center point, members in (stamp,
+    slot) order)."""
+    out = []
+    for c, slot in enumerate(center_slot):
+        mem = np.flatnonzero(owner == c)
+        mem = mem[np.lexsort((mem, stamp[mem]))]
+        out.append((int(point[slot]), point[mem].tolist()))
+    return out
+
+
+# -- cases ----------------------------------------------------------------------
+
+def planted_points(seed=3, n=96):
+    """Toy points in near-copy pairs, with exact duplicates (counts and
+    length) planted in threes, so f1 and d tie; and one lone read, the
+    shortest (the first seed), whose length window holds only itself."""
+    rng = np.random.default_rng(seed)
+    hist, _, _, lens, params = toy_model(n=n, seed=seed)
+    hist[1::2] = hist[0::2] + rng.integers(0, 2, size=hist[0::2].shape)
+    hist[2::6], lens[2::6] = hist[0::6], lens[0::6]
+    hist[3::6], lens[3::6] = hist[0::6], lens[0::6]
+    lens[-1] = 100
+    mag = hist.astype(np.int64).sum(1)
+    sq = (hist.astype(np.int64) ** 2).sum(1)
+    return toy_points(hist, mag, sq, lens), params
+
+
+def _edge(sim, q):
+    ps, params = edge_points(sim)
+    return ps, shifted(params, ps, q)[0]
+
+
+def _planted(q):
+    ps, params = planted_points()
+    return ps, shifted(params, ps, q)[0]
+
+
+# name -> (sim, maker of (points, params)); q moves the intercept as
+# test_torch_device_backend.shifted does (stricter: more centers, windows)
+CASES = {
+    "edge_0.60": (0.60, lambda: _edge(0.60, None)),
+    "edge_0.60_strict": (0.60, lambda: _edge(0.60, 0.9)),
+    "edge_0.97": (0.97, lambda: _edge(0.97, None)),
+    "edge_0.97_strict": (0.97, lambda: _edge(0.97, 0.8)),
+    "planted_0.90": (0.90, lambda: _planted(0.5)),
+}
+
+
+def _edge_case(name):
+    sim, make = CASES[name]
+    return (*make(), sim)
+
+
+@pytest.mark.parametrize("grid", ["small", "own"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_model_equals_plain_steps(name, grid):
+    ps, params, sim = _edge_case(name)
+    bv = port_bv(ps, 7)
+    got = lockstep(ps, bv, params, sim, grid=SMALL if grid == "small"
+                   else OWN, seed=len(name))
+    want = listed(A.accumulate_device(ps, port_bv(ps, 7), params, sim))
+    assert centers_of(*got[:4]) == want
+    rec = got[4]
+    assert rec["empty"] >= 1            # at least the last center's window
+    assert rec["iters"] > len(want)
+
+
+def test_planted_case_ties_and_lone_read():
+    """f1 and d tie in some iterations; the lone read (slot 0) seeds the
+    first center, no other read lies in its length window, and
+    bvec::get_range's in-bin cases still give it a window of live slots
+    past that window's end."""
+    ps, params, sim = _edge_case("planted_0.90")
+    *_, point, rec = lockstep(ps, port_bv(ps, 7), params, sim)
+    assert rec["f1_ties"] >= 1 and rec["d_ties"] >= 1
+    lens = ps.lengths[point]
+    w0, w1 = rec["first_window"]
+    assert point[0] == ps.n - 1 and lens[1] > int(lens[0] / sim)
+    assert 1 <= w0 <= w1
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+@pytest.mark.parametrize("name", ["edge_0.97_strict", "planted_0.90"])
+def test_model_feature_shards_equal_plain_steps(name, n_shards):
+    ps, params, sim = _edge_case(name)
+    got = lockstep(ps, port_bv(ps, 7), params, sim, n_shards=n_shards)
+    want = listed(A.accumulate_device(ps, port_bv(ps, 7), params, sim))
+    assert centers_of(*got[:4]) == want
+
+
+def test_model_with_the_f1_tie_rule_turned_around_disagrees():
+    ps, params, sim = _edge_case("planted_0.90")
+    with pytest.raises(AssertionError):
+        lockstep(ps, port_bv(ps, 7), params, sim, least_slot=False)
+
+
+@pytest.mark.parametrize("stamp_first", [True, False])
+def test_mean_argmin_tie_goes_to_the_least_stamp(stamp_first):
+    """Members 1, 4 and 6 of center 2 tie in d (the same row and mass);
+    slot 1 was absorbed last: the plain step takes slot 4 (least stamp,
+    then slot), as the model does, and a copy that ranks by slot alone
+    takes slot 1."""
+    n = 8
+    owner = torch.tensor([0, 2, 1, 2, 2, 0, 2, 1])
+    stamp = torch.tensor([1, 9, 2, 5, 3, 1, 3, 4])
+    dist = torch.tensor([4, 50, 4, 40, 50, 4, 50, 4, 30])
+    mag = torch.full((n,), 200.0, dtype=torch.float64)
+    st, part = P.new_state(n, "cpu")
+    P.mean_argmin(st, dist, mag, owner, stamp, 2, part)
+    s = {"owner": owner.numpy(), "stamp": stamp.numpy(), "mag": mag.numpy()}
+    mst = st.numpy().copy()
+    model_mean_argmin(mst, s, dist.numpy(), 2, SMALL,
+                      np.random.default_rng(0), stamp_first)
+    assert int(st[P.LAST]) == 4
+    assert (mst[P.LAST] == 4) == stamp_first
+
+
+@pytest.fixture(scope="module", params=sorted(CORPORA))
+def species(request):
+    kw = dict(CORPORA[request.param])
+    jps, jparams = jax_points(np.random.default_rng(kw.pop("seed")), **kw)
+    return jps, jparams, port_case(jps, jparams)
+
+
+def test_model_phase_equals_jax(species):
+    """--id 0.90 on the species corpora: the model's whole phase against
+    the JAX package's accumulate_device, and the wrappers' path
+    (plain=False, their plain versions on the CPU) against both."""
+    from meshclust_tpu.core.accumulate_device import accumulate_device
+    from meshclust_tpu.core.bvec import BVec as JBVec
+    jps, jparams, (ps, params) = species
+    jbv = JBVec(jps.lengths.copy(), 20)
+    for i in range(jps.n):
+        jbv.insert(i, int(jps.lengths[i]))
+    jbv.insert_finalize()
+    want = listed(accumulate_device(jps, jbv, jparams, 0.90))
+    got = lockstep(ps, port_bv(ps), params, 0.90, n_shards=2)
+    assert centers_of(*got[:4]) == want
+    assert listed(A.accumulate_device(ps, port_bv(ps), params, 0.90,
+                                      plain=False)) == want
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_wrappers_on_the_cpu_equal_plain_path(name):
+    """accumulate_device(plain=False): the kernels' wrappers, which take
+    their plain versions for CPU tensors (rows in the storage dtype)."""
+    ps, params, sim = _edge_case(name)
+    want = listed(A.accumulate_device(ps, port_bv(ps, 7), params, sim))
+    got = listed(A.accumulate_device(ps, port_bv(ps, 7), params, sim,
+                                     plain=False))
+    assert got == want
+
+
+def all_singles_params(V=256):
+    """A model with every single the kernels compute, SIMRATIO too."""
+    feat = F.Feature(V)
+    for flags, combo in F.DEFAULT_FEATURE_MENU + [
+            (F.FEAT_SIMRATIO | F.FEAT_MANHATTAN, F.COMBO_SQUARED)]:
+        feat.add_feature(flags, combo)
+    feat.normalize_raw({
+        F.FEAT_LD: np.array([0.0, 500.0]),
+        F.FEAT_MANHATTAN: np.array([50.0, 4000.0]),
+        F.FEAT_INTERSECTION: np.array([0.3, 0.99]),
+        F.FEAT_PEARSON: np.array([-0.5, 0.999]),
+        F.FEAT_SIMRATIO: np.array([0.2, 0.95]),
+        F.FEAT_KULCZYNSKI2: np.array([1000.0, 90000.0]),
+    })
+    feat.finalize()
+    return feat.params(np.array([-3.0, 2.0, 1.5, 2.0, 1.0, 0.5]))
+
+
+def test_packed_classifier_equals_scorer():
+    """The kernel's classify, read from Model's packed arrays, against
+    Scorer (decisions and f1, bit for bit) on pairs of toy rows with every
+    supported single."""
+    hist, mag, sq, lens, _ = toy_model(n=64, seed=5)
+    params = all_singles_params()
+    model = P.Model(params, hist.shape[1], "cpu")
+    assert model.with_dot
+    spec, coef = model.spec.numpy(), model.coef.numpy()
+    h = torch.as_tensor(hist.astype(np.int64))
+    rng = np.random.default_rng(6)
+    f64 = {"dtype": torch.float64}
+    for a in rng.integers(0, 64, size=6):
+        man = (h[a] - h).abs().sum(-1)
+        dot = (h[a] * h).sum(-1)
+        m, q, ln = (torch.as_tensor(x.astype(np.float64), **f64)
+                    for x in (mag, sq, lens))
+        pos, f1 = model.scorer(man, dot, m[a: a + 1], m, q[a: a + 1], q,
+                               ln[a: a + 1], ln)
+        for b in range(64):
+            got = classify(spec, coef, int(man[b]), int(dot[b]),
+                           np.float64(mag[a]), np.float64(mag[b]),
+                           np.float64(sq[a]), np.float64(sq[b]),
+                           np.float64(lens[a]), np.float64(lens[b]))
+            assert got[0] == bool(pos[b])
+            assert got[1] == float(f1[b]) or (np.isnan(got[1])
+                                              and np.isnan(float(f1[b])))
+
+
+def test_source_constants_match_the_wrappers():
+    """csrc/phase_a.cu's grid, state slots and flags are the ones
+    ops/phase_a.py and ops/features.py name."""
+    with open(SOURCE) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(rf"\b{name} = (\d+)[,;]", src).group(1))
+
+    def flag(name):
+        return 1 << int(re.search(rf"\b{name} = 1 << (\d+)", src).group(1))
+
+    assert const("kBlocks") == P.BLOCKS
+    assert const("kThreads") == P.THREADS
+    assert const("kMaxSingles") == P.MAX_SINGLES
+    for name, want in (("kNPos", P.NPOS), ("kBest", P.BEST),
+                       ("kLast", P.LAST), ("kLive", P.LIVE), ("kW0", P.W0),
+                       ("kW1", P.W1), ("kCount", P.COUNT),
+                       ("kScratch", P.SCRATCH), ("kTicket", P.TICKETS),
+                       ("kComboSquared", F.COMBO_SQUARED)):
+        assert const(name) == want, name
+    for name, want in (("kFeatLD", F.FEAT_LD),
+                       ("kFeatManhattan", F.FEAT_MANHATTAN),
+                       ("kFeatIntersection", F.FEAT_INTERSECTION),
+                       ("kFeatPearson", F.FEAT_PEARSON),
+                       ("kFeatSimRatio", F.FEAT_SIMRATIO),
+                       ("kFeatKulczynski2", F.FEAT_KULCZYNSKI2)):
+        assert flag(name) == want, name
+    assert P.TICKETS + 3 <= P.STATE_LEN
+    assert set(P.SUPPORTED) == {F.FEAT_LD, F.FEAT_MANHATTAN,
+                                F.FEAT_INTERSECTION, F.FEAT_PEARSON,
+                                F.FEAT_SIMRATIO, F.FEAT_KULCZYNSKI2}

@@ -97,12 +97,12 @@ def featurize(fasta: str, ks: list) -> dict:
     return out
 
 
-def _points(arrays: dict):
+def _points(arrays: dict, device="cpu"):
     from meshclust_tpu_torch import convert
     return convert.pointset_from_numpy(
         arrays["hist"], arrays["mag"], arrays["sq"], arrays["lengths"],
         arrays["one_mers"], arrays["codes"], arrays["headers"], arrays["k"],
-        device="cpu")
+        device=device)
 
 
 def scalar_reads(fn):
@@ -131,23 +131,27 @@ def phase_b(cases: list) -> list:
 
 
 def phase_a(cases: list) -> list:
-    """accumulate_device over the mesh for each case (arrays, params,
-    bin_size, sim): (center, members) lists, counters and scalar reads."""
+    """accumulate_device over the mesh, on its device, for each case
+    (arrays, params, bin_size, sim): (center, members) lists, counters,
+    scalar reads and the Phase A kernels' launches."""
+    from meshclust_tpu_torch import _ext
     from meshclust_tpu_torch.core.accumulate_device import accumulate_device
     from meshclust_tpu_torch.core.bvec import BVec
     out = []
     for arrays, params, bin_size, sim in cases:
-        ps = _points(arrays)
+        ps = _points(arrays, dist.get_mesh().device)
         bv = BVec(ps.lengths.copy(), bin_size)
         for i in range(ps.n):
             bv.insert(i, int(ps.lengths[i]))
         bv.insert_finalize()
         perf.reset()
+        _ext.reset_launches()
         centers, reads = scalar_reads(lambda: accumulate_device(
             ps, bv, params, sim, mesh=dist.get_mesh()))
         out.append({"centers": [(c.center, list(c.members))
                                 for c in centers],
-                    "reads": reads, "counters": perf.counters()})
+                    "reads": reads, "counters": perf.counters(),
+                    "launches": dict(_ext.launches)})
     return out
 
 
