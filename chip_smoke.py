@@ -26,6 +26,11 @@ Phases (any failure exits non-zero before the last line):
      turns (plain, kernels, kernels, plain) with their walls and ms an
      iteration, each kernel's device time and its plain step's under the
      profiler, launches an iteration and the bytes an iteration must move;
+     pa_sums also on 1,000,000 synthetic rows of 256 counts (int8, with
+     and without the dot, int16, int32, and an int8 column slice at an odd
+     byte) and on the 15k corpus's rows, over a window of every slot, with
+     the L2 flushed, beside its bound and the PyTorch yardstick (cdist +
+     matmul on float32 copies);
   4. run each path on the GPU with the launch counts set to 0 just before
      it, and check that it launched both kernels, kmer_hist exactly once:
      - k-mer mode: 15,000 synthetic reads of ~1 kb, --id 0.90, default
@@ -582,13 +587,13 @@ def phase_a_run(ps, bv, params, plain: bool, cmax: int = 0) -> dict:
             "launches": {k: _ext.launches[k] for k in PHASE_A}}
 
 
-def phase_a_traffic(ps, bv, params) -> tuple:
+def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
     """({kernel: bytes}, {kernel: seconds of operations at peak}) that the
-    Phase A kernels must move and do over a run of the kernel path on
-    these inputs: each input read once, each output written once, counted
-    from what the data made each launch do (a replay that reads back,
-    after each step, the window, its live slots, the positives and the
-    members)."""
+    Phase A kernels must move and do, a launch, over a run of the kernel
+    path on these inputs (cut at cmax centers if cmax > 0): each input
+    read once, each output written once, counted from what the data made
+    each launch do (a replay that reads back, after each step, the window,
+    its live slots, the positives and the members)."""
     from meshclust_tpu_torch.core.accumulate_device import accumulate_device
     from meshclust_tpu_torch.ops import features as F
     from meshclust_tpu_torch.ops import phase_a as P
@@ -640,7 +645,7 @@ def phase_a_traffic(ps, bv, params) -> tuple:
         return call
 
     with phase_a_steps(wrap):
-        accumulate_device(ps, bv, params, 0.90, plain=False)
+        accumulate_device(ps, bv, params, 0.90, cmax_hint=cmax, plain=False)
     n = {k: max(1, calls[k]) for k in PHASE_A}
     return ({k: nbytes[k] / n[k] for k in PHASE_A},
             {k: ops_s[k] / n[k] for k in PHASE_A}, sum(nbytes.values()))
@@ -778,6 +783,99 @@ def phase_a_profile_child(paths: list) -> int:
     return 0
 
 
+def sums_case(rows, with_dot: bool, flush) -> dict:
+    """pa_sums on rows [N, V] (any storage dtype; a column slice keeps its
+    row stride) over the window [0, N - 1], every slot live, the center at
+    slot 0: its sums against sums_plain's, its device ms with the L2
+    flushed, and its bound (the rows and the active flags read once, the
+    sums written once)."""
+    import torch
+    from meshclust_tpu_torch.ops import phase_a as P
+    n, V = rows.shape
+    st, _ = P.new_state(n, rows.device)
+    st[P.W0], st[P.W1], st[P.LAST] = 0, n - 1, 0
+    active = torch.ones(n, dtype=torch.bool, device=rows.device)
+    k = 2 if with_dot else 1
+    got = torch.full((k, n), -7, dtype=torch.int64, device=rows.device)
+    P.sums(st, active, rows, got)
+    want = torch.empty_like(got)
+    P.sums_plain(st, active, rows.to(torch.int64), want)
+    return {"max_abs_err": max_abs_err(got, want), "want": want,
+            "ms": cold_ms(lambda: P.sums(st, active, rows, got), 10, flush),
+            **bound(n + n * V * rows.element_size() + 8 * k * n,
+                    4.0 * n * V / DISPATCH_OPS_PER_S)}
+
+
+def sums_yardstick(rows, want, flush) -> tuple:
+    """(ms with the L2 flushed, exact) of the PyTorch calls that compute
+    pa_sums's two sums of rows[0] against every row: cdist (p = 1) and a
+    matrix-vector product, on float32 copies made beforehand (exact while
+    every partial is an integer below 2^24)."""
+    import torch
+    r32 = rows.to(torch.float32)
+    c32 = r32[0].clone()
+
+    def lib():
+        return torch.cdist(c32[None], r32, p=1.0)[0], r32 @ c32
+    man, dot = lib()
+    exact = torch.equal(man.to(torch.int64), want[0]) and \
+        torch.equal(dot.to(torch.int64), want[1])
+    return cold_ms(lib, 10, flush), exact
+
+
+# pa_sums at HBM scale: 1,000,000 rows of 256 counts (a 1M-read corpus's
+# rows at k = 4: 256 MB of int8, past the 50 MB L2), every slot live
+PA_SUMS_ROWS = 1000000
+
+
+def check_pa_sums(dev, rows_15k) -> float:
+    """pa_sums against sums_plain on synthetic [PA_SUMS_ROWS, 256] rows
+    (numpy seed 9, counts 0-127) as int8 with and without the dot, int16,
+    int32, and a rank's int8 column slice at an odd byte (single-byte
+    pieces), each timed with the L2 flushed beside its bound and the
+    int8 rows beside the PyTorch yardstick (cdist + matmul); then the 15k
+    corpus's rows over a window of all its slots, whose yardstick ms is
+    returned (pa_sums's library_ms)."""
+    import torch
+    flush = flush_l2(dev)
+    rng = np.random.default_rng(9)
+    rows8 = torch.from_numpy(rng.integers(
+        0, 128, size=(PA_SUMS_ROWS, 256), dtype=np.int8)).to(dev)
+    label = f"{PA_SUMS_ROWS} x 256"
+    for name, rows, with_dot in (
+            ("int8", rows8, True), ("int8 without the dot", rows8, False),
+            ("int16", rows8.to(torch.int16), True),
+            ("int32", rows8.to(torch.int32), True),
+            ("int8 column slice [:, 1:129] (odd start)", rows8[:, 1:129],
+             True)):
+        r = sums_case(rows, with_dot, flush)
+        line = (f"  pa_sums {label} {name}: {r['ms']:.5f} ms cold L2, bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                f"{r['bound_ms'] / r['ms']:.4f} of it, max abs err "
+                f"{r['max_abs_err']}")
+        if r["max_abs_err"]:
+            fail(f"pa_sums differs from sums_plain on {label} {name}")
+        if name == "int8":
+            lib_ms, exact = sums_yardstick(rows, r["want"], flush)
+            line += (f"; yardstick cdist + matmul {lib_ms:.5f} ms (exact "
+                     f"{exact}), kernel {lib_ms / r['ms']:.2f}x faster")
+        print(line, flush=True)
+        del rows, r
+        torch.cuda.empty_cache()
+    del rows8
+    torch.cuda.empty_cache()
+    r = sums_case(rows_15k, True, flush)
+    lib_ms, exact = sums_yardstick(rows_15k, r["want"], flush)
+    print(f"  pa_sums 15k corpus rows {tuple(rows_15k.shape)} "
+          f"{rows_15k.dtype}, a window of every slot: {r['ms']:.5f} ms cold "
+          f"L2, bound {r['bound_ms']:.5f} ms, max abs err "
+          f"{r['max_abs_err']}; yardstick cdist + matmul {lib_ms:.5f} ms "
+          f"(exact {exact})", flush=True)
+    if r["max_abs_err"]:
+        fail("pa_sums differs from sums_plain on the 15k corpus's rows")
+    return lib_ms
+
+
 def check_phase_a(dev) -> list:
     """Phase A through its kernels against the plain steps on the 15k and
     150k corpora's Phase A inputs: each kernel step by step over the first
@@ -830,6 +928,8 @@ def check_phase_a(dev) -> list:
               f"{HBM_BYTES_PER_S:.3g} B/s) (took {time.time() - t0:.1f} s, "
               f"its inputs' run included)", flush=True)
         found[n] = (path, err, per_launch, ops_s)
+        if n == 15000:
+            sums_lib_ms = check_pa_sums(dev, ps.hist_dev)
     t0 = time.time()
     child = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--phase-a-profile",
@@ -854,13 +954,15 @@ def check_phase_a(dev) -> list:
                   f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4f} of it, "
                   f"max abs err {err[k]}", flush=True)
         if rows is None:
-            # No PyTorch call computes these functions on integer rows
-            # (cdist takes floats): library_ms is null.
+            # pa_sums's yardstick: cdist + matmul on float32 copies of the
+            # 15k rows (check_pa_sums). No PyTorch call computes the other
+            # kernels' functions: their library_ms is null.
             rows = [{"name": k, "route": "cuda",
                      "source": "meshclust_tpu_torch/csrc/phase_a.cu",
                      "replaces": "meshclust_tpu/core/accumulate_device.py:87",
                      "ms": ms[k], "plain_ms": plain_ms[k],
-                     "library_ms": None, "max_abs_err": err[k],
+                     "library_ms": sums_lib_ms if k == "pa_sums" else None,
+                     "max_abs_err": err[k],
                      **bound(per_launch[k], ops_s[k])} for k in PHASE_A]
     return rows
 

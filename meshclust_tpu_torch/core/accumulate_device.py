@@ -167,7 +167,12 @@ class _Slots:
         step.absorb(st, sums, self.model, self.mag, self.sq, self.lenf,
                     self.owner, self.stamp, self.active, self.h, self.sumvec,
                     c, t, self.part)
-        return st[: P.LIVE + 1].tolist()
+        return self.readback()
+
+    def readback(self) -> list:
+        """st[:LIVE + 1]: the iteration's one device-to-host read, which
+        waits for the steps before it."""
+        return self.st[: P.LIVE + 1].tolist()
 
     def move(self, c: int) -> None:
         """The center moves to c's member closest to the members' mean."""

@@ -54,8 +54,23 @@
 // window's rows (slots are sorted by length, so a window is one slot
 // range), each once in its storage dtype, widened in registers (no widened
 // [N, V] copy); keeps the classifier in registers; reads member rows only
-// where owner == c; and runs a persistent grid (kBlocks blocks walk any
-// range), so a window of any size is one launch with no host decision.
+// where owner == c; and runs a persistent grid (blocks walk any range), so
+// a window of any size is one launch with no host decision.
+//
+// pa_sums carries the bytes: at 1M reads a window holds up to 256 MB of
+// int8 rows, past the 50 MB L2. A warp a row with one int8 a lane kept
+// ~64 B in flight a warp, so Little's law held it near 0.3 TB/s. Here each
+// lane loads 16-byte pieces (a row of 256 int8 is 16 lanes, two rows a warp
+// load), kUnroll loads in flight before it reduces (2 KB a warp, ~10 MB
+// over the resident grid), the center's piece in a register, |a - b| and
+// a * b four bytes at a time (__vsadu4, __dp4a) into 32-bit partials.
+// pa_absorb's bound is a few us; its cost was fixed: every block staged the
+// model and ran its reductions whatever the window, and norm[] was indexed
+// at run time. Here blocks with no slot return at once (only the busy ones
+// draw tickets and write partials), the model's loads go out beside the
+// state's, the classifier is unrolled over kMaxSingles (no local memory),
+// one block reduction takes f1 and n_pos together, and a tile's positives'
+// rows are summed in registers, one atomic a count a tile.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -67,7 +82,14 @@ typedef unsigned long long u64;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBlocks = 528;        // the persistent grid: 4 blocks an SM
+// The persistent grid of pa_window, pa_member_dist and pa_mean_argmin (4
+// blocks an SM), and the most blocks pa_absorb's grid may take (its
+// partials' buffer holds kBlocks of each).
+constexpr int kBlocks = 528;
+// pa_sums: the widest piece of a row a lane loads, and the loads a lane
+// has in flight before it reduces.
+constexpr int kPieceBytes = 16;
+constexpr int kUnroll = 4;
 
 // Slots of st (ops/phase_a.py: NPOS ... TICKETS).
 constexpr int kNPos = 0, kBest = 1, kLast = 2, kLive = 3, kW0 = 4, kW1 = 5,
@@ -80,7 +102,10 @@ constexpr int kFeatLD = 1 << 1, kFeatManhattan = 1 << 2,
               kFeatIntersection = 1 << 4, kFeatPearson = 1 << 5,
               kFeatSimRatio = 1 << 6, kFeatKulczynski2 = 1 << 10;
 constexpr int kComboSquared = 1;
-constexpr int kMaxSingles = 16;     // ops/phase_a.py:Model checks it
+// Most singles a model has: its singles are distinct flags
+// (Feature.add_feature), and the kernels compute six (ops/phase_a.py:Model
+// checks both).
+constexpr int kMaxSingles = 6;
 
 __device__ __forceinline__ i64 imin(i64 a, i64 b) { return a < b ? a : b; }
 __device__ __forceinline__ i64 imax(i64 a, i64 b) { return a > b ? a : b; }
@@ -93,21 +118,6 @@ struct Max {
 };
 struct Sum {
   __device__ i64 operator()(i64 a, i64 b) const { return a + b; }
-};
-
-// The first max of f1: the greater f1, the least slot among equal f1; a NaN
-// anywhere makes the result N, as torch's max propagates NaN.
-struct F1Best {
-  double f;
-  i64 s;
-  int nan;
-};
-struct F1Op {
-  __device__ F1Best operator()(F1Best a, F1Best b) const {
-    F1Best r = (b.f > a.f || (b.f == a.f && b.s < a.s)) ? b : a;
-    r.nan = a.nan | b.nan;
-    return r;
-  }
 };
 
 // The member closest to the mean: the least d, then stamp, then slot.
@@ -127,11 +137,6 @@ struct DOp {
 
 __device__ __forceinline__ i64 shfl(i64 v, int o) {
   return __shfl_xor_sync(0xffffffffu, v, o);
-}
-__device__ __forceinline__ F1Best shfl(F1Best v, int o) {
-  return {__shfl_xor_sync(0xffffffffu, v.f, o),
-          __shfl_xor_sync(0xffffffffu, v.s, o),
-          __shfl_xor_sync(0xffffffffu, v.nan, o)};
 }
 __device__ __forceinline__ DBest shfl(DBest v, int o) {
   return {__shfl_xor_sync(0xffffffffu, v.d, o),
@@ -160,16 +165,16 @@ __device__ T block_reduce(T v, Op op) {
   return v;
 }
 
-// Called by every thread after its block's global writes: true in the block
-// that finishes last, which may then read every block's writes. That block
-// resets the ticket for the next launch.
-__device__ bool last_block(i64* ticket) {
+// Called by every thread of each of `blocks` blocks after its block's
+// global writes: true in the block that finishes last, which may then read
+// the others' writes. That block resets the ticket for the next launch.
+__device__ bool last_block(i64* ticket, i64 blocks) {
   __shared__ bool last;
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0)
     last = atomicAdd(reinterpret_cast<u64*>(ticket), 1ull) ==
-           static_cast<u64>(gridDim.x - 1);
+           static_cast<u64>(blocks - 1);
   __syncthreads();
   if (last && threadIdx.x == 0) *ticket = 0;
   return last;
@@ -233,7 +238,7 @@ pa_window_kernel(i64* __restrict__ st, const uint8_t* __restrict__ active,
     atomicMax(acc + 6, r6);
     atomicMax(acc + 7, r7);
   }
-  if (!last_block(st + kTicket + 0) || threadIdx.x != 0) return;
+  if (!last_block(st + kTicket + 0, gridDim.x) || threadIdx.x != 0) return;
   i64 a[8];
   for (int i = 0; i < 8; ++i) a[i] = __ldcg(acc + i);
   const i64 w0 = a[1] >= 0 ? (a[0] < N ? a[0] : a[1]) : a[2];
@@ -250,45 +255,195 @@ pa_window_kernel(i64* __restrict__ st, const uint8_t* __restrict__ active,
 // pa_sums
 // ---------------------------------------------------------------------------
 
-// Products of two counts: 32 bits hold int8 and int16 counts (32767^2 <
-// 2^31); int32 counts multiply into 64 bits; int64 counts wrap as torch's.
-template <typename T>
-struct Wide {
-  typedef int type;
-};
-template <>
-struct Wide<int32_t> {
-  typedef i64 type;
-};
-template <>
-struct Wide<int64_t> {
-  typedef i64 type;
+// The rows are read in pieces of VEC bytes, one load instruction a lane:
+// 16 bytes where the rows' base, pitch and length are all multiples of 16,
+// else the widest of 8, 4, 2 and 1 that divides them (a rank's column slice
+// at an odd offset, rows of 4 int8 counts at k = 1); mc_pa_sums picks VEC.
+template <int VEC>
+struct Piece {
+  static constexpr int kWords = VEC >= 4 ? VEC / 4 : 1;
+  uint32_t w[kWords];
 };
 
-// A warp a live slot of [w0, w1]; its lanes stride over the V counts of the
-// two rows; sums[s] = man, sums[N + s] = dot (with_dot).
+// A piece of a slot's row: each is read once a launch, so 16-byte pieces
+// skip L1 (L2 keeps them for the next iteration's window).
+template <int VEC>
+__device__ __forceinline__ Piece<VEC> load_row(const char* p) {
+  Piece<VEC> r;
+  if constexpr (VEC == 16) {
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3])
+        : "l"(p));
+  } else if constexpr (VEC == 8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    r.w[0] = v.x;
+    r.w[1] = v.y;
+  } else if constexpr (VEC == 4) {
+    r.w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else if constexpr (VEC == 2) {
+    r.w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  } else {
+    r.w[0] = __ldg(reinterpret_cast<const unsigned char*>(p));
+  }
+  return r;
+}
+
+// A piece of the center's row through L1: every warp of an SM reads it.
+template <int VEC>
+__device__ __forceinline__ Piece<VEC> load_center(const char* p) {
+  if constexpr (VEC == 16) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    return {{v.x, v.y, v.z, v.w}};
+  } else {
+    return load_row<VEC>(p);
+  }
+}
+
+// A lane's partial sums: 32 bits for int8 counts, 64 otherwise.
 template <typename T>
+struct Acc {
+  typedef i64 type;
+};
+template <>
+struct Acc<int8_t> {
+  typedef int type;
+};
+
+// man += sum |a - b| and dot += sum a * b over one piece. int8: byte SIMD,
+// |a - b| by __vsadu4 on the counts biased to unsigned (x ^ 0x80 keeps
+// every difference) and a * b by __dp4a, exact in 32 bits (a piece adds at
+// most 16 * 128^2 = 2^18); int16: each difference and product in 32 bits
+// (32768^2 = 2^30), summed in 64; int32 and int64: 64 bits, int64 wrapping
+// as torch's.
+template <typename T, int VEC>
+__device__ __forceinline__ void add_piece(const Piece<VEC>& a,
+                                          const Piece<VEC>& b,
+                                          typename Acc<T>::type& man,
+                                          typename Acc<T>::type& dot) {
+  if constexpr (sizeof(T) == 1 && VEC >= 4) {
+#pragma unroll
+    for (int i = 0; i < Piece<VEC>::kWords; ++i) {
+      man += static_cast<int>(
+          __vsadu4(a.w[i] ^ 0x80808080u, b.w[i] ^ 0x80808080u));
+      dot = __dp4a(static_cast<int>(a.w[i]), static_cast<int>(b.w[i]), dot);
+    }
+  } else if constexpr (sizeof(T) == 1) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const int x = static_cast<int8_t>(a.w[0] >> (8 * e));
+      const int y = static_cast<int8_t>(b.w[0] >> (8 * e));
+      man += x > y ? x - y : y - x;
+      dot += x * y;
+    }
+  } else if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int e = 0; e < VEC / 2; ++e) {
+      const int x = static_cast<int16_t>(a.w[e / 2] >> (16 * (e & 1)));
+      const int y = static_cast<int16_t>(b.w[e / 2] >> (16 * (e & 1)));
+      man += x > y ? x - y : y - x;
+      dot += x * y;
+    }
+  } else if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int e = 0; e < VEC / 4; ++e) {
+      const i64 x = static_cast<int>(a.w[e]), y = static_cast<int>(b.w[e]);
+      man += x > y ? x - y : y - x;
+      dot += x * y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC / 8; ++e) {
+      const u64 x = a.w[2 * e] | static_cast<u64>(a.w[2 * e + 1]) << 32;
+      const u64 y = b.w[2 * e] | static_cast<u64>(b.w[2 * e + 1]) << 32;
+      const i64 d = static_cast<i64>(x) > static_cast<i64>(y)
+                        ? static_cast<i64>(x - y)
+                        : static_cast<i64>(y - x);
+      man += d;
+      dot += static_cast<i64>(x * y);
+    }
+  }
+}
+
+// The sum over a group of `lanes` neighbouring lanes (a power of two).
+template <typename A>
+__device__ __forceinline__ A group_sum(A v, int lanes) {
+  for (int o = lanes >> 1; o; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// sums[s] = man, sums[n + s] = dot (with_dot) of every live slot s of
+// [w0, w1]. A row is nv pieces of VEC bytes. Short rows (nv <= lanes, the
+// k-mer path's 256 int8 counts: 16 pieces of 16 B): a group of `lanes`
+// lanes a row, 32 / lanes rows a warp load, kUnroll loads in flight before
+// any reduction (8 rows, 2 KB a warp at V = 256), the center's piece in a
+// register. Long rows: a warp a row, each lane kUnroll pieces in flight.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 pa_sums_kernel(const i64* __restrict__ st, const uint8_t* __restrict__ active,
-               const T* __restrict__ rows, i64 stride, int V, int n,
-               int with_dot, i64* __restrict__ sums) {
-  typedef typename Wide<T>::type W;
+               const char* __restrict__ rows, i64 pitch, int nv, int lanes,
+               int n, int with_dot, i64* __restrict__ sums) {
+  typedef typename Acc<T>::type A;
   const i64 w0 = st[kW0], w1 = st[kW1];
-  const T* a = rows + st[kLast] * stride;
+  const char* a_row = rows + st[kLast] * pitch;
   const int lane = threadIdx.x & 31;
+  const i64 warp = blockIdx.x * static_cast<i64>(kWarps) + (threadIdx.x >> 5);
   const i64 warps = static_cast<i64>(gridDim.x) * kWarps;
-  for (i64 s = w0 + blockIdx.x * static_cast<i64>(kWarps) + (threadIdx.x >> 5);
-       s <= w1; s += warps) {
-    if (!active[s]) continue;
-    const T* b = rows + s * stride;
-    i64 man = 0, dot = 0;
-    for (int v = lane; v < V; v += 32) {
-      const W x = a[v], y = b[v];
-      man += x > y ? x - y : y - x;
-      dot += static_cast<i64>(x) * static_cast<i64>(y);
+  if (nv <= lanes) {
+    const int sub = lane & (lanes - 1), grp = lane / lanes;
+    const int groups = 32 / lanes;
+    const Piece<VEC> a =
+        sub < nv ? load_center<VEC>(a_row + sub * VEC) : Piece<VEC>{};
+    const i64 step = static_cast<i64>(groups) * kUnroll;
+    for (i64 s0 = w0 + warp * step; s0 <= w1; s0 += warps * step) {
+      Piece<VEC> b[kUnroll];
+      bool live[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const i64 s = s0 + u * groups + grp;
+        live[u] = s <= w1 && active[s];
+        b[u] = Piece<VEC>{};
+        if (live[u] && sub < nv)
+          b[u] = load_row<VEC>(rows + s * pitch + sub * VEC);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        A man = 0, dot = 0;
+        add_piece<T, VEC>(a, b[u], man, dot);
+        man = group_sum(man, lanes);
+        if (with_dot) dot = group_sum(dot, lanes);
+        if (live[u] && sub == 0) {
+          const i64 s = s0 + u * groups + grp;
+          sums[s] = man;
+          if (with_dot) sums[n + s] = dot;
+        }
+      }
     }
-    man = warp_reduce(man, Sum());
-    if (with_dot) dot = warp_reduce(dot, Sum());
+    return;
+  }
+  for (i64 s = w0 + warp; s <= w1; s += warps) {
+    if (!active[s]) continue;
+    const char* b_row = rows + s * pitch;
+    i64 man = 0, dot = 0;
+    for (int v0 = lane; v0 < nv; v0 += 32 * kUnroll) {
+      Piece<VEC> a[kUnroll], b[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int v = v0 + 32 * u;
+        a[u] = b[u] = Piece<VEC>{};
+        if (v < nv) {
+          a[u] = load_center<VEC>(a_row + static_cast<i64>(v) * VEC);
+          b[u] = load_row<VEC>(b_row + static_cast<i64>(v) * VEC);
+        }
+      }
+      A m = 0, d = 0;                  // kUnroll pieces: within 32 bits
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) add_piece<T, VEC>(a[u], b[u], m, d);
+      man += m;
+      dot += d;
+    }
+    man = group_sum(man, 32);
+    if (with_dot) dot = group_sum(dot, 32);
     if (lane == 0) {
       sums[s] = man;
       if (with_dot) sums[n + s] = dot;
@@ -304,7 +459,9 @@ pa_sums_kernel(const i64* __restrict__ st, const uint8_t* __restrict__ active,
 //   spec (int32): S, J, singles[S], is_sim[S], kinds[J], off[J + 1], idx[..]
 //   coef (f64):   V, mins[S], spans[S], weights[J + 1]
 // Scorer.__call__ for one pair (a: the center, b: the slot), op for op:
-// -> score >= 0, and f1 (the first combo's product).
+// -> score >= 0, and f1 (the first combo's product). Each single flag the
+// model has is computed once; the normalized singles norm[] stay in
+// registers (kMaxSingles unrolled, picked by predicated selects).
 __device__ bool classify(const int* spec, const double* coef, double man,
                          double dot, double mag_a, double mag_b, double sq_a,
                          double sq_b, double len_a, double len_b,
@@ -319,66 +476,71 @@ __device__ bool classify(const int* spec, const double* coef, double man,
   const double* mins = coef + 1;
   const double* spans = mins + S;
   const double* weights = spans + S;
-  double norm[kMaxSingles];
-  for (int i = 0; i < S; ++i) {
-    double v;
-    switch (singles[i]) {
-      case kFeatLD:
-        v = fabs(__dsub_rn(len_a, len_b));
-        break;
-      case kFeatManhattan:
-        v = man;
-        break;
-      case kFeatIntersection: {
-        const double min_sum =
-            __ddiv_rn(__dsub_rn(__dadd_rn(mag_a, mag_b), man), 2.0);
-        v = __ddiv_rn(__dmul_rn(2.0, min_sum), __dadd_rn(mag_a, mag_b));
-        break;
-      }
-      case kFeatKulczynski2: {
-        const double ap = __ddiv_rn(mag_a, V), aq = __ddiv_rn(mag_b, V);
-        const double min_sum =
-            __ddiv_rn(__dsub_rn(__dadd_rn(mag_a, mag_b), man), 2.0);
-        const double coeff = __ddiv_rn(__dmul_rn(V, __dadd_rn(ap, aq)),
-                                       __dmul_rn(__dmul_rn(2.0, ap), aq));
-        v = __dmul_rn(coeff, min_sum);
-        break;
-      }
-      case kFeatSimRatio: {
-        double norm2 = __dsub_rn(__dadd_rn(sq_a, sq_b), __dmul_rn(2.0, dot));
-        norm2 = norm2 < 0.0 ? 0.0 : norm2;          // clamp(min=0); NaN stays
-        v = __ddiv_rn(dot, __dadd_rn(dot, __dsqrt_rn(norm2)));
-        break;
-      }
-      case kFeatPearson: {
-        const double ap = floor(__dadd_rn(__ddiv_rn(mag_a, V), 0.5));
-        const double aq = floor(__dadd_rn(__ddiv_rn(mag_b, V), 0.5));
-        const double np_ =
-            __dadd_rn(__dsub_rn(sq_a, __dmul_rn(__dmul_rn(2.0, ap), mag_a)),
-                      __dmul_rn(__dmul_rn(V, ap), ap));
-        const double nq_ =
-            __dadd_rn(__dsub_rn(sq_b, __dmul_rn(__dmul_rn(2.0, aq), mag_b)),
-                      __dmul_rn(__dmul_rn(V, aq), aq));
-        const double dotc = __dadd_rn(
-            __dsub_rn(__dsub_rn(dot, __dmul_rn(ap, mag_b)),
-                      __dmul_rn(aq, mag_a)),
-            __dmul_rn(__dmul_rn(V, ap), aq));
-        double p = __dmul_rn(np_, nq_);
-        p = p < 0.5 ? 0.5 : p;                      // clamp(min=0.5)
-        v = __ddiv_rn(dotc, __dsqrt_rn(p));
-        break;
-      }
-      default:
-        v = __longlong_as_double(0x7ff8000000000000LL);
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+  int flags = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxSingles; ++i)
+    if (i < S) flags |= singles[i];
+  double ld = nan, inter = nan, kulc = nan, simr = nan, pear = nan;
+  if (flags & kFeatLD) ld = fabs(__dsub_rn(len_a, len_b));
+  if (flags & (kFeatIntersection | kFeatKulczynski2)) {
+    const double mm = __dadd_rn(mag_a, mag_b);
+    const double min_sum = __ddiv_rn(__dsub_rn(mm, man), 2.0);
+    if (flags & kFeatIntersection)
+      inter = __ddiv_rn(__dmul_rn(2.0, min_sum), mm);
+    if (flags & kFeatKulczynski2) {
+      const double ap = __ddiv_rn(mag_a, V), aq = __ddiv_rn(mag_b, V);
+      const double coeff = __ddiv_rn(__dmul_rn(V, __dadd_rn(ap, aq)),
+                                     __dmul_rn(__dmul_rn(2.0, ap), aq));
+      kulc = __dmul_rn(coeff, min_sum);
     }
-    const double nv = __ddiv_rn(__dsub_rn(v, mins[i]), spans[i]);
-    norm[i] = is_sim[i] ? nv : __dsub_rn(1.0, nv);
+  }
+  if (flags & kFeatSimRatio) {
+    double norm2 = __dsub_rn(__dadd_rn(sq_a, sq_b), __dmul_rn(2.0, dot));
+    norm2 = norm2 < 0.0 ? 0.0 : norm2;            // clamp(min=0); NaN stays
+    simr = __ddiv_rn(dot, __dadd_rn(dot, __dsqrt_rn(norm2)));
+  }
+  if (flags & kFeatPearson) {
+    const double ap = floor(__dadd_rn(__ddiv_rn(mag_a, V), 0.5));
+    const double aq = floor(__dadd_rn(__ddiv_rn(mag_b, V), 0.5));
+    const double np_ =
+        __dadd_rn(__dsub_rn(sq_a, __dmul_rn(__dmul_rn(2.0, ap), mag_a)),
+                  __dmul_rn(__dmul_rn(V, ap), ap));
+    const double nq_ =
+        __dadd_rn(__dsub_rn(sq_b, __dmul_rn(__dmul_rn(2.0, aq), mag_b)),
+                  __dmul_rn(__dmul_rn(V, aq), aq));
+    const double dotc = __dadd_rn(
+        __dsub_rn(__dsub_rn(dot, __dmul_rn(ap, mag_b)), __dmul_rn(aq, mag_a)),
+        __dmul_rn(__dmul_rn(V, ap), aq));
+    double p = __dmul_rn(np_, nq_);
+    p = p < 0.5 ? 0.5 : p;                        // clamp(min=0.5)
+    pear = __ddiv_rn(dotc, __dsqrt_rn(p));
+  }
+  double norm[kMaxSingles];
+#pragma unroll
+  for (int i = 0; i < kMaxSingles; ++i) {
+    norm[i] = 0.0;
+    if (i < S) {
+      const int f = singles[i];
+      const double v = f == kFeatLD             ? ld
+                       : f == kFeatManhattan    ? man
+                       : f == kFeatIntersection ? inter
+                       : f == kFeatKulczynski2  ? kulc
+                       : f == kFeatSimRatio     ? simr
+                       : f == kFeatPearson      ? pear
+                                                : nan;
+      const double nv = __ddiv_rn(__dsub_rn(v, mins[i]), spans[i]);
+      norm[i] = is_sim[i] ? nv : __dsub_rn(1.0, nv);
+    }
   }
   double score = weights[0], f1 = 0.0;
   for (int j = 0; j < J; ++j) {
     double prod = 1.0;
     for (int e = off[j]; e < off[j + 1]; ++e) {
-      const double c = norm[idx[e]];
+      const int k = idx[e];
+      double c = norm[0];
+#pragma unroll
+      for (int i = 1; i < kMaxSingles; ++i) c = k == i ? norm[i] : c;
       prod = __dmul_rn(prod, kinds[j] == kComboSquared ? __dmul_rn(c, c) : c);
     }
     if (j == 0) f1 = prod;
@@ -388,10 +550,41 @@ __device__ bool classify(const int* spec, const double* coef, double man,
   return score >= 0.0;
 }
 
-// A thread a live slot of [w0, w1], in block-wide tiles; each tile's
-// positives are listed in shared memory and the block adds their rows into
-// sumvec with int64 atomics. Per-block partials (part: f1 bits, slot, NaN,
-// n_pos; kBlocks each) are combined by the last block.
+// A block's partial of pa_absorb: the first max of f1 (the greater f1, the
+// least slot among equal f1; a NaN anywhere makes the result N, as torch's
+// max propagates NaN) and the positives' count.
+struct AbsorbPart {
+  double f;
+  i64 s;
+  i64 npos;
+  int nan;
+};
+struct AbsorbOp {
+  __device__ AbsorbPart operator()(AbsorbPart a, AbsorbPart b) const {
+    AbsorbPart r = (b.f > a.f || (b.f == a.f && b.s < a.s)) ? b : a;
+    r.nan = a.nan | b.nan;
+    r.npos = a.npos + b.npos;
+    return r;
+  }
+};
+__device__ __forceinline__ AbsorbPart shfl(AbsorbPart v, int o) {
+  return {__shfl_xor_sync(0xffffffffu, v.f, o),
+          __shfl_xor_sync(0xffffffffu, v.s, o),
+          __shfl_xor_sync(0xffffffffu, v.npos, o),
+          __shfl_xor_sync(0xffffffffu, v.nan, o)};
+}
+
+// A thread a live slot of [w0, w1], in block-wide tiles. The blocks that
+// hold a slot of [w0, w1] (the first `busy`, known to every block from w0
+// and w1) do the work; the others return after reading them, and when no
+// block holds a slot, block 0 writes the empty window's result. A busy
+// block stages the model in shared memory (its loads issued beside the
+// state's), loads each slot's sums, mag, sq and length at once,
+// classifies, absorbs, and lists the tile's positives; its threads then
+// sum the listed rows count by count in registers and add each count into
+// sumvec with one int64 atomic a tile. Per-block partials (part: f1 bits,
+// slot, NaN, n_pos; busy <= gridDim.x <= kBlocks each) are combined by the
+// last busy block to draw a ticket.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 pa_absorb_kernel(i64* __restrict__ st, const i64* __restrict__ sums,
@@ -406,70 +599,94 @@ pa_absorb_kernel(i64* __restrict__ st, const i64* __restrict__ sums,
   extern __shared__ double model[];
   __shared__ i64 pos_list[kThreads];
   __shared__ int n_list;
+  const int tid = threadIdx.x;
+  const double coef0 = tid < n_coef ? coef_g[tid] : 0.0;
+  const int spec0 = tid < n_spec ? spec_g[tid] : 0;
+  const i64 N = n, w0 = st[kW0], w1 = st[kW1];
+  const i64 tiles = static_cast<i64>(gridDim.x) * kThreads;
+  const i64 span = w1 - w0 + 1;
+  const i64 busy = span <= 0 ? 0 : imin((span + kThreads - 1) / kThreads,
+                                        static_cast<i64>(gridDim.x));
+  if (blockIdx.x >= busy) {
+    if (busy == 0 && blockIdx.x == 0 && tid == 0) {
+      st[kNPos] = 0;
+      st[kBest] = N;
+    }
+    return;
+  }
+  AbsorbPart best = {-INFINITY, N, 0, 0};
   double* coef = model;
   int* spec = reinterpret_cast<int*>(model + n_coef);
-  for (int i = threadIdx.x; i < n_coef; i += kThreads) coef[i] = coef_g[i];
-  for (int i = threadIdx.x; i < n_spec; i += kThreads) spec[i] = spec_g[i];
-  const i64 N = n, w0 = st[kW0], w1 = st[kW1], last = st[kLast];
+  if (tid < n_coef) coef[tid] = coef0;
+  if (tid < n_spec) spec[tid] = spec0;
+  for (int i = tid + kThreads; i < n_coef; i += kThreads) coef[i] = coef_g[i];
+  for (int i = tid + kThreads; i < n_spec; i += kThreads) spec[i] = spec_g[i];
+  const i64 last = st[kLast];
   const double mag_a = mag[last], sq_a = sq[last], len_a = lenf[last];
-  F1Best best = {-INFINITY, N, 0};
-  i64 npos = 0;
   for (i64 base = w0 + blockIdx.x * static_cast<i64>(kThreads); base <= w1;
-       base += static_cast<i64>(gridDim.x) * kThreads) {
-    if (threadIdx.x == 0) n_list = 0;
-    __syncthreads();                // also: the model is in shared memory
-    const i64 s = base + threadIdx.x;
-    if (s <= w1 && active[s]) {
+       base += tiles) {
+    const i64 s = base + tid;
+    bool live = false;
+    i64 man = 0, dot = 0;
+    double mag_b = 0.0, sq_b = 0.0, len_b = 0.0;
+    if (s <= w1) {
+      live = active[s];
+      man = sums[s];
+      if (with_dot) dot = sums[N + s];
+      mag_b = mag[s];
+      sq_b = sq[s];
+      len_b = lenf[s];
+    }
+    if (tid == 0) n_list = 0;
+    __syncthreads();              // also: the model is in shared memory
+    if (live) {
       double f1;
-      const bool pos = classify(
-          spec, coef, static_cast<double>(sums[s]),
-          with_dot ? static_cast<double>(sums[N + s]) : 0.0, mag_a, mag[s],
-          sq_a, sq[s], len_a, lenf[s], &f1);
+      const bool pos = classify(spec, coef, static_cast<double>(man),
+                                static_cast<double>(dot), mag_a, mag_b,
+                                sq_a, sq_b, len_a, len_b, &f1);
       if (f1 != f1)
         best.nan = 1;
       else if (f1 > best.f || (f1 == best.f && s < best.s))
-        best = {f1, s, best.nan};
+        best.f = f1, best.s = s;
       if (pos) {
         owner[s] = c;
         stamp[s] = t;
         active[s] = 0;
-        ++npos;
+        ++best.npos;
         pos_list[atomicAdd(&n_list, 1)] = s;
       }
     }
     __syncthreads();
-    for (int i = 0; i < n_list; ++i) {
-      const T* r = rows + pos_list[i] * stride;
-      for (int v = threadIdx.x; v < V; v += kThreads)
+    const int m = n_list;
+    if (m) {
+      for (int v = tid; v < V; v += kThreads) {
+        i64 acc = 0;
+        for (int i = 0; i < m; ++i) acc += rows[pos_list[i] * stride + v];
         atomicAdd(reinterpret_cast<u64*>(sumvec + v),
-                  static_cast<u64>(static_cast<i64>(r[v])));
+                  static_cast<u64>(acc));
+      }
     }
-    __syncthreads();                // before the next tile resets n_list
+    __syncthreads();              // before the next tile resets n_list
   }
-  best = block_reduce(best, F1Op());
-  npos = block_reduce(npos, Sum());
+  best = block_reduce(best, AbsorbOp());
   const int G = gridDim.x;
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     part[blockIdx.x] = __double_as_longlong(best.f);
     part[G + blockIdx.x] = best.s;
     part[2 * G + blockIdx.x] = best.nan;
-    part[3 * G + blockIdx.x] = npos;
+    part[3 * G + blockIdx.x] = best.npos;
   }
-  if (!last_block(st + kTicket + 1)) return;
-  best = {-INFINITY, N, 0};
-  npos = 0;
-  for (int b = threadIdx.x; b < G; b += kThreads) {
-    best = F1Op()(best, {__longlong_as_double(__ldcg(part + b)),
-                         __ldcg(part + G + b),
-                         static_cast<int>(__ldcg(part + 2 * G + b))});
-    npos += __ldcg(part + 3 * G + b);
-  }
-  best = block_reduce(best, F1Op());
-  npos = block_reduce(npos, Sum());
-  if (threadIdx.x == 0) {
-    st[kNPos] = npos;
+  if (!last_block(st + kTicket + 1, busy)) return;
+  best = {-INFINITY, N, 0, 0};
+  for (int b = tid; b < busy; b += kThreads)
+    best = AbsorbOp()(best, {__longlong_as_double(__ldcg(part + b)),
+                             __ldcg(part + G + b), __ldcg(part + 3 * G + b),
+                             static_cast<int>(__ldcg(part + 2 * G + b))});
+  best = block_reduce(best, AbsorbOp());
+  if (tid == 0) {
+    st[kNPos] = best.npos;
     st[kBest] = best.nan ? N : best.s;
-    st[kCount] += npos;
+    st[kCount] += best.npos;
   }
 }
 
@@ -551,7 +768,7 @@ pa_mean_argmin_kernel(i64* __restrict__ st, const i64* __restrict__ dist,
     part[G + blockIdx.x] = best.stamp;
     part[2 * G + blockIdx.x] = best.s;
   }
-  if (!last_block(st + kTicket + 2)) return;
+  if (!last_block(st + kTicket + 2, gridDim.x)) return;
   best = none;
   for (int b = threadIdx.x; b < G; b += kThreads)
     best = DOp()(best, {__longlong_as_double(__ldcg(part + b)),
@@ -580,6 +797,42 @@ extern "C" int mc_pa_window(void* st, const void* active, const void* bin,
   return cudaGetLastError();
 }
 
+// Blocks of kThreads that the card keeps resident at once running `kernel`
+// (SMs x blocks an SM): the grid of pa_sums and pa_absorb, which walk any
+// range in grid strides. Each launcher queries it once a process.
+template <class K>
+static int resident_blocks(K kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+// The widest piece, at most kPieceBytes and at least the element, that
+// divides the rows' address, pitch and length in bytes.
+static int piece_bytes(const void* rows, i64 pitch, i64 length, int width) {
+  const u64 all = reinterpret_cast<u64>(rows) | static_cast<u64>(pitch) |
+                  static_cast<u64>(length);
+  int vec = kPieceBytes;
+  while (vec > width && (all & (vec - 1))) vec >>= 1;
+  return vec;
+}
+
+template <typename T, int VEC>
+static int launch_sums(cudaStream_t s, const i64* st, const uint8_t* act,
+                       const void* rows, i64 pitch, i64 length, int n,
+                       int with_dot, i64* out) {
+  static const int blocks = resident_blocks(pa_sums_kernel<T, VEC>);
+  const int nv = static_cast<int>(length / VEC);
+  int lanes = 1;
+  while (lanes < nv && lanes < 32) lanes <<= 1;
+  pa_sums_kernel<T, VEC><<<blocks, kThreads, 0, s>>>(
+      st, act, static_cast<const char*>(rows), pitch, nv, lanes, n, with_dot,
+      out);
+  return cudaGetLastError();
+}
+
 extern "C" int mc_pa_sums(const void* st, const void* active, const void* rows,
                           long long stride, int V, int width, int n,
                           int with_dot, void* sums, void* stream) {
@@ -587,31 +840,36 @@ extern "C" int mc_pa_sums(const void* st, const void* active, const void* rows,
   const i64* st_ = static_cast<const i64*>(st);
   const uint8_t* act = static_cast<const uint8_t*>(active);
   i64* out = static_cast<i64*>(sums);
+  const i64 pitch = stride * width, length = static_cast<i64>(V) * width;
+  const int vec = piece_bytes(rows, pitch, length, width);
+#define MC_SUMS(T, VEC)                                              \
+  case VEC:                                                          \
+    return launch_sums<T, VEC>(s, st_, act, rows, pitch, length, n, \
+                               with_dot, out)
   switch (width) {
     case 1:
-      pa_sums_kernel<<<kBlocks, kThreads, 0, s>>>(
-          st_, act, static_cast<const int8_t*>(rows), stride, V, n, with_dot,
-          out);
+      switch (vec) {
+        MC_SUMS(int8_t, 16); MC_SUMS(int8_t, 8); MC_SUMS(int8_t, 4);
+        MC_SUMS(int8_t, 2); MC_SUMS(int8_t, 1);
+      }
       break;
     case 2:
-      pa_sums_kernel<<<kBlocks, kThreads, 0, s>>>(
-          st_, act, static_cast<const int16_t*>(rows), stride, V, n, with_dot,
-          out);
+      switch (vec) {
+        MC_SUMS(int16_t, 16); MC_SUMS(int16_t, 8); MC_SUMS(int16_t, 4);
+        MC_SUMS(int16_t, 2);
+      }
       break;
     case 4:
-      pa_sums_kernel<<<kBlocks, kThreads, 0, s>>>(
-          st_, act, static_cast<const int32_t*>(rows), stride, V, n, with_dot,
-          out);
+      switch (vec) {
+        MC_SUMS(int32_t, 16); MC_SUMS(int32_t, 8); MC_SUMS(int32_t, 4);
+      }
       break;
     case 8:
-      pa_sums_kernel<<<kBlocks, kThreads, 0, s>>>(
-          st_, act, static_cast<const int64_t*>(rows), stride, V, n, with_dot,
-          out);
+      switch (vec) { MC_SUMS(int64_t, 16); MC_SUMS(int64_t, 8); }
       break;
-    default:
-      return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+#undef MC_SUMS
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -623,7 +881,9 @@ static void launch_absorb(cudaStream_t s, size_t smem, void* st,
                           const void* rows, long long stride, int V,
                           void* sumvec, int n, long long c, long long t,
                           void* part) {
-  pa_absorb_kernel<T><<<kBlocks, kThreads, smem, s>>>(
+  static const int resident = resident_blocks(pa_absorb_kernel<T>);
+  const int blocks = resident < kBlocks ? resident : kBlocks;
+  pa_absorb_kernel<T><<<blocks, kThreads, smem, s>>>(
       static_cast<i64*>(st), static_cast<const i64*>(sums), with_dot,
       static_cast<const int*>(spec), n_spec, static_cast<const double*>(coef),
       n_coef, static_cast<const double*>(mag), static_cast<const double*>(sq),

@@ -43,17 +43,25 @@ NPOS, BEST, LAST, LIVE, W0, W1, COUNT = range(7)
 SCRATCH = 8         # pa_window's eight reductions (kScratch)
 TICKETS = 16        # one ticket each: pa_window, pa_absorb, pa_mean_argmin
 STATE_LEN = 24
-# The persistent grid (kBlocks), and the partials each of its blocks writes
-# in pa_absorb (four) and pa_mean_argmin (three).
+# The persistent grid of pa_window, pa_member_dist and pa_mean_argmin
+# (kBlocks), which also bounds pa_absorb's (the card's resident blocks, as
+# pa_sums's), and the partials each block writes in pa_absorb (four) and
+# pa_mean_argmin (three).
 BLOCKS = 528
 THREADS = 256
 PARTIALS = 4
-# Most singles a model may have (kMaxSingles), and the shared memory of its
-# packed arrays that a launch may take without an attribute.
-MAX_SINGLES = 16
-MAX_MODEL_BYTES = 48 * 1024
+# pa_sums: the widest piece of a row a lane loads, and the loads a lane has
+# in flight before it reduces (kPieceBytes, kUnroll).
+PIECE_BYTES = 16
+SUMS_UNROLL = 4
+# The singles the kernels compute; the most a model may have
+# (kMaxSingles: a model's singles are distinct flags, as
+# Feature.add_feature makes them); and the shared memory of its packed
+# arrays that a launch may take without an attribute.
 SUPPORTED = (F.FEAT_LD, F.FEAT_MANHATTAN, F.FEAT_INTERSECTION,
              F.FEAT_PEARSON, F.FEAT_SIMRATIO, F.FEAT_KULCZYNSKI2)
+MAX_SINGLES = len(SUPPORTED)
+MAX_MODEL_BYTES = 48 * 1024
 _WIDTHS = {torch.int8: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8}
 
 
@@ -84,9 +92,10 @@ class Model:
         if any(f not in SUPPORTED for f in singles):
             raise ValueError(f"singles {singles}: the Phase A kernels "
                              f"compute only {SUPPORTED}")
-        if not params.combos or len(singles) > MAX_SINGLES:
-            raise ValueError(f"{len(params.combos)} combos, {len(singles)} "
-                             f"singles: need >= 1 and <= {MAX_SINGLES}")
+        if not params.combos or len(set(singles)) != len(singles):
+            raise ValueError(f"{len(params.combos)} combos, singles "
+                             f"{singles}: need >= 1 combo and distinct "
+                             f"singles")
         self.scorer = Scorer(params, V, device)
         self.with_dot = self.scorer.need_dot
         kinds = [int(c) for c, _ in params.combos]

@@ -3,7 +3,8 @@
 
 Run from the repository root, after chip_smoke.py has passed:
     python3 profile_port.py [--parts throughput,busy,variants,compare,e2e,
-                                     feat,kvariants,sass,cluster,ranks]
+                                     feat,kvariants,sass,phase_a,cluster,
+                                     ranks]
                             [--ranks 2,4] [--sizes 15000,150000,1000000]
                             [--against OLD.cu ...] [--variants "R,T,K ..."]
                             [--parent DIR] [--kmer-variants "SPEC ..."]
@@ -52,15 +53,23 @@ Parts (default: throughput,busy):
               sources (file:PATH), per --kmer-variants, timed in turns at
               the same three shapes beside the card's floor there (a fill
               of the rows, a copy of the codes).
-  sass        opcode counts of nw_align_long_kernel and the kmer_hist
-              kernels in each library built by the run (cuobjdump -sass).
+  sass        opcode counts of nw_align_long_kernel, the kmer_hist
+              kernels, pa_absorb and pa_sums (int8 rows) in each library
+              built by the run (cuobjdump -sass).
   cluster     k-mer-mode clustering on the device (DeviceBackend, Phase A
               through csrc/phase_a.cu, the fused Phase B) at --id 0.90 on
               bench.py:make_dataset's corpus at each read count of --sizes
               (the first after a warm-up run): one run's wall, phases,
               counters, NMI against the planted species and CLSTR digest
               (ms per absorb iteration and per Phase B iteration from its
-              phase times). Up to 150k reads also: the busy share of a
+              phase times); at every size, on that run's points and
+              model, each Phase A kernel's device ms a launch under the
+              profiler (first PROFILE_CENTERS centers), its launches in
+              the run, its bound (chip_smoke.py:phase_a_traffic over the
+              same centers) and its loss, launches x (ms - bound); and one
+              whole Phase A with an iteration's host wall split into the
+              wrappers' checks, the ctypes calls, the readback's wait and
+              the rest. Up to 150k reads also: the busy share of a
               profiled run; Phase A alone on that run's points and model
               through the kernels and through the plain steps, unprofiled
               in turns (plain, kernels, kernels, plain) and then each under
@@ -68,6 +77,18 @@ Parts (default: throughput,busy):
               host-device copies, wall and device ms per iteration); the
               fused Phase B alone under the profiler. Larger corpora (the
               1M row) run once.
+  phase_a     csrc/phase_a.cu of an earlier commit (--parent DIR holding
+              its phase_a.cu, e.g. `git show HEAD~1:meshclust_tpu_torch/
+              csrc/phase_a.cu > build/parent/phase_a.cu`) built beside this
+              tree's, in turns (parent, this, this, parent): pa_sums on
+              chip_smoke.py's 1M x 256 int8 rows and on a column slice at
+              an odd byte with the L2 flushed; then for each corpus of
+              --sizes, on each build: pa_absorb's ms a launch by window (no
+              slot, one, every slot; up to 150k reads), each Phase A
+              kernel's device ms a launch, bound and share as in the
+              cluster part, and the host split of an iteration; then the
+              run end to end in turns (wall, accumulate, NMI) with its
+              CLSTR byte-equal across the turns.
   ranks       several ranks (parallel/dist), for each n of --ranks: n
               ranks (gloo where they share a card, NCCL where each has its
               own) time each collective at the 15k k-mer run's shapes (a
@@ -214,11 +235,99 @@ def piece_line(label: str, wall: float, dev_s: float, launches: int,
             f"{dev_s * 1e3 / iters:.4f} ms an iteration")
 
 
+def phase_a_kernels(ps, bv, params, launches: dict) -> None:
+    """Each Phase A kernel's device ms a launch under the profiler over the
+    first PROFILE_CENTERS centers, its launches in a whole run, its bound
+    (chip_smoke.py:phase_a_traffic over the same centers), the share of
+    it, and the run's loss: launches x (ms - bound)."""
+    ms, dev_ms = smoke.phase_a_device_ms(ps, bv, params, False,
+                                         smoke.PROFILE_CENTERS)
+    per_launch, ops_s, _ = smoke.phase_a_traffic(ps, bv, params,
+                                                 smoke.PROFILE_CENTERS)
+    print(f"    Phase A kernels, first {smoke.PROFILE_CENTERS} centers under "
+          f"the profiler: device {dev_ms:.5f} ms an iteration", flush=True)
+    for k in smoke.PHASE_A:
+        b = smoke.bound(per_launch[k], ops_s[k])
+        print(f"      {k}: {ms[k]:.5f} ms a launch, {launches[k]} launches "
+              f"in the run, bound {b['bound_ms']:.6f} ms ({b['bound_by']}, "
+              f"{per_launch[k]:.0f} B a launch), share "
+              f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4f}, loss "
+              f"{launches[k] * (ms[k] - b['bound_ms']) / 1e3:.4f} s",
+              flush=True)
+
+
+def host_split(ps, bv, params, sim: float) -> None:
+    """One whole Phase A through the kernels with its host wall split an
+    absorb iteration: the wrappers' checks (ops/phase_a.py _state, _vec,
+    _rows, _slot_arrays, _device), the ctypes calls into the kernel
+    library, the readback (st[:LIVE + 1].tolist(), which waits for the
+    device) and the rest (the wrappers' other Python, the host loop, the
+    per-center fills). Each piece on perf_counter, its outermost call
+    only; the instrumentation's own cost lands in the pieces."""
+    import torch
+    from meshclust_tpu_torch import _ext
+    from meshclust_tpu_torch.core import accumulate_device as A
+    from meshclust_tpu_torch.core.accumulate_device import accumulate_device
+    from meshclust_tpu_torch.ops import phase_a as P
+    from meshclust_tpu_torch.utils import perf
+    spent = {"checks": 0.0, "ctypes": 0.0, "readback": 0.0}
+    depth = [0]
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            if depth[0]:
+                return fn(*a, **kw)
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t0
+                depth[0] -= 1
+        return call
+
+    class TimedLib:
+        def __init__(self, handle):
+            self.handle = handle
+
+        def __getattr__(self, name):
+            return timed("ctypes", getattr(self.handle, name))
+
+    checks = ("_state", "_vec", "_rows", "_slot_arrays", "_device")
+    saved = {name: getattr(P, name) for name in checks}
+    readback = A._Slots.readback
+    for name in checks:
+        setattr(P, name, timed("checks", saved[name]))
+    A._Slots.readback = timed("readback", readback)
+    perf.reset()
+    try:
+        with kernels_from(TimedLib(_ext.lib())):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            accumulate_device(ps, bv, params, sim, plain=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name in checks:
+            setattr(P, name, saved[name])
+        A._Slots.readback = readback
+    iters = perf.counters()["accum_iters"]
+    rest = wall - sum(spent.values())
+    print(f"    host split of an absorb iteration ({iters:.0f} iterations, "
+          f"whole phase through the kernels): wall "
+          f"{wall * 1e3 / iters:.5f} ms = checks "
+          f"{spent['checks'] * 1e3 / iters:.5f} + ctypes calls "
+          f"{spent['ctypes'] * 1e3 / iters:.5f} + readback "
+          f"{spent['readback'] * 1e3 / iters:.5f} + rest "
+          f"{rest * 1e3 / iters:.5f}", flush=True)
+
+
 def cluster(dev, n: int, warm: bool, full: bool) -> None:
     """The k-mer path's clustering on the device on bench_corpus(n) at
     --id 0.90 (see the cluster part in the module docstring); without
     `full` only the one run, its phases, counters and NMI."""
     import torch
+    from meshclust_tpu_torch import _ext
     from meshclust_tpu_torch.config import ClusterConfig
     from meshclust_tpu_torch.core.accumulate_device import accumulate_device
     from meshclust_tpu_torch.core.bvec import BVec
@@ -232,12 +341,14 @@ def cluster(dev, n: int, warm: bool, full: bool) -> None:
     if warm:
         run(cfg, device=dev)
     perf.reset()
+    _ext.reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
     res = run(cfg, device=dev)
     torch.cuda.synchronize()
     wall = time.time() - t0
     phases, counters = perf.phases(), perf.counters()
+    launches = dict(_ext.launches)
     ps = res["pointset"]
     with open(out, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
@@ -253,15 +364,17 @@ def cluster(dev, n: int, warm: bool, full: bool) -> None:
           f"per Phase B iteration (phase_b phase / {cfg.iterations}): "
           f"{phases.get('phase_b', 0.0) * 1e3 / cfg.iterations:.4f}",
           flush=True)
-    if not full:
-        return
-    busy_share(dev, label, fasta, warm=False, similarity=cfg.similarity)
-    # Phase A (kernels, then plain) and the fused Phase B alone, on this
-    # run's points and model
+    # Phase A alone on this run's points and model
     bv = BVec(ps.lengths.copy(), cfg.bin_size)
     bv.bulk_insert(ps.lengths)
     bv.insert_finalize()
     params = res["model"].params
+    phase_a_kernels(ps, bv, params, launches)
+    host_split(ps, bv, params, cfg.similarity)
+    if not full:
+        return
+    busy_share(dev, label, fasta, warm=False, similarity=cfg.similarity)
+    # Phase A (kernels, then plain) and the fused Phase B alone
     walls = {True: [], False: []}
     for plain in (True, False, False, True):
         perf.reset()
@@ -565,6 +678,120 @@ def feat(dev, parent_dir: str) -> None:
               f"{len(clstr) == 1}", flush=True)
 
 
+# ~0.5 ms at the H100's clocks: longer than a wrapper call on the host
+ABSORB_SPIN_CYCLES = 1_000_000
+
+
+def absorb_windows_ms(ps, bv, params) -> dict:
+    """pa_absorb's device ms (CUDA events around each launch, median of
+    20) on these Phase A inputs with the center at slot 0 and every other
+    slot live: a window of no slot, of one slot, and of every slot (the
+    state restored before each launch, outside the events). A spin of
+    ABSORB_SPIN_CYCLES on the stream precedes the start event, so the
+    launch is queued before the event runs and the host's wrapper time
+    stays out of the interval."""
+    import torch
+    from meshclust_tpu_torch.core import accumulate_device as A
+    from meshclust_tpu_torch.ops import phase_a as P
+    sl = A._Slots(ps, bv, params, 0.90, plain=False)
+    sl.begin(0, 0, 0)
+    sl.active[0] = False
+    P.sums(sl.st, sl.active, sl.h, sl.sums)     # every slot's sums
+    saved = [x.clone() for x in (sl.st, sl.active, sl.owner, sl.stamp,
+                                 sl.sumvec)]
+    out = {}
+    for name, (w0, w1) in (("empty", (1, 0)), ("one slot", (1, 1)),
+                           ("every slot", (0, sl.N - 1))):
+        times = []
+        for _ in range(21):
+            for x, y in zip((sl.st, sl.active, sl.owner, sl.stamp,
+                             sl.sumvec), saved):
+                x.copy_(y)
+            sl.st[P.W0], sl.st[P.W1] = w0, w1
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(ABSORB_SPIN_CYCLES)
+            start.record()
+            P.absorb(sl.st, sl.sums, sl.model, sl.mag, sl.sq, sl.lenf,
+                     sl.owner, sl.stamp, sl.active, sl.h, sl.sumvec, 1, 1,
+                     sl.part)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = float(np.median(times[1:]))
+    return out
+
+
+def phase_a_compare(dev, parent_dir: str, sizes: list) -> None:
+    """The phase_a part: an earlier csrc/phase_a.cu against this tree's,
+    in turns (module docstring)."""
+    import torch
+    from meshclust_tpu_torch import _ext
+    from meshclust_tpu_torch.config import ClusterConfig
+    from meshclust_tpu_torch.core.bvec import BVec
+    from meshclust_tpu_torch.core.runner import run
+    others = [os.path.join(_ext.CSRC, f) for f in ("kmer_hist.cu",
+                                                     "nw_align_long.cu")]
+    paths = build_all({"parent": others + [os.path.abspath(os.path.join(
+        parent_dir, "phase_a.cu"))], "this": _ext.sources()})
+    libs = {name: _ext.load(path) for name, path in paths.items()}
+    turns = ["parent", "this", "this", "parent"]
+    flush = smoke.flush_l2(dev)
+    rng = np.random.default_rng(9)
+    rows8 = torch.from_numpy(rng.integers(
+        0, 128, size=(smoke.PA_SUMS_ROWS, 256), dtype=np.int8)).to(dev)
+    for name in turns:
+        with kernels_from(libs[name]):
+            for label, rows in (("int8", rows8),
+                                ("int8 slice [:, 1:129]", rows8[:, 1:129])):
+                r = smoke.sums_case(rows, True, flush)
+                print(f"  {name} pa_sums {smoke.PA_SUMS_ROWS} x 256 {label}: "
+                      f"{r['ms']:.5f} ms cold L2, bound {r['bound_ms']:.5f} "
+                      f"ms, {r['bound_ms'] / r['ms']:.4f} of it, max abs err "
+                      f"{r['max_abs_err']}", flush=True)
+                del r
+    del rows8
+    torch.cuda.empty_cache()
+    for n in sizes:
+        fasta = smoke.bench_corpus(n=n)
+        cfg = ClusterConfig(files=[fasta], output=os.path.join(
+            smoke.WORK, "phase_a_warm.clstr"), similarity=0.90).finalize()
+        _ext.reset_launches()
+        res = run(cfg, device=dev)
+        launches = dict(_ext.launches)
+        ps = res["pointset"]
+        bv = BVec(ps.lengths.copy(), cfg.bin_size)
+        bv.bulk_insert(ps.lengths)
+        bv.insert_finalize()
+        params = res["model"].params
+        for name in ("parent", "this"):
+            with kernels_from(libs[name]):
+                print(f"  {name}, {n} reads:", flush=True)
+                if n <= FULL_CLUSTER_READS:
+                    ms = absorb_windows_ms(ps, bv, params)
+                    print("    pa_absorb ms a launch by window: "
+                          + ", ".join(f"{k} {v:.5f}" for k, v in ms.items()),
+                          flush=True)
+                phase_a_kernels(ps, bv, params, launches)
+                host_split(ps, bv, params, cfg.similarity)
+        clstr = set()
+        for i, name in enumerate(turns):
+            out = os.path.join(smoke.WORK, f"phase_a_{i}.clstr")
+            with kernels_from(libs[name]):
+                wall, phases = run_path(dev, fasta, out, similarity=0.90)
+            with open(out, "rb") as f:
+                clstr.add(f.read())
+            print(f"  {name} {n} reads: wall {wall:.3f} s, accumulate "
+                  f"{phases.get('accumulate', 0.0):.4f} s, NMI "
+                  f"{smoke.species_nmi(out):.6f}", flush=True)
+        print(f"  {n} reads: CLSTR byte-equal across the {len(turns)} runs: "
+              f"{len(clstr) == 1}", flush=True)
+        if len(clstr) != 1:
+            smoke.fail(f"the parent's Phase A and this one cluster {n} reads "
+                       f"differently")
+
+
 # Probes of kmer_hist for --parts kvariants: edits of csrc/kmer_hist.cu that
 # remove one cost each (their results differ from the kernel's by design).
 KMER_PROBES = {
@@ -657,7 +884,8 @@ def kvariants(dev, specs: str) -> None:
 
 
 SASS_KERNELS = ("nw_align_long_kernel", "kmer_rows_kernelILb0E",
-                "kmer_split_kernel")
+                "kmer_split_kernel", "pa_absorb_kernelIaE",
+                "pa_sums_kernelIaLi16E")
 
 
 def sass() -> None:
@@ -702,7 +930,10 @@ def sass_counts(label: str, func: str, op) -> None:
     blocks.append(block)
     longest = max(blocks, key=len)
     ops = collections.Counter(o for b in blocks for o in b)
-    print(f"  {label}: {sum(ops.values())} instructions in all; longest "
+    local = {k: sum(n for o, n in ops.items() if o.split(".")[0] == k)
+             for k in ("LDL", "STL")}
+    print(f"  {label}: {sum(ops.values())} instructions in all (local "
+          f"memory: LDL {local['LDL']}, STL {local['STL']}); longest "
           f"block {len(longest)}: "
           + ", ".join(f"{o} {n}" for o, n in
                       collections.Counter(longest).most_common()),
@@ -840,7 +1071,8 @@ def main() -> int:
                     help="NW sources for the compare and e2e parts")
     ap.add_argument("--parent", default="build/parent",
                     help="directory with the parent's kmer_hist.cu and "
-                    "ops/histogram.py, for the feat part")
+                    "ops/histogram.py, for the feat part, or its "
+                    "phase_a.cu, for the phase_a part")
     ap.add_argument("--kmer-variants", default="kWarps=4 kClusterCtas=2 "
                     "kClusterCtas=8 @atomic @noatom @loadonly",
                     help="kmer_hist edits (NAME=VALUE, @probe) or "
@@ -887,6 +1119,11 @@ def main() -> int:
         print(f"kmer_hist and featurize against {args.parent}, in turns",
               flush=True)
         feat(dev, args.parent)
+    if "phase_a" in parts:
+        print(f"Phase A's kernels against {args.parent}/phase_a.cu, in turns",
+              flush=True)
+        phase_a_compare(dev, args.parent,
+                        [int(x) for x in args.sizes.split(",")])
     if "sass" in parts:
         print("SASS of the kernels", flush=True)
         sass()

@@ -429,3 +429,105 @@ def test_phase_a_at_two_ranks_sharing_the_card(cuda):
             assert res["launches"]["pa_absorb"] == c["accum_iters"]
             assert c["accum_iters"] < c["coll_accumulate"] \
                 <= 2 * c["accum_iters"]
+
+
+# pa_sums on rows at the edges of its pieces and byte SIMD: (V, dtype,
+# counts drawn from, a rank's column slice [start, stop) of the rows or
+# None); V = 65,536 at 127 is int8's largest dot within 32 bits
+PA_SUMS_ROWS = {
+    "k1_int8": (4, torch.int8, np.arange(128), None),
+    "int8_0_1_127": (256, torch.int8, np.array([0, 1, 127]), None),
+    "int8_V65536_at_127": (65536, torch.int8, np.array([127]), None),
+    "int8_V1024": (1024, torch.int8, np.arange(128), None),
+    "int8_odd_slice": (256, torch.int8, np.arange(128), (171, 256)),
+    "int8_even_slice": (256, torch.int8, np.arange(128), (86, 171)),
+    "int16_extremes": (256, torch.int16, np.array([0, 1, 32767]), None),
+    "int16_odd_slice": (100, torch.int16, np.arange(300), (33, 100)),
+    "int32": (256, torch.int32, np.arange(0, 46341, 97), None),
+    "int64": (256, torch.int64, np.arange(0, 10 ** 6, 999), None),
+}
+
+
+@pytest.mark.parametrize("with_dot", [True, False])
+@pytest.mark.parametrize("case", sorted(PA_SUMS_ROWS))
+def test_pa_sums_kernel_equals_plain(cuda, case, with_dot):
+    """pa_sums against sums_plain on the live slots of a window, one
+    launch; the slots outside the window or not live keep what they
+    held."""
+    from meshclust_tpu_torch.ops import phase_a as P
+    V, dtype, pool, cols = PA_SUMS_ROWS[case]
+    rng = np.random.default_rng(V)
+    n = 300
+    full = torch.as_tensor(rng.choice(pool, size=(n, V))).to(dtype).to(cuda)
+    rows = full if cols is None else full[:, cols[0]: cols[1]]
+    active = torch.as_tensor(rng.random(n) < 0.8).to(cuda)
+    st, _ = P.new_state(n, cuda)
+    st[P.W0], st[P.W1], st[P.LAST] = 3, n - 5, 7
+    k = 2 if with_dot else 1
+    got = torch.full((k, n), -7, dtype=torch.int64, device=cuda)
+    before = _ext.launches["pa_sums"]
+    P.sums(st, active, rows, got)
+    assert _ext.launches["pa_sums"] == before + 1
+    want = torch.zeros((k, n), dtype=torch.int64, device=cuda)
+    P.sums_plain(st, active, rows.to(torch.int64), want)
+    live = torch.zeros(n, dtype=torch.bool, device=cuda)
+    live[3: n - 4] = active[3: n - 4]
+    assert torch.equal(got[:, live], want[:, live])
+    assert bool((got[:, ~live] == -7).all())
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("window", ["empty", "one_slot", "all"])
+def test_pa_absorb_kernel_equals_plain(cuda, window, nan):
+    """pa_absorb against absorb_plain on an empty window, a one-slot
+    window and a window of all N, with three slots whose rows and length
+    equal the center's (their f1 ties at the maximum: the least slot wins)
+    and, with `nan`, a slot whose length is NaN (its f1 is NaN: best is
+    N)."""
+    from meshclust_tpu_torch.ops import phase_a as P
+    ps, params, _ = _phase_a_case(1, cuda)
+    n = ps.n
+    h = ps.hist_dev.clone()
+    lens = np.asarray(ps.lengths, np.float64).copy()
+    center = 10
+    for x in (40, 90, 300):
+        h[x] = h[center]
+        lens[x] = lens[center]
+    if nan:
+        lens[200] = np.nan
+    h64 = h.to(torch.int64)
+    mag = h64.sum(1).to(torch.float64)
+    sq = (h64 * h64).sum(1).to(torch.float64)
+    lenf = torch.as_tensor(lens, device=cuda)
+    model = P.Model(params, h.shape[1], cuda)
+    w0, w1 = {"empty": (50, 49), "one_slot": (90, 90),
+              "all": (0, n - 1)}[window]
+    out = {}
+    for kernel in (True, False):
+        st, part = P.new_state(n, cuda)
+        st[P.W0], st[P.W1], st[P.LAST], st[P.COUNT] = w0, w1, center, 5
+        active = torch.ones(n, dtype=torch.bool, device=cuda)
+        active[center] = False
+        owner = torch.full((n,), -1, dtype=torch.int64, device=cuda)
+        stamp = torch.zeros(n, dtype=torch.int64, device=cuda)
+        sumvec = h64[center].clone()
+        sums = torch.zeros((2 if model.with_dot else 1, n),
+                           dtype=torch.int64, device=cuda)
+        P.sums_plain(st, active, h64, sums)
+        args = (st, sums, model, mag, sq, lenf, owner, stamp, active, h,
+                sumvec, 3, 17, part)
+        if kernel:
+            before = _ext.launches["pa_absorb"]
+            P.absorb(*args)
+            assert _ext.launches["pa_absorb"] == before + 1
+        else:
+            P.absorb_plain(*args)
+        out[kernel] = (st[: P.COUNT + 1], owner, stamp, active, sumvec)
+    for got, want in zip(out[True], out[False]):
+        assert torch.equal(got, want)
+    st = out[True][0].tolist()
+    if window == "empty":
+        assert st[P.NPOS] == 0 and st[P.BEST] == n
+    if window == "all":
+        assert st[P.NPOS] > 3
+        assert st[P.BEST] == (n if nan else 40)

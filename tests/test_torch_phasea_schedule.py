@@ -44,8 +44,11 @@ torch.set_num_threads(1)
 os.environ.setdefault("MESHCLUST_QUIET", "1")
 # grid shapes: the kernels' own, and a small one whose blocks each see many
 # slots (blocks, threads a block, lanes a warp)
-OWN = dict(blocks=P.BLOCKS, threads=P.THREADS, lanes=32)
-SMALL = dict(blocks=3, threads=8, lanes=4)
+# and pa_sums's blocks: on the card SMs x resident blocks (an H100 SXM's 132
+# x 8 here)
+OWN = dict(blocks=P.BLOCKS, threads=P.THREADS, lanes=32,
+           sums_blocks=132 * 8)
+SMALL = dict(blocks=3, threads=8, lanes=4, sums_blocks=3)
 SOURCE = os.path.join(os.path.dirname(A.__file__), "..", "csrc", "phase_a.cu")
 
 
@@ -128,39 +131,125 @@ def model_window(st, s, grid, rng):
     st[P.W0], st[P.W1], st[P.LIVE] = w0, w1, a[2]
 
 
+def piece_bytes(addr: int, pitch: int, length: int, width: int) -> int:
+    """mc_pa_sums's piece: the widest of PIECE_BYTES, 8, 4, 2 and 1 bytes,
+    at least the element, that divides the rows' address, pitch and length
+    in bytes."""
+    vec = P.PIECE_BYTES
+    while vec > width and (addr | pitch | length) % vec:
+        vec //= 2
+    return vec
+
+
+def piece_sums(a, b):
+    """(man, dot) of each piece of a against b ([pieces, elements] of one
+    storage dtype) as the kernel's add_piece takes them: int8 pieces of 4
+    or more bytes word by word, |a - b| as __vsadu4 of the counts biased to
+    unsigned (x ^ 0x80) and a * b as __dp4a's signed bytes."""
+    if a.dtype == np.int8 and a.shape[1] >= 4:
+        au = (a.view(np.uint8) ^ 0x80).astype(np.int64)
+        bu = (b.view(np.uint8) ^ 0x80).astype(np.int64)
+        man = np.abs(au - bu).reshape(a.shape[0], -1, 4).sum((1, 2))
+    else:
+        man = np.abs(a.astype(np.int64) - b.astype(np.int64)).sum(1)
+    dot = (a.astype(np.int64) * b.astype(np.int64)).sum(1)
+    return man, dot
+
+
+def fits_int32(*xs) -> bool:
+    return all(-2 ** 31 <= int(x) < 2 ** 31 for x in xs)
+
+
 def model_sums(st, s, shards, out, with_dot, grid):
-    """pa_sums over feature shards (rank partials summed); returns the
-    slots whose rows it read."""
+    """pa_sums over feature shards (consecutive column slices of one [N,
+    V] array on a 16-byte boundary, each a rank's; their partials summed):
+    a shard's rows are read in pieces of piece_bytes of the slice's
+    address, pitch and length. Short rows (pieces <= the warp's lanes): a
+    group of `lanes` lanes a row, lane `sub` its piece sub, the warp's
+    groups and SUMS_UNROLL loads a batch of consecutive rows, batches
+    grid-strided over the warps; long rows: a warp a row, lane l its
+    pieces l, l + W, ..., summed SUMS_UNROLL at a time. int8 partials must
+    fit 32 bits where the kernel keeps them in 32. Returns the slots whose
+    rows it read."""
     N = s["active"].shape[0]
     w0, w1, last = st[P.W0], st[P.W1], st[P.LAST]
-    warps = grid["threads"] // grid["lanes"]
-    read = []
+    W = grid["lanes"]
+    warps = grid["sums_blocks"] * grid["threads"] // W
+    width = shards[0].dtype.itemsize
+    pitch = sum(h.shape[1] for h in shards) * width
+    totals = {}
+    col0 = 0
+    for h in shards:
+        vl = h.shape[1]
+        vec = piece_bytes(col0 * width, pitch, vl * width, width)
+        nv, E = vl * width // vec, vec // width
+        assert nv * vec == vl * width and vec >= width
+        lanes = 1
+        while lanes < nv and lanes < W:
+            lanes *= 2
+        a = h[last].reshape(nv, E)
+        narrow = h.dtype == np.int8
+
+        def row(x):
+            return piece_sums(a, h[x].reshape(nv, E))
+
+        if nv <= lanes:
+            groups = W // lanes
+            step = groups * P.SUMS_UNROLL
+            batches = -(-(w1 - w0 + 1) // step) if w1 >= w0 else 0
+            for warp in range(min(warps, batches)):
+                for s0 in range(w0 + warp * step, w1 + 1, warps * step):
+                    for u in range(P.SUMS_UNROLL):
+                        for grp in range(groups):
+                            x = s0 + u * groups + grp
+                            if x > w1 or not s["active"][x]:
+                                continue
+                            man, dot = row(x)     # lane sub: piece sub
+                            if narrow:
+                                assert fits_int32(man.sum(), dot.sum())
+                            t = totals.setdefault(x, [0, 0, 0])
+                            t[0] += int(man.sum())
+                            t[1] += int(dot.sum())
+                            t[2] += 1
+        else:
+            for warp in range(min(warps, max(0, w1 - w0 + 1))):
+                for x in range(w0 + warp, w1 + 1, warps):
+                    if not s["active"][x]:
+                        continue
+                    man, dot = row(x)
+                    lane_man = lane_dot = 0
+                    span = W * P.SUMS_UNROLL
+                    for lane in range(W):
+                        for v0 in range(lane, nv, span):
+                            ps_ = list(range(v0, min(nv, v0 + span), W))
+                            if narrow:
+                                assert fits_int32(man[ps_].sum(),
+                                                  dot[ps_].sum())
+                            lane_man += int(man[ps_].sum())
+                            lane_dot += int(dot[ps_].sum())
+                    t = totals.setdefault(x, [0, 0, 0])
+                    t[0] += lane_man
+                    t[1] += lane_dot
+                    t[2] += 1
+        col0 += vl
     out[:, :] = -7                      # the kernel leaves other slots be
-    for slots in grid_owner(w0, w1 + 1, grid["blocks"], warps).values():
-        for x in slots:
-            if not s["active"][x]:
-                continue
-            read.append(x)
-            man = dot = 0
-            for h in shards:
-                a, b = h[last].astype(np.int64), h[x].astype(np.int64)
-                for lane in range(grid["lanes"]):
-                    man += int(np.abs(a[lane::grid["lanes"]]
-                                      - b[lane::grid["lanes"]]).sum())
-                    dot += int((a[lane::grid["lanes"]]
-                                * b[lane::grid["lanes"]]).sum())
-            out[0, x] = man
-            if with_dot:
-                out[1, x] = dot
+    for x, (man, dot, visits) in totals.items():
+        assert visits == len(shards)    # each row once a shard
+        out[0, x] = man
+        if with_dot:
+            out[1, x] = dot
+    read = sorted(totals)
     assert all(w0 <= x <= w1 for x in read)
-    return sorted(read)
+    return read
 
 
 def classify(spec, coef, man, dot, mag_a, mag_b, sq_a, sq_b, len_a, len_b):
     """csrc/phase_a.cu:classify in numpy float64 scalars (IEEE, no FMA),
-    reading Model's packed arrays as the kernel does."""
+    reading Model's packed arrays as the kernel does: each single flag of
+    the model once, then each single normalized, then the combos."""
     f8 = np.float64
     S, J = int(spec[0]), int(spec[1])
+    assert S <= P.MAX_SINGLES
     singles, is_sim = spec[2: 2 + S], spec[2 + S: 2 + 2 * S]
     kinds = spec[2 + 2 * S: 2 + 2 * S + J]
     off = spec[2 + 2 * S + J: 3 + 2 * S + 2 * J]
@@ -168,36 +257,33 @@ def classify(spec, coef, man, dot, mag_a, mag_b, sq_a, sq_b, len_a, len_b):
     V, mins, spans = f8(coef[0]), coef[1: 1 + S], coef[1 + S: 1 + 2 * S]
     weights = coef[1 + 2 * S:]
     man, dot = f8(man), f8(dot)
-    norm = []
+    flags = int(np.bitwise_or.reduce(singles)) if S else 0
+    raw = {F.FEAT_MANHATTAN: man}
     with np.errstate(all="ignore"):
+        if flags & F.FEAT_LD:
+            raw[F.FEAT_LD] = abs(len_a - len_b)
+        if flags & (F.FEAT_INTERSECTION | F.FEAT_KULCZYNSKI2):
+            mm = mag_a + mag_b
+            ms = (mm - man) / f8(2.0)
+            raw[F.FEAT_INTERSECTION] = f8(2.0) * ms / mm
+            ap, aq = mag_a / V, mag_b / V
+            raw[F.FEAT_KULCZYNSKI2] = (V * (ap + aq) / (f8(2.0) * ap * aq)) \
+                * ms
+        if flags & F.FEAT_SIMRATIO:
+            n2 = sq_a + sq_b - f8(2.0) * dot
+            n2 = f8(0.0) if n2 < 0.0 else n2
+            raw[F.FEAT_SIMRATIO] = dot / (dot + np.sqrt(n2))
+        if flags & F.FEAT_PEARSON:
+            ap = np.floor(mag_a / V + f8(0.5))
+            aq = np.floor(mag_b / V + f8(0.5))
+            np_ = sq_a - f8(2.0) * ap * mag_a + V * ap * ap
+            nq_ = sq_b - f8(2.0) * aq * mag_b + V * aq * aq
+            dotc = dot - ap * mag_b - aq * mag_a + V * ap * aq
+            p = np_ * nq_
+            raw[F.FEAT_PEARSON] = dotc / np.sqrt(f8(0.5) if p < 0.5 else p)
+        norm = []
         for i in range(S):
-            flag = int(singles[i])
-            if flag == F.FEAT_LD:
-                v = abs(len_a - len_b)
-            elif flag == F.FEAT_MANHATTAN:
-                v = man
-            elif flag == F.FEAT_INTERSECTION:
-                ms = (mag_a + mag_b - man) / f8(2.0)
-                v = f8(2.0) * ms / (mag_a + mag_b)
-            elif flag == F.FEAT_KULCZYNSKI2:
-                ap, aq = mag_a / V, mag_b / V
-                ms = (mag_a + mag_b - man) / f8(2.0)
-                v = (V * (ap + aq) / (f8(2.0) * ap * aq)) * ms
-            elif flag == F.FEAT_SIMRATIO:
-                n2 = sq_a + sq_b - f8(2.0) * dot
-                n2 = f8(0.0) if n2 < 0.0 else n2
-                v = dot / (dot + np.sqrt(n2))
-            elif flag == F.FEAT_PEARSON:
-                ap = np.floor(mag_a / V + f8(0.5))
-                aq = np.floor(mag_b / V + f8(0.5))
-                np_ = sq_a - f8(2.0) * ap * mag_a + V * ap * ap
-                nq_ = sq_b - f8(2.0) * aq * mag_b + V * aq * aq
-                dotc = dot - ap * mag_b - aq * mag_a + V * ap * aq
-                p = np_ * nq_
-                v = dotc / np.sqrt(f8(0.5) if p < 0.5 else p)
-            else:
-                raise AssertionError(flag)
-            nv = (f8(v) - mins[i]) / spans[i]
+            nv = (f8(raw[int(singles[i])]) - mins[i]) / spans[i]
             norm.append(nv if is_sim[i] else f8(1.0) - nv)
         score, f1 = f8(weights[0]), None
         for j in range(J):
@@ -213,12 +299,21 @@ def classify(spec, coef, man, dot, mag_a, mag_b, sq_a, sq_b, len_a, len_b):
 
 def model_absorb(st, s, sums, spec, coef, with_dot, shards, sumvecs, c, t,
                  grid, rng, least_slot=True):
-    """pa_absorb: block-wide tiles of [w0, w1], a thread a slot."""
+    """pa_absorb: block-wide tiles of [w0, w1], a thread a slot. Only the
+    first `busy` blocks hold a slot; the others read nothing and write no
+    partial, and with no busy block the empty window's result is written
+    as is. A tile's positives are summed count by count (a thread a count)
+    and each count added into sumvec once, in any order; the busy blocks'
+    partials are combined in any order."""
     N = s["active"].shape[0]
     w0, w1, last = st[P.W0], st[P.W1], st[P.LAST]
     T, G = grid["threads"], grid["blocks"]
+    busy = 0 if w1 < w0 else min(-(-(w1 - w0 + 1) // T), G)
+    if busy == 0:
+        st[P.NPOS], st[P.BEST] = 0, N
+        return
     parts = []
-    for b in range(G):
+    for b in range(busy):
         best, npos = (-np.inf, N, False), 0
         for base in range(w0 + b * T, w1 + 1, G * T):
             tile = []
@@ -238,9 +333,9 @@ def model_absorb(st, s, sums, spec, coef, with_dot, shards, sumvecs, c, t,
                     s["active"][x] = False
                     npos += 1
                     tile.append(x)
-            for x in rng.permutation(tile):     # atomics: any order
+            if tile:                            # the list's order: any
                 for h, sv in zip(shards, sumvecs):
-                    sv += h[x].astype(np.int64)
+                    sv += h[rng.permutation(tile)].astype(np.int64).sum(0)
         parts.append((best, npos))
     best = combine([p[0] for p in parts],
                    lambda a, b: f1_op(a, b, least_slot), rng)
@@ -437,6 +532,22 @@ def planted_points(seed=3, n=96):
     return toy_points(hist, mag, sq, lens), params
 
 
+def k1_points(seed=8, n=96):
+    """Toy points of 4 counts a row (k = 1: 4 bytes of int8, under one
+    16-byte piece), rows in near-copy pairs."""
+    rng = np.random.default_rng(seed)
+    hist, _, _, lens, params = toy_model(n=n, V=4, seed=seed)
+    hist[1::2] = hist[0::2] + rng.integers(0, 2, size=hist[0::2].shape)
+    mag = hist.astype(np.int64).sum(1)
+    sq = (hist.astype(np.int64) ** 2).sum(1)
+    return toy_points(hist, mag, sq, lens), params
+
+
+def _k1(q):
+    ps, params = k1_points()
+    return ps, shifted(params, ps, q)[0]
+
+
 def _edge(sim, q):
     ps, params = edge_points(sim)
     return ps, shifted(params, ps, q)[0]
@@ -455,6 +566,7 @@ CASES = {
     "edge_0.97": (0.97, lambda: _edge(0.97, None)),
     "edge_0.97_strict": (0.97, lambda: _edge(0.97, 0.8)),
     "planted_0.90": (0.90, lambda: _planted(0.5)),
+    "k1_0.90": (0.90, lambda: _k1(0.5)),
 }
 
 
@@ -563,6 +675,64 @@ def test_wrappers_on_the_cpu_equal_plain_path(name):
     assert got == want
 
 
+# pa_sums on rows at its pieces' edges: (V, dtype, counts drawn from,
+# column slices as ranks' [start, stop)), against sums_plain
+SUMS_ROWS = {
+    "k1_int8": (4, np.int8, np.arange(128), None),
+    "int8_0_1_127": (256, np.int8, np.array([0, 1, 127]), None),
+    "int8_full_range": (256, np.int8, np.arange(-128, 128), None),
+    "int8_V65536_at_127": (65536, np.int8, np.array([127]), None),
+    "int8_odd_slices": (256, np.int8, np.arange(128),
+                        [(0, 86), (86, 171), (171, 256)]),
+    "int8_slice_of_4": (260, np.int8, np.arange(128), [(0, 4), (4, 260)]),
+    "int16_extremes": (256, np.int16, np.array([0, 1, 32767, -32768]),
+                       None),
+    "int16_odd_slices": (100, np.int16, np.arange(-300, 300),
+                         [(0, 33), (33, 100)]),
+    "int32": (64, np.int32, np.arange(-46340, 46341, 97), None),
+    "int64": (16, np.int64, np.arange(-10 ** 6, 10 ** 6, 999), None),
+}
+
+
+@pytest.mark.parametrize("grid", ["small", "own"])
+@pytest.mark.parametrize("case", sorted(SUMS_ROWS))
+def test_model_sums_pieces_equal_plain(case, grid):
+    """The model of pa_sums (pieces chosen from each slice's address,
+    pitch and length; short and long rows; int8 byte SIMD on biased
+    counts) against sums_plain on the live slots of a window, with the
+    rows' sums of extreme counts (V = 65,536 at 127 is int8's largest dot
+    within 32 bits)."""
+    V, dtype, pool, slices = SUMS_ROWS[case]
+    rng = np.random.default_rng(V)
+    n = 12
+    rows = rng.choice(pool, size=(n, V)).astype(dtype)
+    active = rng.random(n) < 0.7
+    active[[1, 3]] = True
+    st, _ = P.new_state(n, "cpu")
+    st[P.W0], st[P.W1], st[P.LAST] = 1, n - 2, 3
+    want = torch.zeros((2, n), dtype=torch.int64)
+    P.sums(st, torch.as_tensor(active), torch.as_tensor(rows), want)
+    shards = [rows[:, a: b] for a, b in slices or [(0, V)]]
+    got = np.zeros((2, n), np.int64)
+    read = model_sums(st.numpy(), {"active": active}, shards, got, True,
+                      SMALL if grid == "small" else OWN)
+    live = [x for x in range(1, n - 1) if active[x]]
+    assert read == live
+    np.testing.assert_array_equal(got[:, live], want.numpy()[:, live])
+
+
+def test_piece_bytes_of_the_main_path_and_its_slices():
+    """16-byte pieces for the k-mer path's rows (256 int8 counts); a rank's
+    slice at an odd column takes single bytes, at an even one 2-byte
+    pieces; 4 int8 counts (k = 1) one 4-byte piece."""
+    assert piece_bytes(0, 256, 256, 1) == 16
+    assert piece_bytes(86, 256, 85, 1) == 1
+    assert piece_bytes(0, 256, 86, 1) == 2
+    assert piece_bytes(0, 4, 4, 1) == 4
+    assert piece_bytes(128 * 2, 512, 256, 2) == 16
+    assert piece_bytes(0, 24, 24, 8) == 8
+
+
 def all_singles_params(V=256):
     """A model with every single the kernels compute, SIMRATIO too."""
     feat = F.Feature(V)
@@ -610,6 +780,18 @@ def test_packed_classifier_equals_scorer():
                                               and np.isnan(float(f1[b])))
 
 
+def test_model_takes_distinct_singles_only():
+    """pa_absorb's classifier holds one normalized value a single in
+    kMaxSingles registers: Model refuses a single flag given twice (a
+    trained model never has one: Feature.add_feature adds each once)."""
+    params = all_singles_params()
+    assert len(params.singles) == P.MAX_SINGLES
+    P.Model(params, 256, "cpu")
+    params.singles = params.singles + params.singles[:1]
+    with pytest.raises(ValueError):
+        P.Model(params, 256, "cpu")
+
+
 def test_source_constants_match_the_wrappers():
     """csrc/phase_a.cu's grid, state slots and flags are the ones
     ops/phase_a.py and ops/features.py name."""
@@ -625,6 +807,8 @@ def test_source_constants_match_the_wrappers():
     assert const("kBlocks") == P.BLOCKS
     assert const("kThreads") == P.THREADS
     assert const("kMaxSingles") == P.MAX_SINGLES
+    assert const("kPieceBytes") == P.PIECE_BYTES
+    assert const("kUnroll") == P.SUMS_UNROLL
     for name, want in (("kNPos", P.NPOS), ("kBest", P.BEST),
                        ("kLast", P.LAST), ("kLive", P.LIVE), ("kW0", P.W0),
                        ("kW1", P.W1), ("kCount", P.COUNT),
