@@ -25,7 +25,11 @@ Phases (any failure exits non-zero before the last line):
      phase's owner, stamp and center slots against the plain path's, in
      turns (plain, kernels, kernels, plain) with their walls and ms an
      iteration, each kernel's device time and its plain step's under the
-     profiler, launches an iteration and the bytes an iteration must move;
+     profiler, launches an iteration and the bytes an iteration must move
+     (pa_window's beside PR 8's count, every flag); pa_member_dist also on
+     the largest center of the whole phase, with the L2 flushed, beside
+     the PyTorch yardstick (cdist, p = 1, on float32 copies of the
+     members' rows and the floored mean);
      pa_sums also on 1,000,000 synthetic rows of 256 counts (int8, with
      and without the dot, int16, int32, and an int8 column slice at an odd
      byte) and on the 15k corpus's rows, over a window of every slot, with
@@ -587,13 +591,60 @@ def phase_a_run(ps, bv, params, plain: bool, cmax: int = 0) -> dict:
             "launches": {k: _ext.launches[k] for k in PHASE_A}}
 
 
+def window_bytes(act, table, last: int, live0: int, tail0: int) -> int:
+    """The bytes pa_window must move for the center at slot `last` on the
+    flags act (numpy bool) and its table (core/accumulate_device.
+    window_ranges): the center's row (32 B), st read (3 slots) and written
+    (4), and the flags (1 B) of each range its result depends on, from the
+    range's start to its first live slot or from its last live slot to
+    its end (the whole range where none is live). The first and last live
+    slots are decided from live0 and tail0, st[LIVE] and st[TAIL] before
+    the call (no live slot precedes or follows them)."""
+    from meshclust_tpu_torch.ops import phase_a as P
+
+    def scan(a, b, forward):
+        """(the first or last live slot of [a, b) or -1, flags read)"""
+        x = act[a:b] if forward else act[a:b][::-1]
+        if b <= a or not x.any():
+            return -1, max(0, b - a)
+        i = int(x.argmax())
+        return (a + i if forward else b - 1 - i), i + 1
+
+    row = [int(v) for v in table[last]]
+    _, flags = scan(live0, act.shape[0], True)
+    tail, f = scan(0, tail0 + 1, False)
+    flags += f
+    nbytes = 8 * 7 + 4 * len(P.RANGES)
+    hit, f = scan(row[P.GE], row[P.FRONT_END], True)
+    flags += f
+    if hit < 0:
+        flags += scan(row[P.FRONT], row[P.GE], False)[1]
+    for a, b, forward in ((P.EQ, P.GT, False), (P.GT, P.BACK_END, True),
+                          (P.BACK, P.EQ, False)):
+        hit, f = scan(row[a], row[b], forward)
+        flags += f
+        if hit >= 0:
+            break
+    if hit < 0 and tail >= 0:           # the truncation quirk
+        nbytes += 4
+        flags += scan(int(table[tail, P.BIN]), tail + 1, True)[1]
+    return nbytes + flags
+
+
 def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
     """({kernel: bytes}, {kernel: seconds of operations at peak}) that the
     Phase A kernels must move and do, a launch, over a run of the kernel
     path on these inputs (cut at cmax centers if cmax > 0): each input
     read once, each output written once, counted from what the data made
     each launch do (a replay that reads back, after each step, the window,
-    its live slots, the positives and the members)."""
+    its live slots, the positives and the members); and, a launch, notes
+    of the layouts' work: "pa_window (all flags)", PR 8's count of
+    pa_window's bytes (every slot's flag, bin and len of the live ones);
+    "members", a move's members; "member warps" and "member tiles", the
+    32-slot and the 1,024-slot chunks of slots that hold them (PR 9's
+    pa_member_dist served the members of a warp's 32 slots one by one; a
+    block of this one takes a tile)."""
+    import torch
     from meshclust_tpu_torch.core.accumulate_device import accumulate_device
     from meshclust_tpu_torch.ops import features as F
     from meshclust_tpu_torch.ops import phase_a as P
@@ -601,23 +652,31 @@ def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
     width = ps.hist_dev.element_size()
     K = 2 if {F.FEAT_PEARSON, F.FEAT_SIMRATIO} & set(params.singles) else 1
     nbytes = {k: 0.0 for k in PHASE_A}
+    notes = dict.fromkeys(("pa_window (all flags)", "members",
+                           "member warps", "member tiles"), 0.0)
     ops_s = {k: 0.0 for k in PHASE_A}
     calls = {k: 0 for k in PHASE_A}
-    seen = {}
+    seen, tables = {}, {}
 
     def wrap(name, fn):
         def call(*a, **kw):
-            out = fn(*a, **kw)
-            calls[f"pa_{name}"] += 1
             st = a[0]
             if name == "window":
-                active = a[1]
+                last, live0, tail0 = st[[P.LAST, P.LIVE, P.TAIL]].tolist()
+            out = fn(*a, **kw)
+            calls[f"pa_{name}"] += 1
+            if name == "window":
+                active, ranges = a[1], a[2]
+                if ranges.data_ptr() not in tables:
+                    tables[ranges.data_ptr()] = ranges.cpu().numpy()
+                act = active.cpu().numpy()
                 w0, w1 = st[P.W0: P.W1 + 1].tolist()
                 span = max(0, w1 - w0 + 1)
-                win = int(active[w0: w1 + 1].sum()) if span else 0
+                win = int(act[w0: w1 + 1].sum()) if span else 0
                 seen.update(span=span, win=win)
-                # active of every slot, bin and len of the live ones
-                nbytes["pa_window"] += N + 16 * int(active.sum())
+                nbytes["pa_window"] += window_bytes(
+                    act, tables[ranges.data_ptr()], last, live0, tail0)
+                notes["pa_window (all flags)"] += N + 16 * int(act.sum())
                 # the window's active flags, its live rows and the center's,
                 # their sums written
                 nbytes["pa_sums"] += span + (win + 1) * V * width \
@@ -633,7 +692,13 @@ def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
                     + npos * (17 + V * width) + 16 * V
                 ops_s["pa_absorb"] += win * CLASSIFY_FP64_OPS / FP64_OPS_PER_S
             elif name == "member_dist":
-                m = seen["m"] = int((a[1] == a[2]).sum())
+                members = torch.nonzero(a[1] == a[2]).flatten()
+                m = seen["m"] = members.numel()
+                notes["members"] += m
+                for key, size in (("member warps", 32),
+                                  ("member tiles", 2 * P.THREADS
+                                   * P.OWNER_LOADS)):
+                    notes[key] += torch.unique(members // size).numel()
                 # owner of every slot, each member's row, sumvec; each
                 # member's distance written
                 nbytes["pa_member_dist"] += 8 * N + m * (V * width + 8) \
@@ -647,8 +712,11 @@ def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
     with phase_a_steps(wrap):
         accumulate_device(ps, bv, params, 0.90, cmax_hint=cmax, plain=False)
     n = {k: max(1, calls[k]) for k in PHASE_A}
+    of = {"pa_window (all flags)": n["pa_window"]}
     return ({k: nbytes[k] / n[k] for k in PHASE_A},
-            {k: ops_s[k] / n[k] for k in PHASE_A}, sum(nbytes.values()))
+            {k: ops_s[k] / n[k] for k in PHASE_A},
+            sum(nbytes.values()),
+            {k: v / of.get(k, n["pa_member_dist"]) for k, v in notes.items()})
 
 
 def device_total_us(event) -> float:
@@ -727,8 +795,7 @@ def phase_a_lockstep_errors(ps, bv, params, iters: int) -> dict:
         t += 1
         while done < iters:
             for sl in both:
-                sl.step.window(sl.st, sl.active, sl.bin, sl.len, sl.lo,
-                               sl.hi, sl.front_bin, sl.back_bin)
+                sl.window()
             state("pa_window")
             for sl in both:
                 sl.step.sums(sl.st, sl.active, sl.h, sl.sums)
@@ -823,6 +890,48 @@ def sums_yardstick(rows, want, flush) -> tuple:
     return cold_ms(lib, 10, flush), exact
 
 
+def check_member_dist(ps, bv, params, owner, flush) -> dict:
+    """pa_member_dist on the largest center of a whole phase (owner: its
+    final owners in slot order), sumvec its members' rows summed and
+    count their number: its distances against member_dist_plain's, its
+    ms and the yardstick's with the L2 flushed and warm. The yardstick is
+    torch.cdist(p = 1) of the members' rows against cw, float32 copies
+    gathered beforehand: 2 sum min(h, cw) = sum h + sum cw - sum |h - cw|,
+    exact while every sum stays below 2^24."""
+    import torch
+    from meshclust_tpu_torch.core import accumulate_device as A
+    from meshclust_tpu_torch.core.classify import mean_floor
+    from meshclust_tpu_torch.ops import phase_a as P
+    sl = A._Slots(ps, bv, params, 0.90, plain=False)
+    n = sl.N
+    c = int(np.bincount(owner[owner >= 0]).argmax())
+    own = torch.as_tensor(owner).to(sl.h.device)
+    members = torch.nonzero(own == c).flatten()
+    st, _ = P.new_state(n, sl.h.device)
+    st[P.COUNT] = members.numel()
+    sumvec = sl.h[members].to(torch.int64).sum(0)
+    got = torch.full((n + 1,), -7, dtype=torch.int64, device=sl.h.device)
+    want = torch.zeros_like(got)
+    P.member_dist(st, own, c, sl.h, sumvec, got)
+    P.member_dist_plain(st, own, c, sl.h, sumvec, want)
+    at = torch.cat([members, members.new_tensor([n])])
+    rows32 = sl.h[members].to(torch.float32)
+    cw32 = mean_floor(sumvec, st[P.COUNT]).to(torch.float32)
+
+    def lib():
+        return torch.cdist(rows32, cw32[None], p=1.0)[:, 0]
+
+    def kernel():
+        P.member_dist(st, own, c, sl.h, sumvec, got)
+    two_min = rows32.sum(1) + cw32.sum() - lib()
+    return {"members": members.numel(),
+            "max_abs_err": max_abs_err(got[at], want[at]),
+            "ms": cold_ms(kernel, 10, flush), "warm_ms": cuda_ms(kernel, 20),
+            "library_ms": cold_ms(lib, 10, flush),
+            "library_warm_ms": cuda_ms(lib, 20),
+            "exact": torch.equal(two_min.to(torch.int64), got[members])}
+
+
 # pa_sums at HBM scale: 1,000,000 rows of 256 counts (a 1M-read corpus's
 # rows at k = 4: 256 MB of int8, past the 50 MB L2), every slot live
 PA_SUMS_ROWS = 1000000
@@ -885,6 +994,7 @@ def check_phase_a(dev) -> list:
     profiler; and the bound. Returns the five kernels' rows (at 15k, the
     main path's shapes)."""
     import torch
+    from meshclust_tpu_torch.ops import phase_a as P
     found = {}
     for n in (15000, 150000):
         t0 = time.time()
@@ -907,7 +1017,8 @@ def check_phase_a(dev) -> list:
         want.update(dict.fromkeys(PHASE_A[3:], iters - centers))
         if launched != want:
             fail(f"Phase A at {n} reads launched {launched}, not {want}")
-        per_launch, ops_s, total_bytes = phase_a_traffic(ps, bv, params)
+        per_launch, ops_s, total_bytes, notes = phase_a_traffic(ps, bv,
+                                                                params)
         path = os.path.join(WORK, f"phase_a_inputs_{n}.pt")
         torch.save((ps, bv, params), path)
         k_it = [r["wall"] * 1e3 / iters for r in runs[1:3]]
@@ -927,7 +1038,25 @@ def check_phase_a(dev) -> list:
               f"iteration ({total_bytes / iters:.0f} B at "
               f"{HBM_BYTES_PER_S:.3g} B/s) (took {time.time() - t0:.1f} s, "
               f"its inputs' run included)", flush=True)
-        found[n] = (path, err, per_launch, ops_s)
+        md = check_member_dist(ps, bv, params, runs[1]["state"]["owner"],
+                               flush_l2(dev))
+        print(f"    pa_member_dist on the largest center ({md['members']} "
+              f"members): {md['ms']:.5f} ms L2 flushed, {md['warm_ms']:.5f} "
+              f"warm, max abs err {md['max_abs_err']}; yardstick cdist (p "
+              f"= 1) {md['library_ms']:.5f} ms L2 flushed, "
+              f"{md['library_warm_ms']:.5f} warm (exact {md['exact']})",
+              flush=True)
+        if md["max_abs_err"]:
+            fail(f"pa_member_dist differs from member_dist_plain at {n} "
+                 f"reads")
+        print(f"    pa_window's bound counted as PR 8's kernel read: "
+              f"{notes['pa_window (all flags)']:.0f} B a launch (every "
+              f"flag, bin and len of the live slots), against "
+              f"{per_launch['pa_window']:.0f} B it must read; a move: "
+              f"{notes['members']:.2f} members in {notes['member warps']:.2f}"
+              f" warps of 32 slots and {notes['member tiles']:.2f} tiles of "
+              f"{2 * P.THREADS * P.OWNER_LOADS}", flush=True)
+        found[n] = (path, err, per_launch, ops_s, md["library_ms"])
         if n == 15000:
             sums_lib_ms = check_pa_sums(dev, ps.hist_dev)
     t0 = time.time()
@@ -939,7 +1068,7 @@ def check_phase_a(dev) -> list:
         fail(f"the Phase A profile failed:\n{child.stderr[-3000:]}")
     timed_ = json.loads(child.stdout.strip().splitlines()[-1])
     rows = None
-    for n, (path, err, per_launch, ops_s) in found.items():
+    for n, (path, err, per_launch, ops_s, dist_lib_ms) in found.items():
         ms, plain_ms, dev_ms, plain_dev_ms = timed_[path]
         print(f"  Phase A at {n} reads under the profiler (first "
               f"{PROFILE_CENTERS} centers, a child process, "
@@ -949,19 +1078,21 @@ def check_phase_a(dev) -> list:
         for k in PHASE_A:
             b = bound(per_launch[k], ops_s[k])
             print(f"    {k}: {ms[k]:.5f} ms a launch (plain step "
-                  f"{plain_ms[k]:.5f} ms), bound {b['bound_ms']:.6f} ms "
+                  f"{plain_ms[k]:.5f} ms), bound {b['bound_ms']:.6g} ms "
                   f"({b['bound_by']}, {per_launch[k]:.0f} B a launch), "
-                  f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4f} of it, "
+                  f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4g} of it, "
                   f"max abs err {err[k]}", flush=True)
         if rows is None:
             # pa_sums's yardstick: cdist + matmul on float32 copies of the
-            # 15k rows (check_pa_sums). No PyTorch call computes the other
-            # kernels' functions: their library_ms is null.
+            # 15k rows (check_pa_sums); pa_member_dist's: cdist on its
+            # members' rows (check_member_dist). No PyTorch call computes
+            # the other kernels' functions: their library_ms is null.
+            lib_ms = {"pa_sums": sums_lib_ms, "pa_member_dist": dist_lib_ms}
             rows = [{"name": k, "route": "cuda",
                      "source": "meshclust_tpu_torch/csrc/phase_a.cu",
                      "replaces": "meshclust_tpu/core/accumulate_device.py:87",
                      "ms": ms[k], "plain_ms": plain_ms[k],
-                     "library_ms": sums_lib_ms if k == "pa_sums" else None,
+                     "library_ms": lib_ms.get(k),
                      "max_abs_err": err[k],
                      **bound(per_launch[k], ops_s[k])} for k in PHASE_A]
     return rows

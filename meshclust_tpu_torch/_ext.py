@@ -50,8 +50,8 @@ _SIGNATURES = {
     # alen, amatch, stream
     "mc_nw_align_long": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                          _P, _P],
-    # st, active, bin, len, lo, hi, front_bin, back_bin, n, stream
-    "mc_pa_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # st, active, ranges, n, stream
+    "mc_pa_window": [_P, _P, _P, _I, _P],
     # st, active, rows, row stride, V, width, n, with_dot, sums, stream
     "mc_pa_sums": [_P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
     # st, sums, with_dot, spec, n_spec, coef, n_coef, mag, sq, lenf, owner,

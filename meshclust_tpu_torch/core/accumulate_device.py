@@ -34,7 +34,9 @@ Window bounds reproduce bvec::get_range (bvec.cpp:52-149, 246-278): the
 window's lengths (length * sim, length / sim) are computed on the host in
 float64, as MeanShift._accumulate_one computes them, and mapped to bins by
 bvec::index_of once per phase; the in-bin quirks are masked reductions over
-the live slots (cases in ops/phase_a.window_plain).
+the live slots (cases in ops/phase_a.window_plain). The kernel path reads
+them from a table built once per phase (window_ranges): the slot ranges
+that decide each center's window, whose first or last live slots it finds.
 
 With a mesh (parallel/dist) the feature axis is sharded: each rank keeps
 its [N, V/n] slice of the rows (the plain steps widen it by the largest
@@ -86,6 +88,26 @@ def index_of(x: np.ndarray, begin_bounds) -> tuple:
     return low[inv].reshape(np.shape(x)), high[inv].reshape(np.shape(x))
 
 
+def window_ranges(lens, sizes, lo, hi, front_bin, back_bin) -> np.ndarray:
+    """pa_window's table [N, len(P.RANGES)] int32, a row a slot as a
+    center: the slot ranges of ops/phase_a.window_table_plain. Slots are in
+    bvec order (bins of `sizes` slots concatenated, lengths `lens`
+    non-decreasing), so bin b is [off[b], off[b + 1]) and a bin's slots of
+    length >= x start at searchsorted(lens, x) clipped to the bin."""
+    lens = np.asarray(lens, np.int64)
+    if np.any(np.diff(lens) < 0):
+        raise ValueError("slot lengths must be non-decreasing")
+    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    bins = np.repeat(np.arange(len(sizes)), sizes)
+    f0, f1 = off[front_bin], off[np.asarray(front_bin) + 1]
+    b0, b1 = off[back_bin], off[np.asarray(back_bin) + 1]
+    cols = [f0, np.clip(np.searchsorted(lens, lo), f0, f1), f1,
+            b0, np.clip(np.searchsorted(lens, hi), b0, b1),
+            np.clip(np.searchsorted(lens, hi, "right"), b0, b1), b1,
+            off[bins]]
+    return np.stack(cols, axis=1).astype(np.int32)
+
+
 class _Slots:
     """Phase A's state on the device, and its two steps: absorb (pa_window,
     pa_sums, pa_absorb, one readback) and move (pa_member_dist,
@@ -101,15 +123,24 @@ class _Slots:
         dev = ps.device
         lens = ps.lengths[self.point]
         lo, hi = window_limits(lens, sim)
-        bins = np.repeat(np.arange(len(bv.idx)), [len(b) for b in bv.idx])
+        sizes = [len(b) for b in bv.idx]
+        bins = np.repeat(np.arange(len(sizes)), sizes)
+        front = index_of(lo, bv.begin_bounds)[0]
+        back = index_of(hi, bv.begin_bounds)[1]
 
         def put(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=dev)
 
         self.len, self.lo, self.hi, self.bin = put(lens), put(lo), put(hi), \
             put(bins)
-        self.front_bin = put(index_of(lo, bv.begin_bounds)[0])
-        self.back_bin = put(index_of(hi, bv.begin_bounds)[1])
+        self.front_bin, self.back_bin = put(front), put(back)
+        self.ranges = torch.as_tensor(
+            window_ranges(lens, sizes, lo, hi, front, back), device=dev)
+        # the window step's inputs past st and active: the plain step's
+        # per-slot arrays, or the kernel's table
+        self.window_in = ((self.bin, self.len, self.lo, self.hi,
+                           self.front_bin, self.back_bin) if plain
+                          else (self.ranges,))
         sp = put(self.point)
         h = ps.hist_dev[sp]
         if plain:
@@ -135,12 +166,15 @@ class _Slots:
         self.dist = torch.zeros(N + 1, dtype=torch.int64, device=dev)
         self.sumvec = None
 
+    def window(self) -> None:
+        """pa_window (or its plain step) for the center st[LAST]."""
+        self.step.window(self.st, self.active, *self.window_in)
+
     def window_bounds(self, last):
         """(w0, w1) of the center at slot `last` (a tensor) on the live
         slots: pa_window's inclusive slot range."""
         self.st[P.LAST] = last
-        self.step.window(self.st, self.active, self.bin, self.len, self.lo,
-                         self.hi, self.front_bin, self.back_bin)
+        self.window()
         return self.st[P.W0], self.st[P.W1]
 
     def begin(self, seed: int, c: int, t: int) -> None:
@@ -159,8 +193,7 @@ class _Slots:
         one readback. (The first live slot is taken before the absorb: it
         is read only when nothing was absorbed.)"""
         st, step = self.st, self.step
-        step.window(st, self.active, self.bin, self.len, self.lo, self.hi,
-                    self.front_bin, self.back_bin)
+        self.window()
         step.sums(st, self.active, self.h, self.sums)
         sums = self.sums if self.mesh is None else dist.psum(
             self.sums, self.mesh, "accumulate")

@@ -7,8 +7,9 @@
 // which the JAX package runs inside one lax.while_loop. The port's host loop
 // (core/accumulate_device.py) launches, an absorb iteration:
 //   pa_window       the live window [w0, w1] of the center (bvec::get_range,
-//                   every case of bvec::inner_index_of) and the first live
-//                   slot, as masked atomic min and max over the slots;
+//                   every case of bvec::inner_index_of) and the first and
+//                   last live slots, as firsts and lasts of live flags in
+//                   slot ranges that the center's row of a table names;
 //   pa_sums         man = sum |a - b| and dot = sum a * b of the center's row
 //                   against each live row of the window (Scorer.sums), int64;
 //   pa_absorb       the float64 classifier on each live slot of the window
@@ -27,9 +28,9 @@
 //
 // State: st, one int64 buffer (ops/phase_a.py names its slots): n_pos, best,
 // center slot, first live slot (the readback), w0, w1, the member count, the
-// window's reduction scratch and one ticket a kernel. Every reduction is
-// exact and independent of the order in which blocks run: integer atomicMin,
-// atomicMax and atomicAdd, or per-block partials that the last block to
+// last live slot, and one ticket each for pa_absorb and pa_mean_argmin.
+// Every reduction is exact and independent of the order in which blocks
+// run: integer atomicAdd, or per-block partials that the last block to
 // finish (the one that draws the last ticket) combines under explicit tie
 // rules. So every result is bit-equal to the plain version's. No float is
 // ever summed. Every float64 operation of the classifier and of the mean is
@@ -39,8 +40,9 @@
 //
 // Bound: bytes, each kernel's (chip_smoke.py:phase_a_traffic counts them
 // from a run's data):
-//   pa_window       active of every slot (1 B), bin and len of the live
-//                   ones (16 B);
+//   pa_window       the center's row of the table (32 B), and the flags
+//                   (1 B) of each range it must decide, up to the live slot
+//                   that decides it;
 //   pa_sums         the window's live rows (V x the storage width each) and
 //                   the center's, their sums written (8 B each);
 //   pa_absorb       the live window slots' sums, mag, sq and len (32-40 B),
@@ -54,8 +56,8 @@
 // window's rows (slots are sorted by length, so a window is one slot
 // range), each once in its storage dtype, widened in registers (no widened
 // [N, V] copy); keeps the classifier in registers; reads member rows only
-// where owner == c; and runs a persistent grid (blocks walk any range), so
-// a window of any size is one launch with no host decision.
+// where owner == c; and runs grids that walk any range, so a window of any
+// size is one launch with no host decision.
 //
 // pa_sums carries the bytes: at 1M reads a window holds up to 256 MB of
 // int8 rows, past the 50 MB L2. A warp a row with one int8 a lane kept
@@ -71,6 +73,17 @@
 // state's, the classifier is unrolled over kMaxSingles (no local memory),
 // one block reduction takes f1 and n_pos together, and a tile's positives'
 // rows are summed in registers, one atomic a count a tile.
+// pa_window's bound is well under a microsecond: its time is the latency
+// of a chain of loads. Over all N slots' flags with 528 blocks, eight
+// int64 block reductions and eight global atomics each, it took 7-15 us.
+// Here one block reads the center's table row and then only the flags of
+// the ranges it decides, a warp a range, all at once (pa_window_kernel).
+// pa_member_dist served each member with one warp, one count a lane, and
+// divided the mean again for every member and lane: a center's members sit
+// in neighbouring slots, so a few warps ran them one after another. Here a
+// block divides the mean once into shared memory, compacts its members and
+// serves them as pa_sums serves rows: lane groups over 16-byte pieces,
+// byte SIMD for int8, several members in flight.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -82,20 +95,33 @@ typedef unsigned long long u64;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// The persistent grid of pa_window, pa_member_dist and pa_mean_argmin (4
-// blocks an SM), and the most blocks pa_absorb's grid may take (its
-// partials' buffer holds kBlocks of each).
+// The persistent grid of pa_mean_argmin (4 blocks an SM), and the most
+// blocks pa_absorb's grid may take (its partials' buffer holds kBlocks of
+// each).
 constexpr int kBlocks = 528;
-// pa_sums: the widest piece of a row a lane loads, and the loads a lane
-// has in flight before it reduces.
+// pa_sums and pa_member_dist: the widest piece of a row a lane loads, and
+// the loads a lane has in flight before it reduces.
 constexpr int kPieceBytes = 16;
 constexpr int kUnroll = 4;
+// pa_window: its one block's warps (a query each), and the 16-byte vectors
+// of flags a lane has in flight a step.
+constexpr int kWindowWarps = 7;
+constexpr int kWinLoads = 2;
+// pa_member_dist: the 16-byte loads of owners (two slots each) a thread
+// makes (a block's tile: kThreads * 2 * kOwnerLoads slots), and the bytes
+// of the floored mean a block keeps in shared memory (V in chunks of that).
+constexpr int kOwnerLoads = 2;
+constexpr int kTileSlots = kThreads * 2 * kOwnerLoads;
+constexpr int kCwBytes = 8192;
 
 // Slots of st (ops/phase_a.py: NPOS ... TICKETS).
 constexpr int kNPos = 0, kBest = 1, kLast = 2, kLive = 3, kW0 = 4, kW1 = 5,
-              kCount = 6;
-constexpr int kScratch = 8;         // pa_window's eight reductions
-constexpr int kTicket = 16;         // + 0 pa_window, 1 pa_absorb, 2 the mean
+              kCount = 6, kTail = 7;
+constexpr int kTicket = 8;          // + 0 pa_absorb, 1 pa_mean_argmin
+// Columns of pa_window's table, a row a slot (ops/phase_a.py: RANGES).
+constexpr int kRanges = 8;
+constexpr int kFront = 0, kGe = 1, kFrontEnd = 2, kBack = 3, kEq = 4,
+              kGt = 5, kBackEnd = 6, kBin = 7;
 
 // ops/features.py's flags
 constexpr int kFeatLD = 1 << 1, kFeatManhattan = 1 << 2,
@@ -184,71 +210,157 @@ __device__ bool last_block(i64* ticket, i64 blocks) {
 // pa_window
 // ---------------------------------------------------------------------------
 
+// Bit i set where slot s0 + i (0 <= i < 16) is live and lies in [a, b). s0
+// is the first slot of a 16-byte-aligned vector of flags: one 16-byte load
+// where all 16 lie in [0, n), else byte loads of those that do; none where
+// the vector misses [a, b). A word's nonzero bytes become 4 bits: 0xff per
+// nonzero byte (__vcmpne4), one distinct bit a byte (& 0x08040201), summed
+// into the top byte by the multiply (no carries: the sum is at most 15).
+__device__ __forceinline__ unsigned live_bits(const uint8_t* act, i64 n,
+                                              i64 s0, i64 a, i64 b) {
+  if (s0 >= b || s0 + 16 <= a) return 0u;
+  uint32_t w[4];
+  if (s0 >= 0 && s0 + 16 <= n) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(act + s0));
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[k] = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const i64 s = s0 + 4 * k + e;
+        if (s >= 0 && s < n) w[k] |= static_cast<uint32_t>(act[s]) << (8 * e);
+      }
+    }
+  }
+  unsigned bits = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    bits |= ((__vcmpne4(w[k], 0u) & 0x08040201u) * 0x01010101u) >> 24
+            << (4 * k);
+  const i64 lo = a - s0, hi = b - s0;
+  if (lo > 0) bits &= 0xffffu << lo;
+  if (hi < 16) bits &= (1u << hi) - 1u;
+  return bits;
+}
+
+// The first slot of a 16-byte-aligned vector of flags at or before slot s
+// (mis: the flags' address mod 16).
+__device__ __forceinline__ i64 vector_of(i64 s, int mis) {
+  return s - ((s + mis) & 15);
+}
+
+// The first live slot of [a, b), -1 if none: the warp reads kWinLoads
+// vectors a lane, 32 * kWinLoads vectors a step in slot order, and stops at
+// the first step that holds a live flag (ballot, then __ffs of the first
+// lane's bits).
+__device__ i64 first_live(const uint8_t* act, i64 n, int mis, i64 a, i64 b) {
+  const int lane = threadIdx.x & 31;
+  if (a >= b) return -1;
+  for (i64 base = vector_of(a, mis); base < b;
+       base += 16 * 32 * kWinLoads) {
+    unsigned bits[kWinLoads];
+#pragma unroll
+    for (int u = 0; u < kWinLoads; ++u)
+      bits[u] = live_bits(act, n, base + 16 * (u * 32 + lane), a, b);
+#pragma unroll
+    for (int u = 0; u < kWinLoads; ++u) {
+      const unsigned hit = __ballot_sync(0xffffffffu, bits[u] != 0u);
+      if (hit) {
+        const int l = __ffs(hit) - 1;
+        const unsigned m = __shfl_sync(0xffffffffu, bits[u], l);
+        return base + 16 * (u * 32 + l) + __ffs(m) - 1;
+      }
+    }
+  }
+  return -1;
+}
+
+// The last live slot of [a, b), -1 if none: the same steps downwards from
+// the vector that holds slot b - 1 (lane 0 the highest vector; the first
+// lane with a hit, then 31 - __clz of its bits).
+__device__ i64 last_live(const uint8_t* act, i64 n, int mis, i64 a, i64 b) {
+  const int lane = threadIdx.x & 31;
+  if (a >= b) return -1;
+  for (i64 top = vector_of(b - 1, mis); top + 16 > a;
+       top -= 16 * 32 * kWinLoads) {
+    unsigned bits[kWinLoads];
+#pragma unroll
+    for (int u = 0; u < kWinLoads; ++u)
+      bits[u] = live_bits(act, n, top - 16 * (u * 32 + lane), a, b);
+#pragma unroll
+    for (int u = 0; u < kWinLoads; ++u) {
+      const unsigned hit = __ballot_sync(0xffffffffu, bits[u] != 0u);
+      if (hit) {
+        const int l = __ffs(hit) - 1;
+        const unsigned m = __shfl_sync(0xffffffffu, bits[u], l);
+        return top - 16 * (u * 32 + l) + 31 - __clz(m);
+      }
+    }
+  }
+  return -1;
+}
+
 // Inclusive slot range [w0, w1] of get_range(lo, hi) of the center at slot
-// st[kLast] over the live slots (lengths and bins are non-decreasing over
-// slots, so every case is a first or last live slot under a mask):
-//   front: the first live slot of the front bin with length >= lo; none: the
-//          LAST live slot of that bin; an empty bin: the first live slot;
-//   back:  the last live slot of the back bin with length == hi; else its
-//          first live slot with length > hi; else its last live slot; an
-//          empty bin: the FIRST live slot of the LAST non-empty bin (the
-//          truncation quirk), -1 if none. That slot is the maximum of
-//          bin * (N + 1) + (N - slot) over the live slots.
-__global__ void __launch_bounds__(kThreads)
+// st[kLast] over the live slots. Slots are in bvec order (bins concatenated,
+// lengths non-decreasing), so every case is a first or last live slot of a
+// slot range that depends on the center alone: its row of the table
+// `ranges` (core/accumulate_device.py:window_ranges, built once a phase).
+// One block, a warp a query, all seven at once:
+//   warp 0  the first live slot, on from st[kLive]; warp 1 the last, down
+//           from st[kTail] (slots only die in a phase, so both move one way
+//           and their scans add up to N a phase);
+//   warp 2  A: first live of [kGe, kFrontEnd) (front bin, length >= lo);
+//   warp 3  B: last live of [kFront, kGe);
+//   warp 4  C: last live of [kEq, kGt) (back bin, length == hi);
+//   warp 5  D: first live of [kGt, kBackEnd) (length > hi);
+//   warp 6  E: last live of [kBack, kEq).
+// w0 = A, else B (the front bin's last live slot), else the first live
+// slot; w1 = C, else D, else E (the back bin's last live slot); a back bin
+// with no live slot gives the FIRST live slot of the LAST non-empty bin
+// (the truncation quirk): warp 0 scans [kBin of the last live slot, it],
+// or -1 if nothing is live. Every range but the two scans' is one bin
+// (1,000 slots at the default bin size: one or two steps of a warp), so
+// one block does it all, with no ticket, scratch or atomic.
+__global__ void __launch_bounds__(kWindowWarps * 32)
 pa_window_kernel(i64* __restrict__ st, const uint8_t* __restrict__ active,
-                 const i64* __restrict__ bin, const i64* __restrict__ len,
-                 const i64* __restrict__ lo, const i64* __restrict__ hi,
-                 const i64* __restrict__ front_bin,
-                 const i64* __restrict__ back_bin, int n) {
-  const i64 N = n, last = st[kLast];
-  const i64 fb = front_bin[last], lo_c = lo[last];
-  const i64 bb = back_bin[last], hi_c = hi[last];
-  i64 ge = N, last_f = -1, first = N, eq_last = -1, gt = N, last_b = -1,
-      live_last = -1, key = -1;
-  // each thread's slots rise, so a first is its first hit, a last its last
-  for (i64 s = blockIdx.x * static_cast<i64>(kThreads) + threadIdx.x; s < N;
-       s += static_cast<i64>(gridDim.x) * kThreads) {
-    if (!active[s]) continue;
-    const i64 b = bin[s], L = len[s];
-    if (b == fb) {
-      if (L >= lo_c) ge = imin(ge, s);
-      last_f = s;
-    }
-    first = imin(first, s);
-    if (b == bb) {
-      if (L == hi_c) eq_last = s;
-      if (L > hi_c) gt = imin(gt, s);
-      last_b = s;
-    }
-    live_last = s;
-    key = imax(key, b * (N + 1) + (N - s));
+                 const int* __restrict__ ranges, int n) {
+  __shared__ i64 found[kWindowWarps];
+  const int warp = threadIdx.x >> 5;
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(active) & 15);
+  const i64 N = n;
+  i64 r;
+  if (warp == 0) {
+    r = first_live(active, N, mis, st[kLive], N);
+  } else if (warp == 1) {
+    r = last_live(active, N, mis, 0, st[kTail] + 1);
+  } else {
+    const int* row = ranges + kRanges * st[kLast];
+    const int q = warp - 2;
+    const int from = q == 0 ? kGe : q == 1 ? kFront : q == 2 ? kEq
+                   : q == 3 ? kGt : kBack;
+    const int to = q == 0 ? kFrontEnd : q == 1 ? kGe : q == 2 ? kGt
+                 : q == 3 ? kBackEnd : kEq;
+    const i64 a = __ldg(row + from), b = __ldg(row + to);
+    r = q == 0 || q == 3 ? first_live(active, N, mis, a, b)
+                         : last_live(active, N, mis, a, b);
   }
-  i64* acc = st + kScratch;
-  const i64 r0 = block_reduce(ge, Min()), r1 = block_reduce(last_f, Max());
-  const i64 r2 = block_reduce(first, Min()), r3 = block_reduce(eq_last, Max());
-  const i64 r4 = block_reduce(gt, Min()), r5 = block_reduce(last_b, Max());
-  const i64 r6 = block_reduce(live_last, Max()), r7 = block_reduce(key, Max());
+  if ((threadIdx.x & 31) == 0) found[warp] = r;
+  __syncthreads();
+  if (warp != 0) return;
+  const i64 first = found[0] < 0 ? N : found[0], tail = found[1];
+  const i64 w0 = found[2] >= 0 ? found[2] : found[3] >= 0 ? found[3] : first;
+  i64 w1 = found[4] >= 0 ? found[4] : found[5] >= 0 ? found[5] : found[6];
+  if (w1 < 0 && tail >= 0)
+    w1 = first_live(active, N, mis, __ldg(ranges + kRanges * tail + kBin),
+                    tail + 1);
   if (threadIdx.x == 0) {
-    atomicMin(acc + 0, r0);
-    atomicMax(acc + 1, r1);
-    atomicMin(acc + 2, r2);
-    atomicMax(acc + 3, r3);
-    atomicMin(acc + 4, r4);
-    atomicMax(acc + 5, r5);
-    atomicMax(acc + 6, r6);
-    atomicMax(acc + 7, r7);
+    st[kW0] = w0;
+    st[kW1] = w1;
+    st[kLive] = first;
+    st[kTail] = tail;
   }
-  if (!last_block(st + kTicket + 0, gridDim.x) || threadIdx.x != 0) return;
-  i64 a[8];
-  for (int i = 0; i < 8; ++i) a[i] = __ldcg(acc + i);
-  const i64 w0 = a[1] >= 0 ? (a[0] < N ? a[0] : a[1]) : a[2];
-  const i64 w1 = a[5] >= 0 ? (a[3] >= 0 ? a[3] : (a[4] < N ? a[4] : a[5]))
-                           : (a[6] >= 0 ? N - a[7] % (N + 1) : -1);
-  st[kW0] = w0;
-  st[kW1] = w1;
-  st[kLive] = a[2];
-  const i64 init[8] = {N, -1, N, -1, N, -1, -1, -1};
-  for (int i = 0; i < 8; ++i) acc[i] = init[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -676,7 +788,7 @@ pa_absorb_kernel(i64* __restrict__ st, const i64* __restrict__ sums,
     part[2 * G + blockIdx.x] = best.nan;
     part[3 * G + blockIdx.x] = best.npos;
   }
-  if (!last_block(st + kTicket + 1, busy)) return;
+  if (!last_block(st + kTicket + 0, busy)) return;
   best = {-INFINITY, N, 0, 0};
   for (int b = tid; b < busy; b += kThreads)
     best = AbsorbOp()(best, {__longlong_as_double(__ldcg(part + b)),
@@ -694,46 +806,214 @@ pa_absorb_kernel(i64* __restrict__ st, const i64* __restrict__ sums,
 // pa_member_dist
 // ---------------------------------------------------------------------------
 
-// A warp takes 32 slots at a time and serves each member among them (owner
-// == c) with all its lanes: dist[s] = 2 * sum_v min(h[s, v], cw[v]), cw =
-// floor(sumvec / count) divided in float64 as mean_floor does. Block 0 also
-// writes dist[N] = sum_v cw[v] (integers below 2^53: exact in any order).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pa_member_dist_kernel(const i64* __restrict__ st, const i64* __restrict__ owner,
-                      i64 c, const T* __restrict__ rows, i64 stride, int V,
-                      const i64* __restrict__ sumvec, int n,
-                      i64* __restrict__ dist) {
-  const double count = static_cast<double>(st[kCount]);
-  const int lane = threadIdx.x & 31;
-  const i64 warps = static_cast<i64>(gridDim.x) * kWarps;
-  for (i64 base = (blockIdx.x * static_cast<i64>(kWarps) + (threadIdx.x >> 5))
-                  * 32;
-       base < n; base += warps * 32) {
-    const i64 s = base + lane;
-    unsigned members = __ballot_sync(0xffffffffu, s < n && owner[s] == c);
-    while (members) {
-      const i64 m = base + __ffs(members) - 1;
-      members &= members - 1;
-      const T* r = rows + m * stride;
-      i64 acc = 0;
-      for (int v = lane; v < V; v += 32) {
-        const i64 cw = static_cast<i64>(
-            floor(__ddiv_rn(static_cast<double>(sumvec[v]), count)));
-        const i64 x = r[v];
-        acc += x < cw ? x : cw;
-      }
-      acc = warp_reduce(acc, Sum());
-      if (lane == 0) dist[m] = 2 * acc;
+// A piece of the floored mean in shared memory (16-byte aligned there).
+template <int VEC>
+__device__ __forceinline__ Piece<VEC> load_shared(const char* p) {
+  Piece<VEC> r;
+  if constexpr (VEC == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    r.w[0] = v.x, r.w[1] = v.y, r.w[2] = v.z, r.w[3] = v.w;
+  } else if constexpr (VEC == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    r.w[0] = v.x, r.w[1] = v.y;
+  } else if constexpr (VEC == 4) {
+    r.w[0] = *reinterpret_cast<const unsigned int*>(p);
+  } else if constexpr (VEC == 2) {
+    r.w[0] = *reinterpret_cast<const unsigned short*>(p);
+  } else {
+    r.w[0] = *reinterpret_cast<const unsigned char*>(p);
+  }
+  return r;
+}
+
+// acc += sum min(a, m) over one piece of a row (a) and of the floored mean
+// (m). int8: four bytes an instruction, the signed byte minimum (__vmins4)
+// summed by __dp4a against ones, exact in 32 bits (a piece adds at most
+// 16 * 127); wider rows element by element in 32 or 64 bits.
+template <typename T, int VEC>
+__device__ __forceinline__ void add_min(const Piece<VEC>& a,
+                                        const Piece<VEC>& m,
+                                        typename Acc<T>::type& acc) {
+  if constexpr (sizeof(T) == 1 && VEC >= 4) {
+#pragma unroll
+    for (int i = 0; i < Piece<VEC>::kWords; ++i)
+      acc = __dp4a(static_cast<int>(__vmins4(a.w[i], m.w[i])), 0x01010101,
+                   acc);
+  } else if constexpr (sizeof(T) == 1) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const int x = static_cast<int8_t>(a.w[0] >> (8 * e));
+      const int y = static_cast<int8_t>(m.w[0] >> (8 * e));
+      acc += x < y ? x : y;
+    }
+  } else if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int e = 0; e < VEC / 2; ++e) {
+      const int x = static_cast<int16_t>(a.w[e / 2] >> (16 * (e & 1)));
+      const int y = static_cast<int16_t>(m.w[e / 2] >> (16 * (e & 1)));
+      acc += x < y ? x : y;
+    }
+  } else if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int e = 0; e < VEC / 4; ++e) {
+      const int x = static_cast<int>(a.w[e]), y = static_cast<int>(m.w[e]);
+      acc += x < y ? x : y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC / 8; ++e) {
+      const i64 x = static_cast<i64>(a.w[2 * e] |
+                                     static_cast<u64>(a.w[2 * e + 1]) << 32);
+      const i64 y = static_cast<i64>(m.w[2 * e] |
+                                     static_cast<u64>(m.w[2 * e + 1]) << 32);
+      acc += x < y ? x : y;
     }
   }
-  if (blockIdx.x != 0) return;
+}
+
+// dist[s] (first chunk) or dist[s] += (later chunks) 2 * sum min(h[s], cw)
+// over one chunk of V for each member s of list[0, m): nv pieces of VEC
+// bytes a row, the chunk's cw in shared memory. Short rows (nv <= 32, the
+// k-mer path's 256 int8 counts: 16 pieces): a group of `lanes` lanes a
+// member, its cw piece in a register, kUnroll members' loads in flight
+// before any reduction. Long rows: a warp a member, kUnroll pieces a lane
+// in flight.
+template <typename T, int VEC>
+__device__ void serve_members(const int* list, int m, const char* rows,
+                              i64 pitch, int nv, const char* cw, bool first,
+                              i64* __restrict__ dist) {
+  typedef typename Acc<T>::type A;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int lanes = 1;
+  while (lanes < nv && lanes < 32) lanes <<= 1;
+  if (nv <= lanes) {
+    const int sub = lane & (lanes - 1), grp = lane / lanes;
+    const int groups = 32 / lanes, step = groups * kUnroll;
+    const Piece<VEC> w =
+        sub < nv ? load_shared<VEC>(cw + sub * VEC) : Piece<VEC>{};
+    for (int i0 = warp * step; i0 < m; i0 += kWarps * step) {
+      Piece<VEC> b[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * groups + grp;
+        b[u] = Piece<VEC>{};
+        if (i < m && sub < nv)
+          b[u] = load_row<VEC>(rows + list[i] * pitch + sub * VEC);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        A acc = 0;
+        add_min<T, VEC>(b[u], w, acc);
+        acc = group_sum(acc, lanes);
+        const int i = i0 + u * groups + grp;
+        if (i < m && sub == 0) {
+          const i64 s = list[i], d = 2 * static_cast<i64>(acc);
+          dist[s] = first ? d : dist[s] + d;
+        }
+      }
+    }
+    return;
+  }
+  for (int i = warp; i < m; i += kWarps) {
+    const i64 s = list[i];
+    const char* r = rows + s * pitch;
+    i64 acc = 0;
+    for (int p0 = lane; p0 < nv; p0 += 32 * kUnroll) {
+      Piece<VEC> b[kUnroll], w[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int p = p0 + 32 * u;
+        b[u] = w[u] = Piece<VEC>{};
+        if (p < nv) {
+          b[u] = load_row<VEC>(r + static_cast<i64>(p) * VEC);
+          w[u] = load_shared<VEC>(cw + p * VEC);
+        }
+      }
+      A part = 0;                      // kUnroll pieces: within 32 bits
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) add_min<T, VEC>(b[u], w[u], part);
+      acc += part;
+    }
+    acc = group_sum(acc, 32);
+    if (lane == 0) dist[s] = first ? 2 * acc : dist[s] + 2 * acc;
+  }
+}
+
+// A block a tile of kTileSlots slots: each thread reads kOwnerLoads
+// 16-byte vectors of owner (two slots each; single loads where owner is
+// not 16-byte aligned or at the end), and the members (owner == c) are
+// compacted into a list in shared memory, a ballot and one shared atomic a
+// warp and load. A block with no member returns, but block 0, which writes
+// dist[n] = sum cw. Then, chunk by chunk of V (kCwBytes of the rows' dtype,
+// one chunk at V = 256), the block computes cw = floor(sumvec / count)
+// into shared memory once, divided in float64 as mean_floor does, and
+// serves its members from it (serve_members). The first chunk's count tid
+// is loaded beside the owners.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+pa_member_dist_kernel(const i64* __restrict__ st, const i64* __restrict__ owner,
+                      i64 c, const char* __restrict__ rows, i64 pitch, int V,
+                      const i64* __restrict__ sumvec, int n,
+                      i64* __restrict__ dist) {
+  __shared__ __align__(16) char cw_s[kCwBytes];
+  __shared__ int list[kTileSlots];
+  __shared__ int n_list;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const double count = static_cast<double>(st[kCount]);
+  const i64 sv0 = tid < V ? sumvec[tid] : 0;
+  const i64 tile = blockIdx.x * static_cast<i64>(kTileSlots);
+  const bool vec = (reinterpret_cast<uintptr_t>(owner) & 15) == 0;
+  i64 own[2 * kOwnerLoads];
+#pragma unroll
+  for (int j = 0; j < kOwnerLoads; ++j) {
+    const i64 s = tile + 2 * (j * kThreads + tid);
+    if (vec && s + 2 <= n) {
+      const longlong2 v = __ldg(reinterpret_cast<const longlong2*>(owner + s));
+      own[2 * j] = v.x, own[2 * j + 1] = v.y;
+    } else {
+      own[2 * j] = s < n ? owner[s] : -1;
+      own[2 * j + 1] = s + 1 < n ? owner[s + 1] : -1;
+    }
+  }
+  if (tid == 0) n_list = 0;
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < 2 * kOwnerLoads; ++e) {
+    const i64 s = tile + 2 * ((e >> 1) * kThreads + tid) + (e & 1);
+    const bool is = s < n && own[e] == c;
+    const unsigned b = __ballot_sync(0xffffffffu, is);
+    if (b) {
+      int at = 0;
+      if (lane == 0) at = atomicAdd(&n_list, __popc(b));
+      at = __shfl_sync(0xffffffffu, at, 0);
+      if (is) list[at + __popc(b & ((1u << lane) - 1u))] = static_cast<int>(s);
+    }
+  }
+  __syncthreads();
+  const int m = n_list;
+  if (m == 0 && blockIdx.x != 0) return;
+  constexpr int kChunk = kCwBytes / static_cast<int>(sizeof(T));
+  T* cw = reinterpret_cast<T*>(cw_s);
   i64 cw_sum = 0;
-  for (int v = threadIdx.x; v < V; v += kThreads)
-    cw_sum += static_cast<i64>(
-        floor(__ddiv_rn(static_cast<double>(sumvec[v]), count)));
+  for (int c0 = 0; c0 < V; c0 += kChunk) {
+    const int len = V - c0 < kChunk ? V - c0 : kChunk;
+    if (c0) __syncthreads();          // every member served from the last
+    for (int v = tid; v < len; v += kThreads) {
+      const i64 sv = c0 == 0 && v == tid ? sv0 : sumvec[c0 + v];
+      const i64 x = static_cast<i64>(
+          floor(__ddiv_rn(static_cast<double>(sv), count)));
+      cw[v] = static_cast<T>(x);
+      cw_sum += x;
+    }
+    __syncthreads();
+    if (m)
+      serve_members<T, VEC>(list, m, rows + static_cast<i64>(c0) * sizeof(T),
+                            pitch, len * static_cast<int>(sizeof(T)) / VEC,
+                            cw_s, c0 == 0, dist);
+  }
+  if (blockIdx.x != 0) return;
   cw_sum = block_reduce(cw_sum, Sum());
-  if (threadIdx.x == 0) dist[n] = cw_sum;
+  if (tid == 0) dist[n] = cw_sum;
 }
 
 // ---------------------------------------------------------------------------
@@ -768,7 +1048,7 @@ pa_mean_argmin_kernel(i64* __restrict__ st, const i64* __restrict__ dist,
     part[G + blockIdx.x] = best.stamp;
     part[2 * G + blockIdx.x] = best.s;
   }
-  if (!last_block(st + kTicket + 2, gridDim.x)) return;
+  if (!last_block(st + kTicket + 1, gridDim.x)) return;
   best = none;
   for (int b = threadIdx.x; b < G; b += kThreads)
     best = DOp()(best, {__longlong_as_double(__ldcg(part + b)),
@@ -784,16 +1064,12 @@ pa_mean_argmin_kernel(i64* __restrict__ st, const i64* __restrict__ dist,
 // `width` is the rows' element size in bytes (1, 2, 4 or 8).
 // ---------------------------------------------------------------------------
 
-extern "C" int mc_pa_window(void* st, const void* active, const void* bin,
-                            const void* len, const void* lo, const void* hi,
-                            const void* front_bin, const void* back_bin,
+extern "C" int mc_pa_window(void* st, const void* active, const void* ranges,
                             int n, void* stream) {
-  pa_window_kernel<<<kBlocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  pa_window_kernel<<<1, kWindowWarps * 32, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<i64*>(st), static_cast<const uint8_t*>(active),
-      static_cast<const i64*>(bin), static_cast<const i64*>(len),
-      static_cast<const i64*>(lo), static_cast<const i64*>(hi),
-      static_cast<const i64*>(front_bin), static_cast<const i64*>(back_bin),
-      n);
+      static_cast<const int*>(ranges), n);
   return cudaGetLastError();
 }
 
@@ -918,6 +1194,16 @@ extern "C" int mc_pa_absorb(void* st, const void* sums, int with_dot,
   return cudaGetLastError();
 }
 
+template <typename T, int VEC>
+static int launch_member_dist(cudaStream_t s, const i64* st, const i64* own,
+                              i64 c, const void* rows, i64 pitch, int V,
+                              const i64* sv, int n, i64* out) {
+  const int blocks = n > 0 ? (n + kTileSlots - 1) / kTileSlots : 1;
+  pa_member_dist_kernel<T, VEC><<<blocks, kThreads, 0, s>>>(
+      st, own, c, static_cast<const char*>(rows), pitch, V, sv, n, out);
+  return cudaGetLastError();
+}
+
 extern "C" int mc_pa_member_dist(const void* st, const void* owner,
                                  long long c, const void* rows,
                                  long long stride, int V, int width,
@@ -928,31 +1214,36 @@ extern "C" int mc_pa_member_dist(const void* st, const void* owner,
   const i64* own = static_cast<const i64*>(owner);
   const i64* sv = static_cast<const i64*>(sumvec);
   i64* out = static_cast<i64*>(dist);
+  const i64 pitch = stride * width, length = static_cast<i64>(V) * width;
+  const int vec = piece_bytes(rows, pitch, length, width);
+#define MC_DIST(T, VEC)                                                       \
+  case VEC:                                                                   \
+    return launch_member_dist<T, VEC>(s, st_, own, c, rows, pitch, V, sv, n, \
+                                      out)
   switch (width) {
     case 1:
-      pa_member_dist_kernel<<<kBlocks, kThreads, 0, s>>>(
-          st_, own, c, static_cast<const int8_t*>(rows), stride, V, sv, n,
-          out);
+      switch (vec) {
+        MC_DIST(int8_t, 16); MC_DIST(int8_t, 8); MC_DIST(int8_t, 4);
+        MC_DIST(int8_t, 2); MC_DIST(int8_t, 1);
+      }
       break;
     case 2:
-      pa_member_dist_kernel<<<kBlocks, kThreads, 0, s>>>(
-          st_, own, c, static_cast<const int16_t*>(rows), stride, V, sv, n,
-          out);
+      switch (vec) {
+        MC_DIST(int16_t, 16); MC_DIST(int16_t, 8); MC_DIST(int16_t, 4);
+        MC_DIST(int16_t, 2);
+      }
       break;
     case 4:
-      pa_member_dist_kernel<<<kBlocks, kThreads, 0, s>>>(
-          st_, own, c, static_cast<const int32_t*>(rows), stride, V, sv, n,
-          out);
+      switch (vec) {
+        MC_DIST(int32_t, 16); MC_DIST(int32_t, 8); MC_DIST(int32_t, 4);
+      }
       break;
     case 8:
-      pa_member_dist_kernel<<<kBlocks, kThreads, 0, s>>>(
-          st_, own, c, static_cast<const int64_t*>(rows), stride, V, sv, n,
-          out);
+      switch (vec) { MC_DIST(int64_t, 16); MC_DIST(int64_t, 8); }
       break;
-    default:
-      return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+#undef MC_DIST
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int mc_pa_mean_argmin(void* st, const void* dist, const void* mag,

@@ -7,7 +7,7 @@ inside build_accumulate's lax.while_loop,
 meshclust_tpu/core/accumulate_device.py:87). An iteration is
 
   window(st, ...)       the live window [w0, w1] of the center st[LAST]
-                        and the first live slot;
+                        and the first and last live slots;
   sums(st, ...)         man and dot of the center's row against the rows
                         (the kernel: only the live rows of the window);
   absorb(st, ...)       the float64 classifier, the absorb of the positives
@@ -39,21 +39,35 @@ from meshclust_tpu_torch.core.classify import Scorer, mean_floor
 from meshclust_tpu_torch.ops import features as F
 
 # Slots of the state buffer, as csrc/phase_a.cu's constants give them.
-NPOS, BEST, LAST, LIVE, W0, W1, COUNT = range(7)
-SCRATCH = 8         # pa_window's eight reductions (kScratch)
-TICKETS = 16        # one ticket each: pa_window, pa_absorb, pa_mean_argmin
+# TAIL, the last live slot, is pa_window's alone (its plain step leaves it).
+NPOS, BEST, LAST, LIVE, W0, W1, COUNT, TAIL = range(8)
+TICKETS = 8         # one ticket each: pa_absorb, pa_mean_argmin (kTicket)
+# 24: an earlier phase_a.cu (built beside this one by profile_port.py
+# --parts phase_a) uses slots up to 18 of the same buffer
 STATE_LEN = 24
-# The persistent grid of pa_window, pa_member_dist and pa_mean_argmin
-# (kBlocks), which also bounds pa_absorb's (the card's resident blocks, as
-# pa_sums's), and the partials each block writes in pa_absorb (four) and
-# pa_mean_argmin (three).
+# Columns of pa_window's table (kFront ... kBin; window_table_plain and
+# core/accumulate_device.window_ranges say what each holds).
+RANGES = ("FRONT", "GE", "FRONT_END", "BACK", "EQ", "GT", "BACK_END", "BIN")
+FRONT, GE, FRONT_END, BACK, EQ, GT, BACK_END, BIN = range(len(RANGES))
+# The persistent grid of pa_mean_argmin (kBlocks), which also bounds
+# pa_absorb's (the card's resident blocks, as pa_sums's), and the partials
+# each block writes in pa_absorb (four) and pa_mean_argmin (three).
 BLOCKS = 528
 THREADS = 256
 PARTIALS = 4
-# pa_sums: the widest piece of a row a lane loads, and the loads a lane has
-# in flight before it reduces (kPieceBytes, kUnroll).
+# pa_sums and pa_member_dist: the widest piece of a row a lane loads, and
+# the loads a lane has in flight before it reduces (kPieceBytes, kUnroll).
 PIECE_BYTES = 16
 SUMS_UNROLL = 4
+# pa_window: its one block's warps, a query each, and the 16-byte vectors
+# of flags a lane has in flight (kWindowWarps, kWinLoads).
+WINDOW_WARPS = 7
+WINDOW_LOADS = 2
+# pa_member_dist: the 16-byte loads of owners a thread makes (a block's
+# tile: THREADS * 2 * OWNER_LOADS slots), and the bytes of the floored mean
+# a block keeps in shared memory (kOwnerLoads, kCwBytes).
+OWNER_LOADS = 2
+CW_BYTES = 8192
 # The singles the kernels compute; the most a model may have
 # (kMaxSingles: a model's singles are distinct flags, as
 # Feature.add_feature makes them); and the shared memory of its packed
@@ -65,16 +79,13 @@ MAX_MODEL_BYTES = 48 * 1024
 _WIDTHS = {torch.int8: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8}
 
 
-def window_init(n: int) -> list:
-    """pa_window's reductions before a launch (it restores them after):
-    the firsts start at n, the lasts at -1."""
-    return [n, -1, n, -1, n, -1, -1, -1]
-
-
 def new_state(n: int, device) -> tuple:
-    """(st [STATE_LEN] int64, part [PARTIALS * BLOCKS] int64) for n slots."""
+    """(st [STATE_LEN] int64, part [PARTIALS * BLOCKS] int64) for n slots:
+    pa_window scans for the first live slot on from st[LIVE] and for the
+    last down from st[TAIL], so they start at 0 and n - 1 (slots only die
+    in a phase)."""
     st = torch.zeros(STATE_LEN, dtype=torch.int64)
-    st[SCRATCH: SCRATCH + 8] = torch.tensor(window_init(n))
+    st[TAIL] = n - 1
     return (st.to(device),
             torch.zeros(PARTIALS * BLOCKS, dtype=torch.int64, device=device))
 
@@ -171,23 +182,64 @@ def _last(mask: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
 
 # -- pa_window ----------------------------------------------------------------
 
-def window(st, active, bin_, len_, lo, hi, front_bin, back_bin) -> None:
+def window(st, active, ranges) -> None:
     """st[W0], st[W1]: the inclusive slot range of bvec::get_range(lo, hi)
-    of the center at slot st[LAST] over the live slots; st[LIVE]: the
-    first live slot (n if none). Every slot array is [n]: active bool, the
-    rest int64 (window_plain lists the cases)."""
+    of the center at slot st[LAST] over the live slots; st[LIVE] and
+    st[TAIL]: the first and last live slots (n and -1 if none), found on
+    from their values before the call, which no live slot may precede or
+    follow. active bool [n]; ranges [n, len(RANGES)] int32, the table of
+    core/accumulate_device.window_ranges (window_table_plain says what it
+    holds). The same window as window_plain's on the per-slot arrays."""
     n = active.shape[0]
     _state(st)
-    _slot_arrays(n, active, bin_=bin_, len_=len_, lo=lo, hi=hi,
-                 front_bin=front_bin, back_bin=back_bin)
-    if _device(st, active, bin_, len_, lo, hi, front_bin,
-               back_bin).type == "cpu":
-        return window_plain(st, active, bin_, len_, lo, hi, front_bin,
-                            back_bin)
+    _vec(active, torch.bool, n, "active")
+    if ranges.dtype != torch.int32 or ranges.shape != (n, len(RANGES)) \
+            or not ranges.is_contiguous():
+        raise ValueError(f"ranges: need contiguous [{n}, {len(RANGES)}] "
+                         f"int32, got {tuple(ranges.shape)} {ranges.dtype}")
+    if _device(st, active, ranges).type == "cpu":
+        return window_table_plain(st, active, ranges)
     _launched(_ext.lib().mc_pa_window(
-        st.data_ptr(), active.data_ptr(), bin_.data_ptr(), len_.data_ptr(),
-        lo.data_ptr(), hi.data_ptr(), front_bin.data_ptr(),
-        back_bin.data_ptr(), n, _ext.stream_of(st)), "pa_window")
+        st.data_ptr(), active.data_ptr(), ranges.data_ptr(), n,
+        _ext.stream_of(st)), "pa_window")
+
+
+def window_table_plain(st, active, ranges):
+    """window's function on its table. The center's row names slot ranges
+    [a, b) of the bvec order (bins concatenated, lengths non-decreasing):
+    the front bin [FRONT, FRONT_END), its slots of length >= lo from GE;
+    the back bin [BACK, BACK_END), its slots of length == hi [EQ, GT) and
+    > hi from GT; BIN, a slot's own bin's first slot. Then
+      w0 = the first live of [GE, FRONT_END), else the last live of
+           [FRONT, GE), else the first live slot;
+      w1 = the last live of [EQ, GT), else the first live of [GT,
+           BACK_END), else the last live of [BACK, EQ), else (no live slot
+           in the back bin) the first live of [BIN of the last live slot,
+           it] (the truncation quirk), -1 if none."""
+    n = active.shape[0]
+    slots = torch.arange(n, device=active.device)
+    row = ranges[st[LAST]].to(torch.int64)
+
+    def span(a, b):
+        return active & (slots >= a) & (slots < b)
+
+    first_live = _first(active, slots, n)
+    live_last = _last(active, slots)
+    a = _first(span(row[GE], row[FRONT_END]), slots, n)
+    b = _last(span(row[FRONT], row[GE]), slots)
+    w0 = torch.where(a < n, a, torch.where(b >= 0, b, first_live))
+    c = _last(span(row[EQ], row[GT]), slots)
+    d = _first(span(row[GT], row[BACK_END]), slots, n)
+    e = _last(span(row[BACK], row[EQ]), slots)
+    quirk = _first(active & (slots >= ranges[live_last.clamp(min=0), BIN]),
+                   slots, n)
+    w1 = torch.where(c >= 0, c, torch.where(
+        d < n, d, torch.where(e >= 0, e, torch.where(live_last >= 0, quirk,
+                                                     -1))))
+    st[W0] = w0
+    st[W1] = w1
+    st[LIVE] = first_live
+    st[TAIL] = live_last
 
 
 def window_plain(st, active, bin_, len_, lo, hi, front_bin, back_bin):

@@ -88,7 +88,10 @@ Parts (default: throughput,busy):
               kernel's device ms a launch, bound and share as in the
               cluster part, and the host split of an iteration; then the
               run end to end in turns (wall, accumulate, NMI) with its
-              CLSTR byte-equal across the turns.
+              CLSTR byte-equal across the turns. A parent whose pa_window
+              takes the per-slot arrays (bin, len, lo, hi, front_bin,
+              back_bin) in place of the table is called so
+              (parent_window).
   ranks       several ranks (parallel/dist), for each n of --ranks: n
               ranks (gloo where they share a card, NCCL where each has its
               own) time each collective at the 15k k-mer run's shapes (a
@@ -235,23 +238,24 @@ def piece_line(label: str, wall: float, dev_s: float, launches: int,
             f"{dev_s * 1e3 / iters:.4f} ms an iteration")
 
 
-def phase_a_kernels(ps, bv, params, launches: dict) -> None:
+def phase_a_kernels(ps, bv, params, launches: dict,
+                    traffic: tuple = None) -> None:
     """Each Phase A kernel's device ms a launch under the profiler over the
     first PROFILE_CENTERS centers, its launches in a whole run, its bound
-    (chip_smoke.py:phase_a_traffic over the same centers), the share of
-    it, and the run's loss: launches x (ms - bound)."""
+    (chip_smoke.py:phase_a_traffic over the same centers, unless given),
+    the share of it, and the run's loss: launches x (ms - bound)."""
     ms, dev_ms = smoke.phase_a_device_ms(ps, bv, params, False,
                                          smoke.PROFILE_CENTERS)
-    per_launch, ops_s, _ = smoke.phase_a_traffic(ps, bv, params,
-                                                 smoke.PROFILE_CENTERS)
+    per_launch, ops_s = (traffic or smoke.phase_a_traffic(
+        ps, bv, params, smoke.PROFILE_CENTERS))[:2]
     print(f"    Phase A kernels, first {smoke.PROFILE_CENTERS} centers under "
           f"the profiler: device {dev_ms:.5f} ms an iteration", flush=True)
     for k in smoke.PHASE_A:
         b = smoke.bound(per_launch[k], ops_s[k])
         print(f"      {k}: {ms[k]:.5f} ms a launch, {launches[k]} launches "
-              f"in the run, bound {b['bound_ms']:.6f} ms ({b['bound_by']}, "
+              f"in the run, bound {b['bound_ms']:.6g} ms ({b['bound_by']}, "
               f"{per_launch[k]:.0f} B a launch), share "
-              f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4f}, loss "
+              f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4g}, loss "
               f"{launches[k] * (ms[k] - b['bound_ms']) / 1e3:.4f} s",
               flush=True)
 
@@ -723,6 +727,56 @@ def absorb_windows_ms(ps, bv, params) -> dict:
     return out
 
 
+# The C entry point of pa_window before its table (PR 8's csrc/phase_a.cu):
+# st, active, bin, len, lo, hi, front_bin, back_bin, n, stream
+PARENT_WINDOW_SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_int,
+                                                    ctypes.c_void_p]
+
+
+@contextlib.contextmanager
+def parent_window(handle):
+    """Phase A with handle's pa_window of PARENT_WINDOW_SIGNATURE: launched
+    on the slots' per-slot arrays in place of the table, with its eight
+    reductions' scratch, st[8:16], set as it expects at the start of a
+    phase (firsts at n, lasts at -1)."""
+    import torch
+    from meshclust_tpu_torch import _ext
+    from meshclust_tpu_torch.core import accumulate_device as A
+    from meshclust_tpu_torch.ops import phase_a as P
+    handle.mc_pa_window.argtypes = PARENT_WINDOW_SIGNATURE
+    init, window = A._Slots.__init__, P.window
+
+    def slots_init(self, *a, **kw):
+        init(self, *a, **kw)
+        if self.window_in[0] is self.ranges:        # the kernel path
+            self.window_in = (self.bin, self.len, self.lo, self.hi,
+                              self.front_bin, self.back_bin)
+            n = self.N
+            self.st[8:16] = torch.tensor([n, -1, n, -1, n, -1, -1, -1])
+
+    def parent(st, active, *arrays):
+        P._launched(_ext.lib().mc_pa_window(
+            st.data_ptr(), active.data_ptr(), *(t.data_ptr() for t in arrays),
+            active.shape[0], _ext.stream_of(st)), "pa_window")
+
+    A._Slots.__init__, P.window = slots_init, parent
+    try:
+        yield
+    finally:
+        A._Slots.__init__, P.window = init, window
+
+
+@contextlib.contextmanager
+def phase_a_library(libs: dict, name: str, old_window: bool):
+    """The wrappers on libs[name]; the parent's pa_window called as
+    parent_window calls it where old_window (its signature is
+    PARENT_WINDOW_SIGNATURE)."""
+    with kernels_from(libs[name]), (
+            parent_window(libs[name]) if name == "parent" and old_window
+            else contextlib.nullcontext()):
+        yield
+
+
 def phase_a_compare(dev, parent_dir: str, sizes: list) -> None:
     """The phase_a part: an earlier csrc/phase_a.cu against this tree's,
     in turns (module docstring)."""
@@ -736,13 +790,15 @@ def phase_a_compare(dev, parent_dir: str, sizes: list) -> None:
     paths = build_all({"parent": others + [os.path.abspath(os.path.join(
         parent_dir, "phase_a.cu"))], "this": _ext.sources()})
     libs = {name: _ext.load(path) for name, path in paths.items()}
+    with open(os.path.join(parent_dir, "phase_a.cu")) as f:
+        old_window = "const void* front_bin" in f.read()
     turns = ["parent", "this", "this", "parent"]
     flush = smoke.flush_l2(dev)
     rng = np.random.default_rng(9)
     rows8 = torch.from_numpy(rng.integers(
         0, 128, size=(smoke.PA_SUMS_ROWS, 256), dtype=np.int8)).to(dev)
     for name in turns:
-        with kernels_from(libs[name]):
+        with phase_a_library(libs, name, old_window):
             for label, rows in (("int8", rows8),
                                 ("int8 slice [:, 1:129]", rows8[:, 1:129])):
                 r = smoke.sums_case(rows, True, flush)
@@ -765,20 +821,30 @@ def phase_a_compare(dev, parent_dir: str, sizes: list) -> None:
         bv.bulk_insert(ps.lengths)
         bv.insert_finalize()
         params = res["model"].params
+        traffic = smoke.phase_a_traffic(ps, bv, params,
+                                        smoke.PROFILE_CENTERS)
+        notes = traffic[3]
+        print(f"  {n} reads: pa_window's bound as PR 8's kernel read it "
+              f"(every flag, bin and len of the live slots): "
+              f"{notes['pa_window (all flags)']:.0f} B a launch, against "
+              f"{traffic[0]['pa_window']:.0f} B it must read; a move: "
+              f"{notes['members']:.2f} members in "
+              f"{notes['member warps']:.2f} warps of 32 slots and "
+              f"{notes['member tiles']:.2f} tiles", flush=True)
         for name in ("parent", "this"):
-            with kernels_from(libs[name]):
+            with phase_a_library(libs, name, old_window):
                 print(f"  {name}, {n} reads:", flush=True)
                 if n <= FULL_CLUSTER_READS:
                     ms = absorb_windows_ms(ps, bv, params)
                     print("    pa_absorb ms a launch by window: "
                           + ", ".join(f"{k} {v:.5f}" for k, v in ms.items()),
                           flush=True)
-                phase_a_kernels(ps, bv, params, launches)
+                phase_a_kernels(ps, bv, params, launches, traffic)
                 host_split(ps, bv, params, cfg.similarity)
         clstr = set()
         for i, name in enumerate(turns):
             out = os.path.join(smoke.WORK, f"phase_a_{i}.clstr")
-            with kernels_from(libs[name]):
+            with phase_a_library(libs, name, old_window):
                 wall, phases = run_path(dev, fasta, out, similarity=0.90)
             with open(out, "rb") as f:
                 clstr.add(f.read())
@@ -885,7 +951,8 @@ def kvariants(dev, specs: str) -> None:
 
 SASS_KERNELS = ("nw_align_long_kernel", "kmer_rows_kernelILb0E",
                 "kmer_split_kernel", "pa_absorb_kernelIaE",
-                "pa_sums_kernelIaLi16E")
+                "pa_sums_kernelIaLi16E", "pa_window_kernel",
+                "pa_member_dist_kernelIaLi16E")
 
 
 def sass() -> None:

@@ -336,8 +336,7 @@ def phase_a_lockstep(ps, params, sim, bv):
         t += 1
         while True:
             for sl in both:
-                sl.step.window(sl.st, sl.active, sl.bin, sl.len, sl.lo,
-                               sl.hi, sl.front_bin, sl.back_bin)
+                sl.window()
                 sl.step.sums(sl.st, sl.active, sl.h, sl.sums)
             same("active")
             w0, w1 = kern.st[P.W0: P.W1 + 1].tolist()
@@ -429,6 +428,139 @@ def test_phase_a_at_two_ranks_sharing_the_card(cuda):
             assert res["launches"]["pa_absorb"] == c["accum_iters"]
             assert c["accum_iters"] < c["coll_accumulate"] \
                 <= 2 * c["accum_iters"]
+
+
+def _window_slots(sizes, lens, sim, begin_bounds):
+    """pa_window's inputs for slots in bins of `sizes` (lengths
+    non-decreasing): the plain step's per-slot arrays and the table, as
+    core/accumulate_device._Slots builds them, on the CPU."""
+    from meshclust_tpu_torch.core import accumulate_device as A
+    lo, hi = A.window_limits(lens, sim)
+    front = A.index_of(lo, begin_bounds)[0]
+    back = A.index_of(hi, begin_bounds)[1]
+    plain_in = tuple(torch.as_tensor(np.asarray(a, np.int64)) for a in (
+        np.repeat(np.arange(len(sizes)), sizes), lens, lo, hi, front, back))
+    return plain_in, torch.as_tensor(
+        A.window_ranges(lens, sizes, lo, hi, front, back))
+
+
+def _windows_equal_plain(cuda, plain_in, ranges, centers, masks):
+    """pa_window, one launch a center, against window_plain for each
+    center under each mask in turn (each a subset of the one before, st
+    carried over as in a phase): w0, w1, the first and the last live
+    slot."""
+    from meshclust_tpu_torch.ops import phase_a as P
+    n = ranges.shape[0]
+    dev_in = tuple(t.to(cuda) for t in plain_in)
+    ranges = ranges.to(cuda)
+    st, _ = P.new_state(n, cuda)
+    launches = _ext.launches["pa_window"]
+    for act in masks:
+        active = torch.as_tensor(act).to(cuda)
+        tail = int(np.flatnonzero(act)[-1]) if act.any() else -1
+        for c in centers:
+            want, _ = P.new_state(n, cuda)
+            want[P.LAST] = st[P.LAST] = int(c)
+            P.window_plain(want, active, *dev_in)
+            P.window(st, active, ranges)
+            keys = [P.W0, P.W1, P.LIVE]
+            assert st[keys].tolist() == want[keys].tolist(), (c, act.sum())
+            assert int(st[P.TAIL]) == tail
+    assert _ext.launches["pa_window"] == launches + len(masks) * len(centers)
+
+
+def test_pa_window_kernel_equals_plain_small_corpus(cuda):
+    """The small corpus's slots (bins of 40): every center slot under
+    random masks that shrink to all dead."""
+    from meshclust_tpu_torch.core import accumulate_device as A
+    ps, params, _ = _phase_a_case(1, "cpu")
+    bv = _bvec(ps)
+    sl = A._Slots(ps, bv, params, 0.90)
+    rng = np.random.default_rng(11)
+    act = rng.random(sl.N) < 0.7
+    masks = [np.ones(sl.N, bool), act, act & (rng.random(sl.N) < 0.2),
+             np.zeros(sl.N, bool)]
+    _windows_equal_plain(cuda, sl.window_in, sl.ranges, range(sl.N), masks)
+
+
+def test_pa_window_kernel_equals_plain_150k_slots(cuda):
+    """150,000 synthetic slots in bins of 1,000 (lengths 800-1,250 bp, the
+    default bin size, --id 0.90) at 400 random centers under masks that
+    shrink from 90% to 0.45% live and to none, the flags at an odd
+    address too."""
+    rng = np.random.default_rng(12)
+    n = 150000
+    lens = np.sort(rng.integers(800, 1250, size=n))
+    plain_in, ranges = _window_slots([1000] * (n // 1000), lens, 0.90,
+                                     lens[::1000].tolist())
+    masks = [rng.random(n) < 0.9]
+    for p in (0.1, 0.05, 0.0):
+        masks.append(masks[-1] & (rng.random(n) < p))
+    centers = rng.integers(0, n, size=400)
+    _windows_equal_plain(cuda, plain_in, ranges, centers, masks)
+    from meshclust_tpu_torch.ops import phase_a as P
+    odd = torch.zeros(n + 1, dtype=torch.bool, device=cuda)[1:]
+    odd.copy_(torch.as_tensor(masks[1]))
+    st, _ = P.new_state(n, cuda)
+    want, _ = P.new_state(n, cuda)
+    for c in centers[:50]:
+        st[P.LAST] = want[P.LAST] = int(c)
+        P.window(st, odd, ranges.to(cuda))
+        P.window_plain(want, odd, *(t.to(cuda) for t in plain_in))
+        assert st[:P.W1 + 1].tolist() == want[:P.W1 + 1].tolist()
+
+
+# pa_member_dist's rows: (V, dtype, counts drawn from, a rank's column
+# slice [start, stop) or None); V * width past the kernel's 8 KB of the
+# mean in shared memory takes chunks
+PA_MEMBER_ROWS = {
+    "k1_int8": (4, torch.int8, np.arange(128), None),
+    "int8": (256, torch.int8, np.arange(128), None),
+    "int8_odd_slice": (256, torch.int8, np.arange(128), (171, 256)),
+    "int8_chunked_V16384": (16384, torch.int8, np.arange(128), None),
+    "int16": (256, torch.int16, np.array([0, 1, 300, 32767]), None),
+    "int16_odd_slice": (100, torch.int16, np.arange(300), (33, 100)),
+    "int32": (256, torch.int32, np.arange(0, 46341, 97), None),
+    "int64": (256, torch.int64, np.arange(0, 10 ** 6, 999), None),
+    "int64_chunked_V2048": (2048, torch.int64, np.arange(0, 10 ** 6, 999),
+                            None),
+}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("case", sorted(PA_MEMBER_ROWS))
+def test_pa_member_dist_kernel_equals_plain(cuda, case, aligned):
+    """pa_member_dist against member_dist_plain, one launch: members in a
+    run of neighbouring slots and scattered over 3,000 slots (three
+    tiles), sumvec their rows' sum, count their number; every member's
+    distance and sum cw equal, the other slots keep what they held; owner
+    at a 16-byte address or not."""
+    from meshclust_tpu_torch.ops import phase_a as P
+    V, dtype, pool, cols = PA_MEMBER_ROWS[case]
+    rng = np.random.default_rng(V + 1)
+    n, c = 3000, 5
+    full = torch.as_tensor(rng.choice(pool, size=(n, V))).to(dtype).to(cuda)
+    rows = full if cols is None else full[:, cols[0]: cols[1]]
+    own = rng.integers(0, 9, size=n)
+    own[1000: 1100] = c
+    base = torch.full((n + 1,), -1, dtype=torch.int64, device=cuda)
+    owner = base[:n] if aligned else base[1:]
+    owner.copy_(torch.as_tensor(own))
+    members = torch.nonzero(owner == c).flatten()
+    st, _ = P.new_state(n, cuda)
+    st[P.COUNT] = members.numel()
+    sumvec = rows[members].to(torch.int64).sum(0)
+    got = torch.full((n + 1,), -7, dtype=torch.int64, device=cuda)
+    before = _ext.launches["pa_member_dist"]
+    P.member_dist(st, owner, c, rows, sumvec, got)
+    assert _ext.launches["pa_member_dist"] == before + 1
+    want = torch.zeros(n + 1, dtype=torch.int64, device=cuda)
+    P.member_dist_plain(st, owner, c, rows, sumvec, want)
+    mask = torch.zeros(n + 1, dtype=torch.bool, device=cuda)
+    mask[members] = True
+    mask[n] = True
+    assert torch.equal(got[mask], want[mask])
+    assert bool((got[~mask] == -7).all())
 
 
 # pa_sums on rows at the edges of its pieces and byte SIMD: (V, dtype,

@@ -6,15 +6,22 @@ its grid (blocks of threads walking a slot range, grid-strided; warps of
 lanes striding over the V counts), its reductions (each thread's own
 slots, then its block, then the blocks' atomics or partials combined by
 the last block, here in a random block order) and its tie rules:
-  pa_window       masked min and max over the live slots, and the first
-                  live slot of the last non-empty bin as the maximum of
-                  bin * (N + 1) + (N - slot);
+  pa_window       one block, a warp a query: the first or last live slot
+                  of a slot range named by the center's row of the table
+                  (core/accumulate_device.window_ranges), read as 16-byte
+                  vectors of flags a step (the byte-to-bit packing, the
+                  ends read byte by byte, ballot and __ffs / __clz), the
+                  first and last live slots scanned on from st[LIVE] and
+                  st[TAIL], and the truncation quirk's second query;
   pa_sums         a warp a live slot of [w0, w1]; no other row is read;
   pa_absorb       the float64 classifier read from ops/phase_a.Model's
                   packed arrays in the kernel's order, the first max of f1
                   as (max, least slot) with NaN making it N, positives'
                   rows added into sumvec;
-  pa_member_dist  only the members' rows (owner == c), warp by warp;
+  pa_member_dist  tiles of owners compacted into member lists (ballots,
+                  warps in a random order), the floored mean once a block
+                  and chunk of V, members in lane groups over pieces; only
+                  the members' rows (owner == c) are read;
   pa_mean_argmin  the least (d, stamp, slot).
 The rows may be cut into feature shards whose partials are summed, as
 under a mesh. The model is held equal, step by step and iteration by
@@ -32,6 +39,8 @@ import re
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as hst
 
 from meshclust_tpu_torch.core import accumulate_device as A
 from meshclust_tpu_torch.ops import features as F
@@ -43,12 +52,15 @@ from tests.test_torch_device_backend import toy_model, toy_points
 torch.set_num_threads(1)
 os.environ.setdefault("MESHCLUST_QUIET", "1")
 # grid shapes: the kernels' own, and a small one whose blocks each see many
-# slots (blocks, threads a block, lanes a warp)
-# and pa_sums's blocks: on the card SMs x resident blocks (an H100 SXM's 132
-# x 8 here)
+# slots (blocks, threads a block, lanes a warp); pa_sums's blocks: on the
+# card SMs x resident blocks (an H100 SXM's 132 x 8 here); pa_window's
+# vectors a lane has in flight; pa_member_dist's owner loads a thread and
+# bytes of the mean a chunk
 OWN = dict(blocks=P.BLOCKS, threads=P.THREADS, lanes=32,
-           sums_blocks=132 * 8)
-SMALL = dict(blocks=3, threads=8, lanes=4, sums_blocks=3)
+           sums_blocks=132 * 8, win_loads=P.WINDOW_LOADS,
+           owner_loads=P.OWNER_LOADS, cw_bytes=P.CW_BYTES)
+SMALL = dict(blocks=3, threads=8, lanes=4, sums_blocks=3, win_loads=1,
+             owner_loads=1, cw_bytes=16)
 SOURCE = os.path.join(os.path.dirname(A.__file__), "..", "csrc", "phase_a.cu")
 
 
@@ -92,43 +104,91 @@ def d_op(a, b, stamp_first=True):
     return b if kb < ka else a
 
 
-def model_window(st, s, grid, rng):
-    """pa_window on the numpy slot arrays of s (a dict)."""
-    N = s["active"].shape[0]
-    last = st[P.LAST]
-    fb, lo_c = s["front_bin"][last], s["lo"][last]
-    bb, hi_c = s["back_bin"][last], s["hi"][last]
-    parts = []
-    for slots in grid_owner(0, N, grid["blocks"],
-                            grid["threads"]).values():
-        r = [N, -1, N, -1, N, -1, -1, -1]
-        for x in slots:
-            if not s["active"][x]:
-                continue
-            b, L = s["bin"][x], s["len"][x]
-            if b == fb:
-                if L >= lo_c:
-                    r[0] = min(r[0], x)
-                r[1] = max(r[1], x)
-            r[2] = min(r[2], x)
-            if b == bb:
-                if L == hi_c:
-                    r[3] = max(r[3], x)
-                if L > hi_c:
-                    r[4] = min(r[4], x)
-                r[5] = max(r[5], x)
-            r[6] = max(r[6], x)
-            r[7] = max(r[7], b * (N + 1) + (N - x))
-        parts.append(r)
-    a = list(st[P.SCRATCH: P.SCRATCH + 8])
-    assert a == P.window_init(N)                # restored by the last launch
-    a = combine(parts + [a], lambda u, v: [
-        min(u[i], v[i]) if i in (0, 2, 4) else max(u[i], v[i])
-        for i in range(8)], rng)
-    w0 = (a[0] if a[0] < N else a[1]) if a[1] >= 0 else a[2]
-    w1 = ((a[3] if a[3] >= 0 else (a[4] if a[4] < N else a[5]))
-          if a[5] >= 0 else (N - a[7] % (N + 1) if a[6] >= 0 else -1))
-    st[P.W0], st[P.W1], st[P.LIVE] = w0, w1, a[2]
+def live_bits(act, s0, a, b, mis):
+    """csrc/phase_a.cu:live_bits -> (bits, slots read): bit i where slot
+    s0 + i is live and lies in [a, b); s0 starts a 16-byte-aligned vector
+    (mis: the flags' address mod 16), read whole where it lies in [0, n),
+    else byte by byte where it does; each word's nonzero bytes packed into
+    4 bits by the mask and multiply of the kernel."""
+    n = act.shape[0]
+    if s0 >= b or s0 + 16 <= a:
+        return 0, []
+    assert (s0 + mis) % 16 == 0
+    read = [x for x in range(s0, s0 + 16) if 0 <= x < n]
+    raw = np.zeros(16, np.uint8)
+    raw[[x - s0 for x in read]] = act[read]
+    bits = 0
+    for k, w in enumerate(raw.view("<u4").tolist()):
+        ne = sum(0xff << (8 * e) for e in range(4) if (w >> (8 * e)) & 0xff)
+        bits |= (((ne & 0x08040201) * 0x01010101) & 0xffffffff) >> 24 \
+            << (4 * k)
+    lo, hi = a - s0, b - s0
+    if lo > 0:
+        bits &= 0xffff << lo
+    if hi < 16:
+        bits &= (1 << hi) - 1
+    return bits, read
+
+
+def scan_live(act, a, b, mis, grid, forward, reads):
+    """first_live (forward) or last_live of csrc/phase_a.cu: the first or
+    last live slot of [a, b), -1 if none, a warp of grid["lanes"] lanes
+    reading grid["win_loads"] vectors a lane a step and stopping at the
+    first step with a live flag; the slots it reads go into reads."""
+    L, U = grid["lanes"], grid["win_loads"]
+    a, b = int(a), int(b)
+    if a >= b:
+        return -1
+    base = (a if forward else b - 1)
+    base -= (base + mis) % 16
+    while (base < b) if forward else (base + 16 > a):
+        for u in range(U):
+            got = []
+            for lane in range(L):
+                s0 = base + 16 * (u * L + lane) * (1 if forward else -1)
+                bits, read = live_bits(act, s0, a, b, mis)
+                reads.update(read)
+                got.append((s0, bits))
+            hits = [(s0, bits) for s0, bits in got if bits]
+            if hits:                            # the least lane
+                s0, bits = hits[0]
+                i = ((bits & -bits).bit_length() - 1) if forward \
+                    else bits.bit_length() - 1
+                return s0 + i
+        base += 16 * L * U * (1 if forward else -1)
+    return -1
+
+
+def model_window(st, act, ranges, grid, mis=0):
+    """pa_window on the flags act (numpy bool [N]) and its table; -> the
+    slots whose flags it read. The scans for the first and last live slots
+    start at st[LIVE] and st[TAIL], which no live slot may precede or
+    follow."""
+    N = act.shape[0]
+    live0, tail0 = int(st[P.LIVE]), int(st[P.TAIL])
+    assert not act[:live0].any() and not act[tail0 + 1:].any()
+    reads = set()
+    row = ranges[st[P.LAST]].astype(np.int64)
+
+    def q(a, b, forward):
+        return scan_live(act, a, b, mis, grid, forward, reads)
+
+    found = [q(live0, N, True), q(0, tail0 + 1, False),
+             q(row[P.GE], row[P.FRONT_END], True),
+             q(row[P.FRONT], row[P.GE], False),
+             q(row[P.EQ], row[P.GT], False),
+             q(row[P.GT], row[P.BACK_END], True),
+             q(row[P.BACK], row[P.EQ], False)]
+    assert len(found) == P.WINDOW_WARPS
+    first = N if found[0] < 0 else found[0]
+    tail = found[1]
+    w0 = next((x for x in (found[2], found[3]) if x >= 0), first)
+    w1 = next((x for x in found[4:] if x >= 0), -1)
+    if w1 < 0 and tail >= 0:                    # the truncation quirk
+        w1 = q(int(ranges[tail, P.BIN]), tail + 1, True)
+    st[P.W0], st[P.W1], st[P.LIVE], st[P.TAIL] = w0, w1, first, tail
+    assert all(0 <= x < N for x in reads)
+    return reads
 
 
 def piece_bytes(addr: int, pitch: int, length: int, width: int) -> int:
@@ -345,30 +405,78 @@ def model_absorb(st, s, sums, spec, coef, with_dot, shards, sumvecs, c, t,
     st[P.COUNT] += npos
 
 
-def model_member_dist(st, s, c, shards, sumvecs, grid):
-    """pa_member_dist over feature shards: -> (dist [N + 1] with -7 where
-    the kernel writes nothing, the slots whose rows it read)."""
+def model_member_dist(st, s, c, shards, sumvecs, grid, rng):
+    """pa_member_dist over feature shards (each a rank's launch, their
+    dists summed as the psum sums them): -> (dist [N + 1] with -7 where
+    the kernel writes nothing, the slots whose rows it read). A block
+    takes a tile of threads * 2 * owner_loads owners, thread t's load j
+    slots tile + 2 * (j * threads + t) + {0, 1}; each (load, slot of the
+    pair) is one ballot a warp, whose members a warp appends to the
+    block's list in the order the warps win the shared atomic. A block
+    with no member stops (block 0 goes on for dist[N]). V in chunks of
+    cw_bytes: cw = floor(sumvec / count) once a chunk, then each member's
+    pieces of the chunk (piece_bytes of the slice) against cw's, int8
+    partials within 32 bits; the first chunk writes, the later ones
+    add."""
     N = s["owner"].shape[0]
-    L = grid["lanes"]
+    T, W, OL = grid["threads"], grid["lanes"], grid["owner_loads"]
+    tile = T * 2 * OL
     count = np.float64(st[P.COUNT])
+    width = shards[0].dtype.itemsize
+    pitch = sum(h.shape[1] for h in shards) * width
     dist = np.full(N + 1, -7, np.int64)
-    dist[N] = 0
-    read = []
-    warps = grid["threads"] // L
-    chunks = grid_owner(0, -(-N // L), grid["blocks"], warps)
+    read, col0 = set(), 0
     for h, sv in zip(shards, sumvecs):
-        cw = np.floor(sv.astype(np.float64) / count).astype(np.int64)
-        for units in chunks.values():
-            for u in units:
-                for x in range(u * L, min(u * L + L, N)):
-                    if s["owner"][x] != c:
-                        continue
-                    read.append(x)
-                    part = 2 * int(np.minimum(h[x].astype(np.int64),
-                                              cw).sum())
-                    dist[x] = part if dist[x] == -7 else dist[x] + part
-        dist[N] += int(cw.sum())
-    return dist, sorted(set(read))
+        vl = h.shape[1]
+        vec = piece_bytes(col0 * width, pitch, vl * width, width)
+        chunk = grid["cw_bytes"] // width
+        out = np.full(N + 1, -7, np.int64)
+        for block in range(max(1, -(-N // tile))):
+            lst = []
+            for e in range(2 * OL):
+                warps = []
+                for w in range(T // W):
+                    xs = [block * tile + 2 * ((e >> 1) * T + w * W + lane)
+                          + (e & 1) for lane in range(W)]
+                    warps.append([x for x in xs
+                                  if x < N and s["owner"][x] == c])
+                for w in rng.permutation(len(warps)):
+                    lst += warps[w]
+            if not lst and block:
+                continue
+            cw_sum = 0
+            for c0 in range(0, vl, chunk):
+                cw = np.floor(sv[c0: c0 + chunk].astype(np.float64)
+                              / count).astype(np.int64)
+                cw_sum += int(cw.sum())
+                nbytes = cw.shape[0] * width
+                assert nbytes % vec == 0
+                nv, E = nbytes // vec, vec // width
+                lanes = 1
+                while lanes < nv and lanes < W:
+                    lanes *= 2
+                m = cw.astype(h.dtype).reshape(nv, E)
+                for x in lst:
+                    read.add(x)
+                    part = np.minimum(h[x, c0: c0 + chunk].reshape(nv, E),
+                                      m).astype(np.int64).sum(1)
+                    if h.dtype == np.int8:      # 32-bit lane partials
+                        span = lanes if nv <= lanes else W * P.SUMS_UNROLL
+                        assert all(fits_int32(part[i: i + span].sum())
+                                   for i in range(0, nv, span))
+                    d = 2 * int(part.sum())
+                    if c0 == 0:
+                        out[x] = d
+                    else:
+                        assert out[x] != -7
+                        out[x] += d
+            if block == 0:
+                out[N] = cw_sum
+        written = out != -7
+        dist[written] = np.where(dist[written] == -7, 0,
+                                 dist[written]) + out[written]
+        col0 += vl
+    return dist, sorted(read)
 
 
 def model_mean_argmin(st, s, dist, c, grid, rng, stamp_first=True):
@@ -393,8 +501,7 @@ def model_mean_argmin(st, s, dist, c, grid, rng, stamp_first=True):
 
 def numpy_slots(sl):
     """The numpy copy of a plain _Slots' arrays that the model works on."""
-    keys = ("active", "bin", "len", "lo", "hi", "front_bin", "back_bin",
-            "mag", "sq", "lenf", "owner", "stamp")
+    keys = ("active", "ranges", "mag", "sq", "lenf", "owner", "stamp")
     return {k: getattr(sl, k).numpy().copy() for k in keys}
 
 
@@ -433,9 +540,8 @@ def lockstep(ps, bv, params, sim, n_shards=1, grid=SMALL, seed=0,
         sumvecs = [h[seed_slot].astype(np.int64) for h in shards]
         t += 1
         while True:
-            step.window(sl.st, sl.active, sl.bin, sl.len, sl.lo, sl.hi,
-                        sl.front_bin, sl.back_bin)
-            model_window(st, s, grid, rng)
+            sl.window()
+            model_window(st, s["active"], s["ranges"], grid, seed % 16)
             same_state()
             w0, w1 = st[P.W0], st[P.W1]
             rec.setdefault("first_window", (w0, w1))
@@ -464,7 +570,8 @@ def lockstep(ps, bv, params, sim, n_shards=1, grid=SMALL, seed=0,
             if n_pos == 0:
                 break
             step.member_dist(sl.st, sl.owner, c, sl.h, sl.sumvec, sl.dist)
-            mdist, read = model_member_dist(st, s, c, shards, sumvecs, grid)
+            mdist, read = model_member_dist(st, s, c, shards, sumvecs, grid,
+                                            rng)
             members = np.flatnonzero(s["owner"] == c).tolist()
             assert read == members
             np.testing.assert_array_equal(mdist[members + [N]],
@@ -792,6 +899,111 @@ def test_model_takes_distinct_singles_only():
         P.Model(params, 256, "cpu")
 
 
+# -- pa_window's table against window_plain ----------------------------------
+
+def check_windows(sizes, lens, lo, hi, front, back, masks, grid, mis=0):
+    """For each mask in turn (each a subset of the one before, as slots
+    die in a phase), the window of every center slot: the model (its st
+    carried over from mask to mask) and the wrapper's CPU path
+    (window_table_plain) on core/accumulate_device.window_ranges's table
+    against window_plain on the per-slot arrays (bins of `sizes` slots).
+    -> [(w0, w1)] in order."""
+    N = len(lens)
+    plain_in = tuple(torch.as_tensor(np.asarray(a, np.int64)) for a in (
+        np.repeat(np.arange(len(sizes)), sizes), lens, lo, hi, front, back))
+    ranges = A.window_ranges(lens, sizes, lo, hi, front, back)
+    st_m = P.new_state(N, "cpu")[0].numpy().copy()
+    st_t = P.new_state(N, "cpu")[0]
+    out, keys = [], [P.W0, P.W1, P.LIVE]
+    for act in masks:
+        active = torch.as_tensor(act)
+        live = np.flatnonzero(act)
+        for c in range(N):
+            st_p = P.new_state(N, "cpu")[0]
+            st_p[P.LAST] = st_t[P.LAST] = st_m[P.LAST] = c
+            P.window_plain(st_p, active, *plain_in)
+            model_window(st_m, act, ranges, grid, mis)
+            P.window(st_t, active, torch.as_tensor(ranges))
+            want = st_p[keys].tolist()
+            assert st_m[keys].tolist() == want
+            assert st_t[keys].tolist() == want
+            assert st_m[P.TAIL] == st_t[P.TAIL] == (live[-1] if live.size
+                                                    else -1)
+            out.append(tuple(want[:2]))
+    return out
+
+
+@settings(max_examples=30, deadline=None, derandomize=True, database=None)
+@given(data=hst.data())
+@pytest.mark.parametrize("grid", ["small", "own"])
+def test_window_table_equals_window_plain(grid, data):
+    """Random bins (empty ones too), non-decreasing lengths, any window
+    limits and front and back bins a center, random live masks that shrink
+    to all dead, and any alignment of the flags: the window of every center
+    slot under each mask."""
+    nb = data.draw(hst.integers(1, 5))
+    sizes = data.draw(hst.lists(hst.integers(0, 24), min_size=nb,
+                                max_size=nb))
+    N = sum(sizes)
+    if N == 0:
+        return
+    steps = data.draw(hst.lists(hst.integers(0, 3), min_size=N, max_size=N))
+    lens = 100 + np.cumsum(steps)
+    pick = lambda lo_, hi_: np.asarray(data.draw(hst.lists(      # noqa: E731
+        hst.integers(lo_, hi_), min_size=N, max_size=N)))
+    lo, hi = lens - pick(0, 8), lens + pick(0, 8)
+    front, back = pick(0, nb - 1), pick(0, nb - 1)
+    p = data.draw(hst.sampled_from([0.1, 0.5, 0.9, 1.0]))
+    rng = np.random.default_rng(data.draw(hst.integers(0, 2 ** 16)))
+    act = rng.random(N) < p
+    masks = [act, act & (rng.random(N) < 0.5), np.zeros(N, bool)]
+    check_windows(sizes, lens, lo, hi, front, back, masks,
+                  SMALL if grid == "small" else OWN,
+                  data.draw(hst.integers(0, 15)))
+
+
+# four bins of four slots; a center at slot 5 whose (lo, front bin, hi,
+# back bin) and dead slots make each case of window_plain, with its (w0, w1)
+WINDOW_LENS = [10, 10, 11, 12, 13, 13, 14, 15, 16, 16, 17, 18, 19, 20, 20, 21]
+WINDOW_CASES = {
+    "front_ge": ((13, 1, 16, 2), [], (4, 9)),
+    "front_at_bin_edge": ((16, 2, 16, 2), [], (8, 9)),
+    "front_none_ge_takes_the_bins_last": ((16, 1, 17, 2), [6], (7, 10)),
+    "empty_front_bin_takes_the_first_live": ((13, 1, 16, 2),
+                                             [0, 4, 5, 6, 7], (1, 9)),
+    "back_eq_run_dead_takes_the_first_gt": ((13, 1, 16, 2), [8, 9], (4, 10)),
+    "back_only_shorter_takes_the_bins_last": ((13, 1, 20, 3), [13, 14, 15],
+                                              (4, 12)),
+    "truncation_quirk": ((13, 1, 20, 3), [12, 13, 14, 15, 8, 11], (4, 9)),
+    "nothing_live": ((13, 1, 16, 2), list(range(16)), (16, -1)),
+}
+
+
+@pytest.mark.parametrize("grid", ["small", "own"])
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_window_cases(case, grid):
+    """Each case of window_plain at the center slot 5: the model and the
+    table's plain step give window_plain's (w0, w1), the one written
+    down, at flags of every alignment."""
+    (lo_c, fb, hi_c, bb), dead, want = WINDOW_CASES[case]
+    lens = np.asarray(WINDOW_LENS)
+    lo, hi = lens.copy(), lens.copy()
+    front, back = np.arange(16) // 4, np.arange(16) // 4
+    lo[5], front[5], hi[5], back[5] = lo_c, fb, hi_c, bb
+    act = np.ones(16, bool)
+    act[dead] = False
+    for mis in range(16):
+        got = check_windows([4] * 4, lens, lo, hi, front, back, [act],
+                            SMALL if grid == "small" else OWN, mis)
+        assert got[5] == want
+
+
+def test_window_ranges_need_sorted_lengths():
+    """The table reads a length bound as a searchsorted over the slots."""
+    with pytest.raises(ValueError):
+        A.window_ranges([3, 2], [2], [1, 1], [4, 4], [0, 0], [0, 0])
+
+
 def test_source_constants_match_the_wrappers():
     """csrc/phase_a.cu's grid, state slots and flags are the ones
     ops/phase_a.py and ops/features.py name."""
@@ -809,12 +1021,20 @@ def test_source_constants_match_the_wrappers():
     assert const("kMaxSingles") == P.MAX_SINGLES
     assert const("kPieceBytes") == P.PIECE_BYTES
     assert const("kUnroll") == P.SUMS_UNROLL
+    assert const("kWindowWarps") == P.WINDOW_WARPS
+    assert const("kWinLoads") == P.WINDOW_LOADS
+    assert const("kOwnerLoads") == P.OWNER_LOADS
+    assert const("kCwBytes") == P.CW_BYTES
+    assert const("kRanges") == len(P.RANGES)
     for name, want in (("kNPos", P.NPOS), ("kBest", P.BEST),
                        ("kLast", P.LAST), ("kLive", P.LIVE), ("kW0", P.W0),
-                       ("kW1", P.W1), ("kCount", P.COUNT),
-                       ("kScratch", P.SCRATCH), ("kTicket", P.TICKETS),
+                       ("kW1", P.W1), ("kCount", P.COUNT), ("kTail", P.TAIL),
+                       ("kTicket", P.TICKETS),
                        ("kComboSquared", F.COMBO_SQUARED)):
         assert const(name) == want, name
+    for i, col in enumerate(P.RANGES):
+        name = "k" + "".join(w.title() for w in col.split("_"))
+        assert const(name) == i == getattr(P, col), name
     for name, want in (("kFeatLD", F.FEAT_LD),
                        ("kFeatManhattan", F.FEAT_MANHATTAN),
                        ("kFeatIntersection", F.FEAT_INTERSECTION),
@@ -822,7 +1042,7 @@ def test_source_constants_match_the_wrappers():
                        ("kFeatSimRatio", F.FEAT_SIMRATIO),
                        ("kFeatKulczynski2", F.FEAT_KULCZYNSKI2)):
         assert flag(name) == want, name
-    assert P.TICKETS + 3 <= P.STATE_LEN
+    assert P.TICKETS + 2 <= P.STATE_LEN
     assert set(P.SUPPORTED) == {F.FEAT_LD, F.FEAT_MANHATTAN,
                                 F.FEAT_INTERSECTION, F.FEAT_PEARSON,
                                 F.FEAT_SIMRATIO, F.FEAT_KULCZYNSKI2}
