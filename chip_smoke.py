@@ -18,18 +18,23 @@ Phases (any failure exits non-zero before the last line):
      flushed L2, beside its other mode and the device featurization
      (launch + narrowing); the NW kernel also on pairs at its thread, warp
      and strip edges (from the constants ops/align_device.py exports),
-     lopsided pairs and one 40 kb x 40 kb pair; Phase A's five kernels
+     lopsided pairs and one 40 kb x 40 kb pair; Phase A's six kernels
      (csrc/phase_a.cu) on the 15k-read and the 150k-read k-mer corpora's
      Phase A inputs (each from one run of the path): each kernel against
-     its plain step over the first 200 absorb iterations, then the whole
-     phase's owner, stamp and center slots against the plain path's, in
-     turns (plain, kernels, kernels, plain) with their walls and ms an
-     iteration, each kernel's device time and its plain step's under the
-     profiler, launches an iteration and the bytes an iteration must move
-     (pa_window's beside PR 8's count, every flag); pa_member_dist also on
-     the largest center of the whole phase, with the L2 flushed, beside
-     the PyTorch yardstick (cdist, p = 1, on float32 copies of the
-     members' rows and the floored mean);
+     its plain step over the first 200 absorb iterations (pa_move, and
+     the mesh path's pa_member_dist and pa_mean_argmin on a copy of the
+     state at each move), then the whole phase's owner, stamp and center
+     slots against the plain path's, in turns (plain, kernels, kernels,
+     plain) with their walls and ms an iteration, each kernel's device
+     time and its plain step's under the profiler (a move through pa_move,
+     and through the mesh path's two kernels), launches an iteration, the
+     bytes an iteration must move (pa_window's beside a count of every
+     flag) and each move's members' first and last tile of owners;
+     pa_member_dist and pa_move also on the largest center of the whole
+     phase, with the L2 flushed, beside the PyTorch yardsticks (cdist, p =
+     1, on float32 copies of the members' rows and the floored mean; for
+     pa_move then distance_d and argmin) and pa_move beside the mesh
+     path's two launches;
      pa_sums also on 1,000,000 synthetic rows of 256 counts (int8, with
      and without the dot, int16, int32, and an int8 column slice at an odd
      byte) and on the 15k corpus's rows, over a window of every slot, with
@@ -40,7 +45,8 @@ Phases (any failure exits non-zero before the last line):
      - k-mer mode: 15,000 synthetic reads of ~1 kb, --id 0.90, default
        flags; the native host libraries must have loaded, the run must have
        clustered on the device (DeviceBackend, device Phase A through its
-       kernels, three an absorb iteration and two a move of the center,
+       kernels, three an absorb iteration and one, pa_move, a move of the
+       center,
        the fused Phase B with no replay fallback; its accumulate and
        phase_b seconds, absorb iterations and readbacks printed) and the
        partition must
@@ -49,8 +55,11 @@ Phases (any failure exits non-zero before the last line):
        byte-equal CLSTR file; then a small corpus clustered on the GPU and
        on the CPU (plain versions) must give byte-equal CLSTR files;
      - align mode on genomes: a 6-virus mix of 9-12 kb genomes at --id 0.50,
-       NMI against the planted species >= 0.889, and 32 pairs of the run's identity memo re-aligned
-       by the plain version must give the same identities;
+       NMI against the planted species >= 0.889, and 32 pairs of the run's
+       identity memo re-aligned by the plain version must give the same
+       identities; the same run with MESHCLUST_ALIGN_STAGE_MB=0 (each
+       launch packs its own pairs) and a boundary budget of a few pairs a
+       launch must write a byte-equal CLSTR;
      - align mode on short reads (--align --id 0.90): GPU and CPU CLSTR
        files must be byte-equal;
   5. checkpoint, trace and Red:
@@ -70,8 +79,10 @@ Phases (any failure exits non-zero before the last line):
   6. ranks (parallel/dist.launch, one spawned process a rank): the 15k
      k-mer run at 2 ranks sharing the card (gloo) must write phase 4's
      CLSTR byte for byte, each rank launching kmer_hist once, the NW
-     kernel as often as phase 4's run and pa_absorb once an absorb
-     iteration; each rank prints its device and
+     kernel as often as phase 4's run, pa_absorb once an absorb
+     iteration and a move as pa_member_dist and pa_mean_argmin (the
+     all-reduce of the distances between them); each rank prints its
+     device and
      backend, rows featurized, launches, featurize/train/accumulate/
      phase_b seconds and its collectives and bytes by site, and the wall
      is printed against phase 4's; the small corpus at 3 and 4 ranks and
@@ -519,8 +530,13 @@ def check_nw_long(dev) -> dict:
 # phase 3: Phase A's kernels (csrc/phase_a.cu)
 # ---------------------------------------------------------------------------
 
-PHASE_A = ("pa_window", "pa_sums", "pa_absorb", "pa_member_dist",
+PHASE_A = ("pa_window", "pa_sums", "pa_absorb", "pa_move", "pa_member_dist",
            "pa_mean_argmin")
+# The JAX code each Phase A kernel replaces
+# (meshclust_tpu/core/accumulate_device.py).
+PHASE_A_REPLACES = {"pa_window": 173, "pa_sums": 237, "pa_absorb": 237,
+                    "pa_move": 394, "pa_member_dist": 394,
+                    "pa_mean_argmin": 394}
 # Float64 operations of the classifier on one slot with the default singles
 # (csrc/phase_a.cu:classify; a division or root counted as one), and one
 # H100 SXM's float64 rate outside the tensor cores (NVIDIA's data sheet).
@@ -542,6 +558,26 @@ def phase_a_steps(wrap):
         yield
     finally:
         P.steps = steps
+
+
+@contextlib.contextmanager
+def listed_moves():
+    """_Slots.move in the mesh path's two steps on one rank, without the
+    all-reduce: pa_member_dist listing the members, then pa_mean_argmin over
+    the list (their plain steps on the plain path)."""
+    from meshclust_tpu_torch.core import accumulate_device as A
+    move = A._Slots.move
+
+    def two_steps(self, c):
+        self.step.member_dist(self.st, self.owner, c, self.h, self.sumvec,
+                              self.dist, self.part)
+        self.step.mean_argmin(self.st, self.dist, self.mag, self.owner,
+                              self.stamp, c, self.part)
+    A._Slots.move = two_steps
+    try:
+        yield
+    finally:
+        A._Slots.move = move
 
 
 def ranged(name, fn):
@@ -637,13 +673,17 @@ def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
     path on these inputs (cut at cmax centers if cmax > 0): each input
     read once, each output written once, counted from what the data made
     each launch do (a replay that reads back, after each step, the window,
-    its live slots, the positives and the members); and, a launch, notes
-    of the layouts' work: "pa_window (all flags)", PR 8's count of
-    pa_window's bytes (every slot's flag, bin and len of the live ones);
-    "members", a move's members; "member warps" and "member tiles", the
-    32-slot and the 1,024-slot chunks of slots that hold them (PR 9's
-    pa_member_dist served the members of a warp's 32 slots one by one; a
-    block of this one takes a tile)."""
+    its live slots, the positives and the members; a move counts for
+    pa_move and for the mesh path's pa_member_dist and pa_mean_argmin); and,
+    a launch, notes of the layouts' work: "pa_window (all flags)", the
+    bytes of a pa_window that reads every slot's flag, and bin and len of
+    the live ones; "members", a move's members; "member warps" and "member
+    tiles", the 32-slot and the 1,024-slot chunks of slots that hold them
+    (a warp of 32 slots served its members one by one in an earlier
+    pa_member_dist; a block of this one takes a tile); "first tile" and "last tile", the
+    tiles of a move's least and greatest member, and "tiles", all of them
+    (a scan of owners narrowed to the members' range would read last -
+    first + 1 of them)."""
     import torch
     from meshclust_tpu_torch.core.accumulate_device import accumulate_device
     from meshclust_tpu_torch.ops import features as F
@@ -653,7 +693,10 @@ def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
     K = 2 if {F.FEAT_PEARSON, F.FEAT_SIMRATIO} & set(params.singles) else 1
     nbytes = {k: 0.0 for k in PHASE_A}
     notes = dict.fromkeys(("pa_window (all flags)", "members",
-                           "member warps", "member tiles"), 0.0)
+                           "member warps", "member tiles", "first tile",
+                           "last tile"), 0.0)
+    tile = 2 * P.THREADS * P.OWNER_LOADS
+    notes["tiles"] = float(P.owner_tiles(N))
     ops_s = {k: 0.0 for k in PHASE_A}
     calls = {k: 0 for k in PHASE_A}
     seen, tables = {}, {}
@@ -691,32 +734,38 @@ def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
                 nbytes["pa_absorb"] += span + win * (8 * K + 24) \
                     + npos * (17 + V * width) + 16 * V
                 ops_s["pa_absorb"] += win * CLASSIFY_FP64_OPS / FP64_OPS_PER_S
-            elif name == "member_dist":
+            elif name == "move":
                 members = torch.nonzero(a[1] == a[2]).flatten()
-                m = seen["m"] = members.numel()
+                m = members.numel()
                 notes["members"] += m
                 for key, size in (("member warps", 32),
-                                  ("member tiles", 2 * P.THREADS
-                                   * P.OWNER_LOADS)):
+                                  ("member tiles", tile)):
                     notes[key] += torch.unique(members // size).numel()
+                notes["first tile"] += int(members[0]) // tile
+                notes["last tile"] += int(members[-1]) // tile
                 # owner of every slot, each member's row, sumvec; each
-                # member's distance written
-                nbytes["pa_member_dist"] += 8 * N + m * (V * width + 8) \
-                    + 8 * V
-            elif name == "mean_argmin":
-                # owner of every slot; dist, mag and stamp of each member
-                nbytes["pa_mean_argmin"] += 8 * N + 24 * seen["m"]
+                # member's mag and stamp read and distance written; st's
+                # count read, center and two counters written
+                rows_b = 8 * N + m * V * width + 8 * V
+                nbytes["pa_move"] += rows_b + 24 * m + 32
+                # the mesh path's two launches: the rows' part and each
+                # member's distance and list entry written; then the list,
+                # dist, mag and stamp of each member read
+                nbytes["pa_member_dist"] += rows_b + 12 * m
+                nbytes["pa_mean_argmin"] += 28 * m
+                calls["pa_member_dist"] += 1
+                calls["pa_mean_argmin"] += 1
             return out
         return call
 
     with phase_a_steps(wrap):
         accumulate_device(ps, bv, params, 0.90, cmax_hint=cmax, plain=False)
     n = {k: max(1, calls[k]) for k in PHASE_A}
-    of = {"pa_window (all flags)": n["pa_window"]}
+    of = {"pa_window (all flags)": n["pa_window"], "tiles": 1}
     return ({k: nbytes[k] / n[k] for k in PHASE_A},
             {k: ops_s[k] / n[k] for k in PHASE_A},
             sum(nbytes.values()),
-            {k: v / of.get(k, n["pa_member_dist"]) for k, v in notes.items()})
+            {k: v / of.get(k, n["pa_move"]) for k, v in notes.items()})
 
 
 def device_total_us(event) -> float:
@@ -725,11 +774,13 @@ def device_total_us(event) -> float:
     return float(event.cuda_time_total if total is None else total)
 
 
-def phase_a_device_ms(ps, bv, params, plain: bool, cmax: int) -> tuple:
+def phase_a_device_ms(ps, bv, params, plain: bool, cmax: int,
+                      listed: bool = False) -> tuple:
     """(device ms a call of each step, device ms an iteration) of a Phase A
     cut at cmax centers under torch.profiler: on the kernel path each
     kernel's own time, on the plain path the device time of the step's
-    range (its ops' kernels)."""
+    range (its ops' kernels); with `listed`, a move as the mesh path's two
+    steps (listed_moves). A step that did not run gets 0."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -738,7 +789,8 @@ def phase_a_device_ms(ps, bv, params, plain: bool, cmax: int) -> tuple:
     from meshclust_tpu_torch.utils import perf
     perf.reset()
     torch.cuda.synchronize()
-    with phase_a_steps(ranged), profile(
+    with phase_a_steps(ranged), (
+            listed_moves() if listed else contextlib.nullcontext()), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         accumulate_device(ps, bv, params, 0.90, cmax_hint=cmax, plain=plain)
         torch.cuda.synchronize()
@@ -768,13 +820,18 @@ def phase_a_lockstep_errors(ps, bv, params, iters: int) -> dict:
     the first `iters` absorb iterations: both _Slots driven as
     accumulate_device drives them, the max abs difference of every value
     the next step reads (state buffer, owner, stamp, active, sumvec; sums
-    of the window's live slots; members' distances), per kernel."""
+    of the window's live slots; members' distances), per kernel; at each
+    move also the mesh path's pa_member_dist and pa_mean_argmin (on one
+    rank) on a copy of the kernels' state."""
     import torch
     from meshclust_tpu_torch.core import accumulate_device as A
     from meshclust_tpu_torch.ops import phase_a as P
     plain = A._Slots(ps, bv, params, 0.90, plain=True)
     kern = A._Slots(ps, bv, params, 0.90, plain=False)
     both, N = (plain, kern), plain.N
+    # the mesh path's two kernels, on a copy of the kernels' state
+    st2, part2 = P.new_state(N, kern.st.device)
+    dist2 = torch.empty_like(kern.dist)
     err = {k: 0 for k in PHASE_A}
 
     def diff(name, *pairs):
@@ -812,16 +869,26 @@ def phase_a_lockstep_errors(ps, bv, params, iters: int) -> dict:
             done += 1
             if n_pos == 0:
                 break
+            st2.copy_(kern.st)
+            P.member_dist(st2, kern.owner, c, kern.h, kern.sumvec, dist2,
+                          part2)
             for sl in both:
-                sl.step.member_dist(sl.st, sl.owner, c, sl.h, sl.sumvec,
-                                    sl.dist)
+                sl.move(c)
             members = torch.nonzero(kern.owner == c).flatten()
-            diff("pa_member_dist", (plain.dist[members], kern.dist[members]),
-                 (plain.dist[N:], kern.dist[N:]))
-            for sl in both:
-                sl.step.mean_argmin(sl.st, sl.dist, sl.mag, sl.owner,
-                                    sl.stamp, c, sl.part)
-            state("pa_mean_argmin")
+            for name, got in (("pa_move", kern.dist),
+                              ("pa_member_dist", dist2)):
+                diff(name, (plain.dist[members], got[members]),
+                     (plain.dist[N:], got[N:]))
+            P.mean_argmin(st2, dist2, kern.mag, kern.owner, kern.stamp, c,
+                          part2)
+            state("pa_move")
+            diff("pa_mean_argmin", (plain.st[P.LAST: P.LAST + 1],
+                                    st2[P.LAST: P.LAST + 1]),
+                 (st2[P.TICKET: P.LIST + 1], torch.zeros_like(
+                     st2[P.TICKET: P.LIST + 1])))
+            diff("pa_move", (kern.st[P.TICKET: P.LIST + 1],
+                             torch.zeros_like(kern.st[P.TICKET:
+                                                      P.LIST + 1])))
         c += 1
         seed = best if best < N else live_slot
         if seed >= N:
@@ -845,7 +912,14 @@ def phase_a_profile_child(paths: list) -> int:
                                        PROFILE_CENTERS)
         plain_ms, plain_dev_ms = phase_a_device_ms(ps, bv, params, True,
                                                    PROFILE_CENTERS)
-        out[path] = [ms, plain_ms, dev_ms, plain_dev_ms]
+        # the mesh path's two kernels and plain steps, a move in two steps
+        two, two_dev_ms = phase_a_device_ms(ps, bv, params, False,
+                                            PROFILE_CENTERS, listed=True)
+        two_plain, _ = phase_a_device_ms(ps, bv, params, True,
+                                         PROFILE_CENTERS, listed=True)
+        for k in ("pa_member_dist", "pa_mean_argmin"):
+            ms[k], plain_ms[k] = two[k], two_plain[k]
+        out[path] = [ms, plain_ms, dev_ms, plain_dev_ms, two_dev_ms]
     print(json.dumps(out), flush=True)
     return 0
 
@@ -932,6 +1006,65 @@ def check_member_dist(ps, bv, params, owner, flush) -> dict:
             "exact": torch.equal(two_min.to(torch.int64), got[members])}
 
 
+def check_move(ps, bv, params, state, flush) -> dict:
+    """pa_move on the largest center of a whole phase (state: its final
+    owner and stamp in slot order), sumvec its members' rows summed and
+    count their number: st[LAST] and the distances against move_plain's;
+    its ms with the L2 flushed and warm, beside the mesh path's two
+    launches (pa_member_dist listing the members, pa_mean_argmin over the
+    list) and the yardstick: torch.cdist (p = 1) of the members' rows
+    against cw (float32 copies gathered beforehand), then distance_d and
+    argmin in float64 (argmin keeps the least slot among equal d, not the
+    least stamp)."""
+    import torch
+    from meshclust_tpu_torch.core import accumulate_device as A
+    from meshclust_tpu_torch.core.classify import mean_floor
+    from meshclust_tpu_torch.ops import phase_a as P
+    sl = A._Slots(ps, bv, params, 0.90, plain=False)
+    n, dev = sl.N, sl.h.device
+    owner = state["owner"]
+    c = int(np.bincount(owner[owner >= 0]).argmax())
+    own = torch.as_tensor(owner).to(dev)
+    stamp = torch.as_tensor(state["stamp"]).to(dev)
+    members = torch.nonzero(own == c).flatten()
+    st, part = P.new_state(n, dev)
+    st[P.COUNT] = members.numel()
+    sumvec = sl.h[members].to(torch.int64).sum(0)
+    got = torch.full((n + 1,), -7, dtype=torch.int64, device=dev)
+    want = torch.zeros_like(got)
+    st_p = st.clone()
+    P.move(st, own, c, sl.h, sumvec, sl.mag, stamp, got, part)
+    P.move_plain(st_p, own, c, sl.h, sumvec, sl.mag, stamp, want, part)
+    at = torch.cat([members, members.new_tensor([n])])
+    err = max(max_abs_err(got[at], want[at]),
+              max_abs_err(st[: P.LIST + 1], st_p[: P.LIST + 1]))
+    rows32 = sl.h[members].to(torch.float32)
+    cw32 = mean_floor(sumvec, st[P.COUNT]).to(torch.float32)
+    mass = rows32.sum(1).to(torch.float64) + cw32.sum().to(torch.float64)
+    mag_cw = sl.mag[members] + cw32.sum().to(torch.float64)
+
+    def lib():
+        two_min = mass - torch.cdist(rows32, cw32[None], p=1.0)[:, 0]
+        frac = two_min / mag_cw
+        return torch.argmin(10000.0 * (1.0 - frac * frac))
+
+    def kernel():
+        P.move(st, own, c, sl.h, sumvec, sl.mag, stamp, got, part)
+
+    def two():
+        P.member_dist(st, own, c, sl.h, sumvec, got, part)
+        P.mean_argmin(st, got, sl.mag, own, stamp, c, part)
+    tile = 2 * P.THREADS * P.OWNER_LOADS
+    return {"members": members.numel(), "max_abs_err": err,
+            "tiles": (int(members[0]) // tile, int(members[-1]) // tile,
+                      P.owner_tiles(n)),
+            "ms": cold_ms(kernel, 10, flush), "warm_ms": cuda_ms(kernel, 20),
+            "two_ms": cold_ms(two, 10, flush), "two_warm_ms": cuda_ms(two, 20),
+            "library_ms": cold_ms(lib, 10, flush),
+            "library_warm_ms": cuda_ms(lib, 20),
+            "same": int(members[lib()]) == int(st_p[P.LAST])}
+
+
 # pa_sums at HBM scale: 1,000,000 rows of 256 counts (a 1M-read corpus's
 # rows at k = 4: 256 MB of int8, past the 50 MB L2), every slot live
 PA_SUMS_ROWS = 1000000
@@ -991,8 +1124,10 @@ def check_phase_a(dev) -> list:
     iterations, then the whole phase (owner, stamp, center slots) bit for
     bit, timed in turns (plain, kernels, kernels, plain); then, in a child
     process, each kernel's device time and its plain step's under the
-    profiler; and the bound. Returns the five kernels' rows (at 15k, the
-    main path's shapes)."""
+    profiler (a move through pa_move, and through the mesh path's two
+    kernels); pa_member_dist and pa_move on the largest center, timed
+    beside the two launches and their yardsticks; and the bound. Returns
+    the six kernels' rows (at 15k, the main path's shapes)."""
     import torch
     from meshclust_tpu_torch.ops import phase_a as P
     found = {}
@@ -1014,7 +1149,8 @@ def check_phase_a(dev) -> list:
         iters, centers = runs[1]["iters"], runs[1]["centers"]
         launched = runs[1]["launches"]
         want = dict.fromkeys(PHASE_A[:3], iters)
-        want.update(dict.fromkeys(PHASE_A[3:], iters - centers))
+        want.update(pa_move=iters - centers, pa_member_dist=0,
+                    pa_mean_argmin=0)
         if launched != want:
             fail(f"Phase A at {n} reads launched {launched}, not {want}")
         per_launch, ops_s, total_bytes, notes = phase_a_traffic(ps, bv,
@@ -1049,14 +1185,35 @@ def check_phase_a(dev) -> list:
         if md["max_abs_err"]:
             fail(f"pa_member_dist differs from member_dist_plain at {n} "
                  f"reads")
+        mv = check_move(ps, bv, params, runs[1]["state"], flush_l2(dev))
+        print(f"    pa_move on the largest center ({mv['members']} members, "
+              f"tiles {mv['tiles'][0]}-{mv['tiles'][1]} of "
+              f"{mv['tiles'][2]}): {mv['ms']:.5f} ms L2 flushed, "
+              f"{mv['warm_ms']:.5f} warm, max abs err {mv['max_abs_err']}; "
+              f"the mesh path's two launches (pa_member_dist, "
+              f"pa_mean_argmin over its list) {mv['two_ms']:.5f} ms L2 "
+              f"flushed, {mv['two_warm_ms']:.5f} warm; yardstick cdist + "
+              f"argmin {mv['library_ms']:.5f} ms L2 flushed, "
+              f"{mv['library_warm_ms']:.5f} warm (the same member "
+              f"{mv['same']})", flush=True)
+        if mv["max_abs_err"]:
+            fail(f"pa_move differs from move_plain at {n} reads")
+        b = bound(per_launch["pa_move"], ops_s["pa_move"])
+        span = notes["last tile"] - notes["first tile"] + 1
         print(f"    pa_window's bound counted as PR 8's kernel read: "
               f"{notes['pa_window (all flags)']:.0f} B a launch (every "
               f"flag, bin and len of the live slots), against "
               f"{per_launch['pa_window']:.0f} B it must read; a move: "
               f"{notes['members']:.2f} members in {notes['member warps']:.2f}"
               f" warps of 32 slots and {notes['member tiles']:.2f} tiles of "
-              f"{2 * P.THREADS * P.OWNER_LOADS}", flush=True)
-        found[n] = (path, err, per_launch, ops_s, md["library_ms"])
+              f"{2 * P.THREADS * P.OWNER_LOADS}, its least member in tile "
+              f"{notes['first tile']:.2f} and its greatest in tile "
+              f"{notes['last tile']:.2f} on average, of "
+              f"{notes['tiles']:.0f} tiles (a scan narrowed to the members' "
+              f"range would read {span:.2f}); pa_move's bound {b['bound_ms']:.6g} ms a launch "
+              f"({per_launch['pa_move']:.0f} B)", flush=True)
+        found[n] = (path, err, per_launch, ops_s, md["library_ms"],
+                    mv["library_ms"])
         if n == 15000:
             sums_lib_ms = check_pa_sums(dev, ps.hist_dev)
     t0 = time.time()
@@ -1068,13 +1225,17 @@ def check_phase_a(dev) -> list:
         fail(f"the Phase A profile failed:\n{child.stderr[-3000:]}")
     timed_ = json.loads(child.stdout.strip().splitlines()[-1])
     rows = None
-    for n, (path, err, per_launch, ops_s, dist_lib_ms) in found.items():
-        ms, plain_ms, dev_ms, plain_dev_ms = timed_[path]
+    for n, (path, err, per_launch, ops_s, dist_lib_ms,
+            move_lib_ms) in found.items():
+        ms, plain_ms, dev_ms, plain_dev_ms, two_dev_ms = timed_[path]
+        two_ms = ms["pa_member_dist"] + ms["pa_mean_argmin"]
         print(f"  Phase A at {n} reads under the profiler (first "
               f"{PROFILE_CENTERS} centers, a child process, "
               f"{time.time() - t0:.1f} s for both corpora): device ms an "
-              f"iteration: kernels "
-              f"{dev_ms:.5f}, plain {plain_dev_ms:.5f}", flush=True)
+              f"iteration: kernels {dev_ms:.5f} (a move in the mesh path's "
+              f"two kernels {two_dev_ms:.5f}), plain {plain_dev_ms:.5f}; a "
+              f"move: pa_move {ms['pa_move']:.5f} ms, pa_member_dist + "
+              f"pa_mean_argmin {two_ms:.5f} ms", flush=True)
         for k in PHASE_A:
             b = bound(per_launch[k], ops_s[k])
             print(f"    {k}: {ms[k]:.5f} ms a launch (plain step "
@@ -1085,12 +1246,15 @@ def check_phase_a(dev) -> list:
         if rows is None:
             # pa_sums's yardstick: cdist + matmul on float32 copies of the
             # 15k rows (check_pa_sums); pa_member_dist's: cdist on its
-            # members' rows (check_member_dist). No PyTorch call computes
-            # the other kernels' functions: their library_ms is null.
-            lib_ms = {"pa_sums": sums_lib_ms, "pa_member_dist": dist_lib_ms}
+            # members' rows (check_member_dist); pa_move's: cdist + argmin
+            # (check_move). No PyTorch call computes the other kernels'
+            # functions: their library_ms is null.
+            lib_ms = {"pa_sums": sums_lib_ms, "pa_member_dist": dist_lib_ms,
+                      "pa_move": move_lib_ms}
             rows = [{"name": k, "route": "cuda",
                      "source": "meshclust_tpu_torch/csrc/phase_a.cu",
-                     "replaces": "meshclust_tpu/core/accumulate_device.py:87",
+                     "replaces": "meshclust_tpu/core/accumulate_device.py:"
+                                 f"{PHASE_A_REPLACES[k]}",
                      "ms": ms[k], "plain_ms": plain_ms[k],
                      "library_ms": lib_ms.get(k),
                      "max_abs_err": err[k],
@@ -1202,11 +1366,11 @@ def main_path(dev) -> dict:
              f"(kept per call: {fused})")
     iters, centers = counters["accum_iters"], counters["accum_centers"]
     want = dict.fromkeys(PHASE_A[:3], iters)
-    want.update(dict.fromkeys(PHASE_A[3:], iters - centers))
+    want.update(pa_move=iters - centers, pa_member_dist=0, pa_mean_argmin=0)
     if {k: launches[k] for k in PHASE_A} != want:
         fail(f"the k-mer run's Phase A kernels launched "
              f"{ {k: launches[k] for k in PHASE_A} }, not {want} (three an "
-             f"absorb iteration, two more a move of the center)")
+             f"absorb iteration, one more a move of the center)")
     print(f"  clustered on the device: accumulate "
           f"{phases.get('accumulate', 0.0):.4f} s, phase_b "
           f"{phases.get('phase_b', 0.0):.4f} s, accum_iters "
@@ -1278,6 +1442,61 @@ def genome_path(dev) -> dict:
     if not same:
         fail("the genome run's memo disagrees with the plain version")
     return launches
+
+
+# Pairs a launch's boundary rows may hold at the genome corpus's longest
+# record, in the unstaged rerun of the genome path
+UNSTAGED_PAIRS = 8
+
+
+def unstaged_genome_path(dev, staged_launches: dict) -> None:
+    """The genome run again with MESHCLUST_ALIGN_STAGE_MB=0 (each NW launch
+    packs its own pairs' sequences; the corpus is never staged) and a
+    boundary budget of UNSTAGED_PAIRS pairs at its longest record: it must
+    write the staged run's CLSTR byte for byte, with launches of at most
+    that budget."""
+    import torch
+    from meshclust_tpu_torch.ops import align_device as AD
+    from meshclust_tpu_torch.io import fasta as fio
+    fasta = genome_corpus()
+    lmax = max(len(seq) for _, seq in fio.iter_fasta_records(fasta))
+    budget = 4 * AD._PLANES * UNSTAGED_PAIRS * (lmax + 1)
+    out = os.path.join(WORK, "viral_genomes_unstaged.clstr")
+    sizes, kernel, stage = [], AD.nw_align_long, AD.DeviceAligner._stage
+    share, env = AD.BOUNDARY_SHARE, os.environ.get("MESHCLUST_ALIGN_STAGE_MB")
+
+    def spy(codes, lengths, ia, ib, max_l2, **kw):
+        sizes.append((ia.shape[0], 4 * AD._PLANES * ia.shape[0]
+                      * (max(1, max_l2) + 1)))
+        return kernel(codes, lengths, ia, ib, max_l2, **kw)
+
+    def refuse(self):
+        fail("the unstaged genome run staged the corpus")
+
+    os.environ["MESHCLUST_ALIGN_STAGE_MB"] = "0"
+    AD.BOUNDARY_SHARE = budget / torch.cuda.mem_get_info(dev)[1]
+    AD.nw_align_long, AD.DeviceAligner._stage = spy, refuse
+    try:
+        drive(dev, "align path, genomes --id 0.50, unstaged", fasta, out,
+              similarity=0.50)
+    finally:
+        AD.nw_align_long, AD.DeviceAligner._stage = kernel, stage
+        AD.BOUNDARY_SHARE = share
+        if env is None:
+            del os.environ["MESHCLUST_ALIGN_STAGE_MB"]
+        else:
+            os.environ["MESHCLUST_ALIGN_STAGE_MB"] = env
+    same = same_file(out, os.path.join(WORK, "viral_genomes.clstr"))
+    pairs = [p for p, _ in sizes]
+    print(f"  unstaged genome run: {len(sizes)} NW launches (staged run: "
+          f"{staged_launches['nw_align_long']}) of {min(pairs)}-{max(pairs)} "
+          f"pairs, boundary rows at most {max(b for _, b in sizes)} B of a "
+          f"{budget} B budget; CLSTR byte-equal to the staged run's: {same}",
+          flush=True)
+    if any(b > budget for p, b in sizes if p > 1):
+        fail("an unstaged NW launch broke its boundary budget")
+    if not same:
+        fail("the unstaged genome run's CLSTR differs from the staged run's")
 
 
 def short_align_parity(dev) -> None:
@@ -1706,6 +1925,13 @@ def ranks_path(kmer_launches: dict) -> dict:
             fail(f"rank {o['rank']} launched pa_absorb "
                  f"{o['launches']['pa_absorb']} times in "
                  f"{o['counters']['accum_iters']:.0f} absorb iterations")
+        moves = o["counters"]["accum_iters"] - o["counters"]["accum_centers"]
+        got = [o["launches"][k] for k in ("pa_member_dist", "pa_mean_argmin",
+                                          "pa_move")]
+        if got != [moves, moves, 0]:
+            fail(f"rank {o['rank']} moved {moves:.0f} centers with "
+                 f"pa_member_dist, pa_mean_argmin and pa_move launched {got} "
+                 f"times (a move under the mesh: the first two once each)")
         for site in ("featurize", "accumulate", "phase_b"):
             if o["counters"].get(f"coll_{site}", 0) <= 0:
                 fail(f"rank {o['rank']} issued no collective at {site}")
@@ -1794,6 +2020,7 @@ def main() -> int:
     kmer = main_path(dev)
     small_parity(dev)
     genome = genome_path(dev)
+    unstaged_genome_path(dev, genome)
     short_align_parity(dev)
     print(f"  phases 1-4 took {time.time() - t_start:.1f} s", flush=True)
 

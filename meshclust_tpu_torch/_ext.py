@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Launch counts by kernel name; the wrappers add one per launch.
 launches: Dict[str, int] = {"kmer_hist": 0, "nw_align_long": 0,
                              "pa_window": 0, "pa_sums": 0, "pa_absorb": 0,
-                             "pa_member_dist": 0, "pa_mean_argmin": 0}
+                             "pa_member_dist": 0, "pa_mean_argmin": 0,
+                             "pa_move": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -59,10 +60,14 @@ _SIGNATURES = {
     # stream
     "mc_pa_absorb": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                      _L, _I, _I, _P, _I, _L, _L, _P, _P],
-    # st, owner, c, rows, row stride, V, width, sumvec, n, dist, stream
-    "mc_pa_member_dist": [_P, _P, _L, _P, _L, _I, _I, _P, _I, _P, _P],
-    # st, dist, mag, owner, stamp, c, n, part, stream
-    "mc_pa_mean_argmin": [_P, _P, _P, _P, _P, _L, _I, _P, _P],
+    # st, owner, c, rows, row stride, V, width, sumvec, n, dist, part (or
+    # null: no member list), stream
+    "mc_pa_member_dist": [_P, _P, _L, _P, _L, _I, _I, _P, _I, _P, _P, _P],
+    # st, dist, mag, stamp, n, part, stream
+    "mc_pa_mean_argmin": [_P, _P, _P, _P, _I, _P, _P],
+    # st, owner, c, rows, row stride, V, width, sumvec, n, mag, stamp, dist,
+    # part, stream
+    "mc_pa_move": [_P, _P, _L, _P, _L, _I, _I, _P, _I, _P, _P, _P, _P, _P],
 }
 
 

@@ -18,7 +18,7 @@ torch has no while_loop, so the host drives both loops. Each absorb
 iteration is three steps of ops/phase_a (pa_window, pa_sums, pa_absorb)
 followed by ONE readback of four scalars (positives absorbed, first-max
 candidate, current center slot, first live slot), and, when it absorbed,
-two more (pa_member_dist, pa_mean_argmin) that move the center. On a CUDA
+one more (pa_move) that moves the center. On a CUDA
 device the steps are hand-written kernels (csrc/phase_a.cu) that read only
 the live window's rows, in their storage dtype, and the members' rows; on
 the CPU, or with plain=True, they are their plain torch versions, which
@@ -43,8 +43,10 @@ its [N, V/n] slice of the rows (the plain steps widen it by the largest
 count of all V), and each reduction over V is one SUM across ranks of exact
 int64 partials: the Manhattan and dot sums of a sweep ([2, N]) and the
 mean's distance sums with the sum of the floored mean ([N + 1]). The
-mean's sums stay on the slice; the slot state is replicated and identical
-on every rank, so each rank reads back the same four scalars an iteration.
+mean's sums stay on the slice, so there the move is two steps around that
+SUM (pa_member_dist, pa_mean_argmin); the slot state is replicated and
+identical on every rank, so each rank reads back the same four scalars an
+iteration.
 Phase A runs replicated when V is not a multiple of the ranks or
 MESHCLUST_PHASEA_SHARD=0.
 """
@@ -110,9 +112,10 @@ def window_ranges(lens, sizes, lo, hi, front_bin, back_bin) -> np.ndarray:
 
 class _Slots:
     """Phase A's state on the device, and its two steps: absorb (pa_window,
-    pa_sums, pa_absorb, one readback) and move (pa_member_dist,
-    pa_mean_argmin), through ops/phase_a's kernels or, with `plain`, their
-    plain versions (rows widened once per phase to row_dtype)."""
+    pa_sums, pa_absorb, one readback) and move (pa_move; under a mesh
+    pa_member_dist and pa_mean_argmin), through ops/phase_a's kernels or,
+    with `plain`, their plain versions (rows widened once per phase to
+    row_dtype)."""
 
     def __init__(self, ps, bv, params: F.FeatureParams, sim: float,
                  mesh=None, plain: bool = True):
@@ -209,10 +212,13 @@ class _Slots:
 
     def move(self, c: int) -> None:
         """The center moves to c's member closest to the members' mean."""
+        if self.mesh is None:
+            self.step.move(self.st, self.owner, c, self.h, self.sumvec,
+                           self.mag, self.stamp, self.dist, self.part)
+            return
         self.step.member_dist(self.st, self.owner, c, self.h, self.sumvec,
-                              self.dist)
-        d = self.dist if self.mesh is None else dist.psum(
-            self.dist, self.mesh, "accumulate")
+                              self.dist, self.part)
+        d = dist.psum(self.dist, self.mesh, "accumulate")
         self.step.mean_argmin(self.st, d, self.mag, self.owner, self.stamp,
                               c, self.part)
 

@@ -143,7 +143,7 @@ def _run(cfg: ClusterConfig, dev: torch.device) -> dict:
         max_pts_from_one=cfg.pivots, k=0 if cfg.align else k)
     if (cfg.match, cfg.mismatch, cfg.gap_open, cfg.gap_continue) \
             == (1, -1, 2, 1):
-        trainer._dev_aligner = aligner   # share the staged codes
+        trainer._dev_aligner = aligner   # share its staged codes
     tk = 0 if cfg.align else k
     model = None
     if cfg.checkpoint:

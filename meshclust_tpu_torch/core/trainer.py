@@ -91,8 +91,8 @@ class Trainer:
 
     def _probe_aligner(self):
         """The DeviceAligner shared by labeling and the probe walk. The
-        corpus is always staged whole, so the speculative probe walk is
-        always usable."""
+        walk reads identities through it, staged or packed, so it is always
+        usable."""
         if self._dev_aligner is None:
             from meshclust_tpu_torch.ops.align_device import DeviceAligner
             self._dev_aligner = DeviceAligner(self.ps.codes, self.ps.device)
@@ -102,7 +102,7 @@ class Trainer:
     def _default_align_batch(self, pairs: Sequence[Tuple[int, int]]
                              ) -> np.ndarray:
         """Batched GlobAlignE identities for index pairs through the
-        DeviceAligner's staged corpus (ops/align_device.py)."""
+        DeviceAligner (ops/align_device.py)."""
         return self._probe_aligner().identities(pairs)
 
     def _ref_order_chain(self, num_iterations: int):

@@ -1,4 +1,4 @@
-// Phase A's absorb iteration for Hopper (sm_90a): five kernels over the live
+// Phase A's absorb iteration for Hopper (sm_90a): six kernels over the live
 // window, with the slot state on the device.
 //
 // Replaces, as XLA and not Pallas, the absorb iteration of
@@ -17,26 +17,31 @@
 //                   stamp, active, n_pos, their rows added into sumvec) and
 //                   the first max of f1 (the next seed);
 // then the host reads back four scalars, and if the iteration absorbed, it
-// moves the center:
-//   pa_member_dist  cw = floor(sumvec / count), and 2 * sum min(h, cw) of
-//                   each member's row (owner == c), and sum cw;
-//   pa_mean_argmin  the member closest to the mean by distance_d, ties to
-//                   the least stamp, then the least slot: the new center.
+// moves the center, on one rank in one launch:
+//   pa_move         mean_argmin_full (:394): cw = floor(sumvec / count),
+//                   2 * sum min(h, cw) of each member's row (owner == c) and
+//                   sum cw, and the member closest to the mean by
+//                   distance_d, ties to the least stamp, then the least
+//                   slot: the new center;
+// and under a mesh in two, around the all-reduce of the distances:
+//   pa_member_dist  pa_move's distances, and the members listed;
+//   pa_mean_argmin  pa_move's argmin over that list.
 // Under a mesh (parallel/dist) each rank's pa_sums and pa_member_dist write
 // partials over its slice of the feature axis, which one all-reduce sums
 // before the next kernel.
 //
 // State: st, one int64 buffer (ops/phase_a.py names its slots): n_pos, best,
 // center slot, first live slot (the readback), w0, w1, the member count, the
-// last live slot, and one ticket each for pa_absorb and pa_mean_argmin.
-// Every reduction is exact and independent of the order in which blocks
-// run: integer atomicAdd, or per-block partials that the last block to
-// finish (the one that draws the last ticket) combines under explicit tie
-// rules. So every result is bit-equal to the plain version's. No float is
-// ever summed. Every float64 operation of the classifier and of the mean is
-// an explicit round-to-nearest intrinsic in the plain version's order: nvcc
-// contracts a * b + c into an FMA by default (--fmad=true), and the decisions
-// would drift from the host classifier's.
+// last live slot, pa_absorb's ticket, pa_move's counter and the length of
+// pa_member_dist's list. Every reduction is exact and independent of the
+// order in which blocks run: integer atomicAdd, or per-block partials that
+// the last block to finish (the one that draws the last ticket, or whose
+// members complete the count) combines under explicit tie rules. So every
+// result is bit-equal to the plain version's. No float is ever summed. Every
+// float64 operation of the classifier and of the mean is an explicit
+// round-to-nearest intrinsic in the plain version's order: nvcc contracts
+// a * b + c into an FMA by default (--fmad=true), and the decisions would
+// drift from the host classifier's.
 //
 // Bound: bytes, each kernel's (chip_smoke.py:phase_a_traffic counts them
 // from a run's data):
@@ -47,8 +52,12 @@
 //                   the center's, their sums written (8 B each);
 //   pa_absorb       the live window slots' sums, mag, sq and len (32-40 B),
 //                   the positives' rows and owner, stamp and active writes;
-//   pa_member_dist  owner of every slot (8 B), the members' rows;
-//   pa_mean_argmin  owner of every slot, dist, mag and stamp of the members.
+//   pa_move         owner of every slot (8 B), the members' rows, sumvec,
+//                   mag and stamp (8 B each) of the members, their dist
+//                   written (8 B);
+//   pa_member_dist  pa_move's owners, rows and sumvec, the dist and the
+//                   list (4 B) of each member written;
+//   pa_mean_argmin  the list, dist, mag and stamp of each member.
 // So an iteration must read the window's live rows once in their storage
 // dtype (V bytes a row at the k-mer path's int8 counts) plus O(N) slot
 // arrays. At 150k reads of ~1 kb the window holds up to all the live rows,
@@ -84,6 +93,16 @@
 // block divides the mean once into shared memory, compacts its members and
 // serves them as pa_sums serves rows: lane groups over 16-byte pieces,
 // byte SIMD for int8, several members in flight.
+// pa_mean_argmin scanned all N owners again, over a fixed grid of 528
+// blocks, each writing three partials and drawing a ticket: at 1M slots a
+// move read the 8 MB of owners twice, in two launches, each with its own
+// host cost. pa_move never finds the members twice: the blocks of
+// pa_member_dist's tiles that hold a member reduce the argmin of their own
+// list, and the blocks with none (most of ~977 at 1M) return after the
+// owners' scan, with no ticket; the block whose members complete st[kCount]
+// combines the few partials. Under a mesh the distances must be summed
+// across ranks before the argmin, so pa_member_dist lists the members (one
+// atomic a busy block) and pa_mean_argmin is one block over that list.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -95,10 +114,12 @@ typedef unsigned long long u64;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// The persistent grid of pa_mean_argmin (4 blocks an SM), and the most
-// blocks pa_absorb's grid may take (its partials' buffer holds kBlocks of
-// each).
+// The most blocks pa_absorb's grid may take (4 an SM), and the partials a
+// block writes there. The partials' buffer `part` holds kPartials x
+// max(kBlocks, tiles) int64 (pa_move writes three a busy tile), then the
+// member list of pa_member_dist under a mesh (n int32): part_list.
 constexpr int kBlocks = 528;
+constexpr int kPartials = 4;
 // pa_sums and pa_member_dist: the widest piece of a row a lane loads, and
 // the loads a lane has in flight before it reduces.
 constexpr int kPieceBytes = 16;
@@ -114,10 +135,12 @@ constexpr int kOwnerLoads = 2;
 constexpr int kTileSlots = kThreads * 2 * kOwnerLoads;
 constexpr int kCwBytes = 8192;
 
-// Slots of st (ops/phase_a.py: NPOS ... TICKETS).
+// Slots of st (ops/phase_a.py: NPOS ... LIST): pa_absorb's ticket; pa_move's
+// partials drawn and members counted (one counter: pa_move_kernel); the
+// members listed under a mesh.
 constexpr int kNPos = 0, kBest = 1, kLast = 2, kLive = 3, kW0 = 4, kW1 = 5,
               kCount = 6, kTail = 7;
-constexpr int kTicket = 8;          // + 0 pa_absorb, 1 pa_mean_argmin
+constexpr int kTicket = 8, kMove = 9, kList = 10;
 // Columns of pa_window's table, a row a slot (ops/phase_a.py: RANGES).
 constexpr int kRanges = 8;
 constexpr int kFront = 0, kGe = 1, kFrontEnd = 2, kBack = 3, kEq = 4,
@@ -788,7 +811,7 @@ pa_absorb_kernel(i64* __restrict__ st, const i64* __restrict__ sums,
     part[2 * G + blockIdx.x] = best.nan;
     part[3 * G + blockIdx.x] = best.npos;
   }
-  if (!last_block(st + kTicket + 0, busy)) return;
+  if (!last_block(st + kTicket, busy)) return;
   best = {-INFINITY, N, 0, 0};
   for (int b = tid; b < busy; b += kThreads)
     best = AbsorbOp()(best, {__longlong_as_double(__ldcg(part + b)),
@@ -871,9 +894,10 @@ __device__ __forceinline__ void add_min(const Piece<VEC>& a,
   }
 }
 
-// dist[s] (first chunk) or dist[s] += (later chunks) 2 * sum min(h[s], cw)
-// over one chunk of V for each member s of list[0, m): nv pieces of VEC
-// bytes a row, the chunk's cw in shared memory. Short rows (nv <= 32, the
+// dl[i] (first chunk) or dl[i] += (later chunks) 2 * sum min(h[s], cw) over
+// one chunk of V for each member s = list[i] of list[0, m), and dist[s] =
+// dl[i]: nv pieces of VEC bytes a row, the chunk's cw and dl in shared
+// memory. Short rows (nv <= 32, the
 // k-mer path's 256 int8 counts: 16 pieces): a group of `lanes` lanes a
 // member, its cw piece in a register, kUnroll members' loads in flight
 // before any reduction. Long rows: a warp a member, kUnroll pieces a lane
@@ -881,7 +905,7 @@ __device__ __forceinline__ void add_min(const Piece<VEC>& a,
 template <typename T, int VEC>
 __device__ void serve_members(const int* list, int m, const char* rows,
                               i64 pitch, int nv, const char* cw, bool first,
-                              i64* __restrict__ dist) {
+                              i64* dl, i64* __restrict__ dist) {
   typedef typename Acc<T>::type A;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int lanes = 1;
@@ -907,8 +931,9 @@ __device__ void serve_members(const int* list, int m, const char* rows,
         acc = group_sum(acc, lanes);
         const int i = i0 + u * groups + grp;
         if (i < m && sub == 0) {
-          const i64 s = list[i], d = 2 * static_cast<i64>(acc);
-          dist[s] = first ? d : dist[s] + d;
+          const i64 d = 2 * static_cast<i64>(acc) + (first ? 0 : dl[i]);
+          dl[i] = d;
+          dist[list[i]] = d;
         }
       }
     }
@@ -935,32 +960,22 @@ __device__ void serve_members(const int* list, int m, const char* rows,
       acc += part;
     }
     acc = group_sum(acc, 32);
-    if (lane == 0) dist[s] = first ? 2 * acc : dist[s] + 2 * acc;
+    if (lane == 0) {
+      const i64 d = 2 * acc + (first ? 0 : dl[i]);
+      dl[i] = d;
+      dist[s] = d;
+    }
   }
 }
 
-// A block a tile of kTileSlots slots: each thread reads kOwnerLoads
-// 16-byte vectors of owner (two slots each; single loads where owner is
-// not 16-byte aligned or at the end), and the members (owner == c) are
-// compacted into a list in shared memory, a ballot and one shared atomic a
-// warp and load. A block with no member returns, but block 0, which writes
-// dist[n] = sum cw. Then, chunk by chunk of V (kCwBytes of the rows' dtype,
-// one chunk at V = 256), the block computes cw = floor(sumvec / count)
-// into shared memory once, divided in float64 as mean_floor does, and
-// serves its members from it (serve_members). The first chunk's count tid
-// is loaded beside the owners.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-pa_member_dist_kernel(const i64* __restrict__ st, const i64* __restrict__ owner,
-                      i64 c, const char* __restrict__ rows, i64 pitch, int V,
-                      const i64* __restrict__ sumvec, int n,
-                      i64* __restrict__ dist) {
-  __shared__ __align__(16) char cw_s[kCwBytes];
-  __shared__ int list[kTileSlots];
-  __shared__ int n_list;
+// The members (owner == c) of a block's tile of kTileSlots slots, compacted
+// into list in shared memory; -> their number, in every thread. Each thread
+// reads kOwnerLoads 16-byte vectors of owner (two slots each; single loads
+// where owner is not 16-byte aligned or at the end), and a warp appends a
+// load's members with a ballot and one shared atomic.
+__device__ int tile_members(const i64* __restrict__ owner, i64 c, int n,
+                            int* list, int* n_list) {
   const int tid = threadIdx.x, lane = tid & 31;
-  const double count = static_cast<double>(st[kCount]);
-  const i64 sv0 = tid < V ? sumvec[tid] : 0;
   const i64 tile = blockIdx.x * static_cast<i64>(kTileSlots);
   const bool vec = (reinterpret_cast<uintptr_t>(owner) & 15) == 0;
   i64 own[2 * kOwnerLoads];
@@ -975,7 +990,7 @@ pa_member_dist_kernel(const i64* __restrict__ st, const i64* __restrict__ owner,
       own[2 * j + 1] = s + 1 < n ? owner[s + 1] : -1;
     }
   }
-  if (tid == 0) n_list = 0;
+  if (tid == 0) *n_list = 0;
   __syncthreads();
 #pragma unroll
   for (int e = 0; e < 2 * kOwnerLoads; ++e) {
@@ -984,14 +999,26 @@ pa_member_dist_kernel(const i64* __restrict__ st, const i64* __restrict__ owner,
     const unsigned b = __ballot_sync(0xffffffffu, is);
     if (b) {
       int at = 0;
-      if (lane == 0) at = atomicAdd(&n_list, __popc(b));
+      if (lane == 0) at = atomicAdd(n_list, __popc(b));
       at = __shfl_sync(0xffffffffu, at, 0);
       if (is) list[at + __popc(b & ((1u << lane) - 1u))] = static_cast<int>(s);
     }
   }
   __syncthreads();
-  const int m = n_list;
-  if (m == 0 && blockIdx.x != 0) return;
+  return *n_list;
+}
+
+// Chunk by chunk of V (kCwBytes of the rows' dtype, one chunk at V = 256):
+// cw = floor(sumvec / count) into shared memory once, divided in float64 as
+// mean_floor does, and each member of list[0, m) served from it
+// (serve_members, each member's distance in dl). sv0 is sumvec[tid],
+// loaded beside the owners. -> this thread's part of sum cw.
+template <typename T, int VEC>
+__device__ i64 tile_dist(const char* __restrict__ rows, i64 pitch, int V,
+                         const i64* __restrict__ sumvec, i64 sv0,
+                         double count, const int* list, int m, char* cw_s,
+                         i64* dl, i64* __restrict__ dist) {
+  const int tid = threadIdx.x;
   constexpr int kChunk = kCwBytes / static_cast<int>(sizeof(T));
   T* cw = reinterpret_cast<T*>(cw_s);
   i64 cw_sum = 0;
@@ -1009,52 +1036,176 @@ pa_member_dist_kernel(const i64* __restrict__ st, const i64* __restrict__ owner,
     if (m)
       serve_members<T, VEC>(list, m, rows + static_cast<i64>(c0) * sizeof(T),
                             pitch, len * static_cast<int>(sizeof(T)) / VEC,
-                            cw_s, c0 == 0, dist);
+                            cw_s, c0 == 0, dl, dist);
   }
+  return cw_sum;
+}
+
+// A block a tile of owners (tile_members). A block with no member returns,
+// but block 0, which writes dist[n] = sum cw; the others compute the floored
+// mean and their members' distances (tile_dist). Under a mesh (lst not
+// null) each busy block also appends its members' slots to the list lst
+// with one global atomic (st[kList]), for pa_mean_argmin, which empties it;
+// a list that would pass n slots (no pa_mean_argmin in between) is not
+// written past them.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+pa_member_dist_kernel(i64* __restrict__ st, const i64* __restrict__ owner,
+                      i64 c, const char* __restrict__ rows, i64 pitch, int V,
+                      const i64* __restrict__ sumvec, int n,
+                      i64* __restrict__ dist, int* __restrict__ lst) {
+  __shared__ __align__(16) char cw_s[kCwBytes];
+  __shared__ int list[kTileSlots];
+  __shared__ i64 dl[kTileSlots];
+  __shared__ int n_list;
+  __shared__ i64 base;
+  const int tid = threadIdx.x;
+  const double count = static_cast<double>(st[kCount]);
+  const i64 sv0 = tid < V ? sumvec[tid] : 0;
+  const int m = tile_members(owner, c, n, list, &n_list);
+  if (m == 0 && blockIdx.x != 0) return;
+  if (m && lst) {
+    if (tid == 0)
+      base = static_cast<i64>(atomicAdd(
+          reinterpret_cast<u64*>(st + kList), static_cast<u64>(m)));
+    __syncthreads();
+    for (int i = tid; i < m && base + i < n; i += kThreads)
+      lst[base + i] = list[i];
+  }
+  i64 cw_sum = tile_dist<T, VEC>(rows, pitch, V, sumvec, sv0, count, list, m,
+                                 cw_s, dl, dist);
   if (blockIdx.x != 0) return;
   cw_sum = block_reduce(cw_sum, Sum());
   if (tid == 0) dist[n] = cw_sum;
 }
 
 // ---------------------------------------------------------------------------
-// pa_mean_argmin
+// pa_mean_argmin and pa_move
 // ---------------------------------------------------------------------------
 
-// frac = dist / (mag + cw_sum), d = 10000 * (1 - frac * frac) for each
-// member; the least (d, stamp, slot) becomes st[kLast]. Per-block partials
-// (part: d bits, stamp, slot) are combined by the last block.
+// distance_d of member s to the mean: frac = dist / (mag + cw_sum), d =
+// 10000 * (1 - frac * frac), each operation rounded as the plain version's
+// (no FMA), with its tie keys.
+__device__ __forceinline__ DBest member_d(i64 s, i64 dist_s, double mag_s,
+                                          i64 stamp_s, double cw_sum) {
+  const double frac =
+      __ddiv_rn(static_cast<double>(dist_s), __dadd_rn(mag_s, cw_sum));
+  return {__dmul_rn(10000.0, __dsub_rn(1.0, __dmul_rn(frac, frac))), stamp_s,
+          s};
+}
+
+// Under a mesh, after the all-reduce of dist: one block over the st[kList]
+// members that pa_member_dist listed in lst; the least (d, stamp, slot)
+// becomes st[kLast], and the list is emptied for the next move.
 __global__ void __launch_bounds__(kThreads)
 pa_mean_argmin_kernel(i64* __restrict__ st, const i64* __restrict__ dist,
                       const double* __restrict__ mag,
-                      const i64* __restrict__ owner,
-                      const i64* __restrict__ stamp, i64 c, int n,
-                      i64* __restrict__ part) {
+                      const i64* __restrict__ stamp, int n,
+                      const int* __restrict__ lst) {
+  const i64 m = imin(st[kList], n);
   const double cw_sum = static_cast<double>(dist[n]);
+  DBest best = {INFINITY, 0x7fffffffffffffffLL, n};
+  for (i64 i = threadIdx.x; i < m; i += kThreads) {
+    const i64 s = lst[i];
+    best = DOp()(best, member_d(s, dist[s], mag[s], stamp[s], cw_sum));
+  }
+  best = block_reduce(best, DOp());
+  if (threadIdx.x == 0) {
+    st[kLast] = best.s;
+    st[kList] = 0;
+  }
+}
+
+// The move on one rank, one launch: pa_member_dist's tiles, and in each busy
+// block the argmin of its own members. A block with no member returns after
+// the owners' scan (no atomic, no partial). A busy block draws its partial's
+// index at once (the high field of st[kMove]), loads its members' mag and
+// stamp (one a thread) beside the mean's division, divides the whole mean
+// (so it has sum cw), serves its members, then takes d for each from the
+// distances in shared memory and reduces the least (d, stamp, slot) to a
+// partial; after a fence it adds its member count to the low field of
+// st[kMove]. st[kCount] is exactly the number of slots with owner == c (1 at
+// the center's start, + n_pos at each absorb), so the one block whose add
+// reaches it comes after every other block's add and has every partial, and
+// the high field it read back is their number: its first warp combines
+// them, writes st[kLast] and dist[n] = sum cw, and resets st[kMove].
+constexpr int kMoveShift = 40;
+constexpr u64 kMoveMembers = (1ull << kMoveShift) - 1;
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+pa_move_kernel(i64* __restrict__ st, const i64* __restrict__ owner, i64 c,
+               const char* __restrict__ rows, i64 pitch, int V,
+               const i64* __restrict__ sumvec, int n,
+               const double* __restrict__ mag, const i64* __restrict__ stamp,
+               i64* __restrict__ dist, i64* __restrict__ part) {
+  __shared__ __align__(16) char cw_s[kCwBytes];
+  __shared__ int list[kTileSlots];
+  __shared__ i64 dl[kTileSlots];
+  __shared__ int n_list;
+  __shared__ i64 wsum[kWarps];
+  __shared__ DBest wbest[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const i64 members = st[kCount];
+  const double count = static_cast<double>(members);
+  const i64 sv0 = tid < V ? sumvec[tid] : 0;
+  const int m = tile_members(owner, c, n, list, &n_list);
+  if (m == 0) return;
+  u64 at = 0;
+  if (tid == 0)
+    at = atomicAdd(reinterpret_cast<u64*>(st + kMove), 1ull << kMoveShift) >>
+         kMoveShift;
+  double mag0 = 0.0;
+  i64 stamp0 = 0;
+  if (tid < m) {
+    mag0 = __ldg(mag + list[tid]);
+    stamp0 = __ldg(stamp + list[tid]);
+  }
+  i64 cw_sum = tile_dist<T, VEC>(rows, pitch, V, sumvec, sv0, count, list, m,
+                                 cw_s, dl, dist);
+  cw_sum = warp_reduce(cw_sum, Sum());
+  if (lane == 0) wsum[warp] = cw_sum;
+  __syncthreads();                    // also: every member's dl is written
+  cw_sum = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) cw_sum += wsum[w];
+  const double cw = static_cast<double>(cw_sum);
   const DBest none = {INFINITY, 0x7fffffffffffffffLL, n};
   DBest best = none;
-  for (i64 s = blockIdx.x * static_cast<i64>(kThreads) + threadIdx.x; s < n;
-       s += static_cast<i64>(gridDim.x) * kThreads) {
-    if (owner[s] != c) continue;
-    const double frac =
-        __ddiv_rn(static_cast<double>(dist[s]), __dadd_rn(mag[s], cw_sum));
-    const double d =
-        __dmul_rn(10000.0, __dsub_rn(1.0, __dmul_rn(frac, frac)));
-    best = DOp()(best, {d, stamp[s], s});
+  if (tid < m)
+    best = DOp()(best, member_d(list[tid], dl[tid], mag0, stamp0, cw));
+  for (int i = tid + kThreads; i < m; i += kThreads) {
+    const i64 s = list[i];
+    best = DOp()(best, member_d(s, dl[i], __ldg(mag + s), __ldg(stamp + s),
+                                cw));
   }
-  best = block_reduce(best, DOp());
+  best = warp_reduce(best, DOp());
+  if (lane == 0) wbest[warp] = best;
+  __syncthreads();
+  if (warp != 0) return;
+  best = warp_reduce(lane < kWarps ? wbest[lane] : none, DOp());
   const int G = gridDim.x;
-  if (threadIdx.x == 0) {
-    part[blockIdx.x] = __double_as_longlong(best.d);
-    part[G + blockIdx.x] = best.stamp;
-    part[2 * G + blockIdx.x] = best.s;
+  u64 old = 0;
+  if (lane == 0) {
+    part[at] = __double_as_longlong(best.d);
+    part[G + at] = best.stamp;
+    part[2 * G + at] = best.s;
+    __threadfence();
+    old = atomicAdd(reinterpret_cast<u64*>(st + kMove), static_cast<u64>(m));
   }
-  if (!last_block(st + kTicket + 1, gridDim.x)) return;
+  old = __shfl_sync(0xffffffffu, old, 0);
+  if ((old & kMoveMembers) + m != static_cast<u64>(members)) return;
+  const i64 busy = static_cast<i64>(old >> kMoveShift);
   best = none;
-  for (int b = threadIdx.x; b < G; b += kThreads)
+  for (i64 b = lane; b < busy; b += 32)
     best = DOp()(best, {__longlong_as_double(__ldcg(part + b)),
                         __ldcg(part + G + b), __ldcg(part + 2 * G + b)});
-  best = block_reduce(best, DOp());
-  if (threadIdx.x == 0) st[kLast] = best.s;
+  best = warp_reduce(best, DOp());
+  if (lane == 0) {
+    st[kLast] = best.s;
+    dist[n] = cw_sum;
+    st[kMove] = 0;
+  }
 }
 
 }  // namespace
@@ -1095,6 +1246,27 @@ static int piece_bytes(const void* rows, i64 pitch, i64 length, int width) {
   return vec;
 }
 
+// The rows' element type and piece, one case X(T, VEC) each: `width` bytes
+// an element, pieces of `vec` bytes (piece_bytes).
+#define MC_ROW_CASES(X)                                               \
+  switch (width) {                                                    \
+    case 1:                                                           \
+      switch (vec) { X(int8_t, 16); X(int8_t, 8); X(int8_t, 4);       \
+                     X(int8_t, 2); X(int8_t, 1); }                    \
+      break;                                                          \
+    case 2:                                                           \
+      switch (vec) { X(int16_t, 16); X(int16_t, 8); X(int16_t, 4);    \
+                     X(int16_t, 2); }                                 \
+      break;                                                          \
+    case 4:                                                           \
+      switch (vec) { X(int32_t, 16); X(int32_t, 8); X(int32_t, 4); }  \
+      break;                                                          \
+    case 8:                                                           \
+      switch (vec) { X(int64_t, 16); X(int64_t, 8); }                 \
+      break;                                                          \
+  }                                                                   \
+  return cudaErrorInvalidValue
+
 template <typename T, int VEC>
 static int launch_sums(cudaStream_t s, const i64* st, const uint8_t* act,
                        const void* rows, i64 pitch, i64 length, int n,
@@ -1122,30 +1294,8 @@ extern "C" int mc_pa_sums(const void* st, const void* active, const void* rows,
   case VEC:                                                          \
     return launch_sums<T, VEC>(s, st_, act, rows, pitch, length, n, \
                                with_dot, out)
-  switch (width) {
-    case 1:
-      switch (vec) {
-        MC_SUMS(int8_t, 16); MC_SUMS(int8_t, 8); MC_SUMS(int8_t, 4);
-        MC_SUMS(int8_t, 2); MC_SUMS(int8_t, 1);
-      }
-      break;
-    case 2:
-      switch (vec) {
-        MC_SUMS(int16_t, 16); MC_SUMS(int16_t, 8); MC_SUMS(int16_t, 4);
-        MC_SUMS(int16_t, 2);
-      }
-      break;
-    case 4:
-      switch (vec) {
-        MC_SUMS(int32_t, 16); MC_SUMS(int32_t, 8); MC_SUMS(int32_t, 4);
-      }
-      break;
-    case 8:
-      switch (vec) { MC_SUMS(int64_t, 16); MC_SUMS(int64_t, 8); }
-      break;
-  }
+  MC_ROW_CASES(MC_SUMS);
 #undef MC_SUMS
-  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -1194,66 +1344,88 @@ extern "C" int mc_pa_absorb(void* st, const void* sums, int with_dot,
   return cudaGetLastError();
 }
 
+// Owner tiles of pa_member_dist and pa_move: one block a tile.
+static int owner_tiles(int n) {
+  return n > 0 ? (n + kTileSlots - 1) / kTileSlots : 1;
+}
+
+// The member list in `part`, past the partials.
+static int* part_list(void* part, int n) {
+  const int tiles = owner_tiles(n);
+  return reinterpret_cast<int*>(static_cast<i64*>(part) +
+                                kPartials * (tiles > kBlocks ? tiles : kBlocks));
+}
+
 template <typename T, int VEC>
-static int launch_member_dist(cudaStream_t s, const i64* st, const i64* own,
-                              i64 c, const void* rows, i64 pitch, int V,
-                              const i64* sv, int n, i64* out) {
-  const int blocks = n > 0 ? (n + kTileSlots - 1) / kTileSlots : 1;
-  pa_member_dist_kernel<T, VEC><<<blocks, kThreads, 0, s>>>(
-      st, own, c, static_cast<const char*>(rows), pitch, V, sv, n, out);
+static int launch_member_dist(cudaStream_t s, i64* st, const i64* own, i64 c,
+                              const void* rows, i64 pitch, int V,
+                              const i64* sv, int n, i64* out, int* lst) {
+  pa_member_dist_kernel<T, VEC><<<owner_tiles(n), kThreads, 0, s>>>(
+      st, own, c, static_cast<const char*>(rows), pitch, V, sv, n, out, lst);
   return cudaGetLastError();
 }
 
-extern "C" int mc_pa_member_dist(const void* st, const void* owner,
-                                 long long c, const void* rows,
-                                 long long stride, int V, int width,
-                                 const void* sumvec, int n, void* dist,
-                                 void* stream) {
+extern "C" int mc_pa_member_dist(void* st, const void* owner, long long c,
+                                 const void* rows, long long stride, int V,
+                                 int width, const void* sumvec, int n,
+                                 void* dist, void* part, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const i64* st_ = static_cast<const i64*>(st);
+  i64* st_ = static_cast<i64*>(st);
   const i64* own = static_cast<const i64*>(owner);
   const i64* sv = static_cast<const i64*>(sumvec);
   i64* out = static_cast<i64*>(dist);
+  int* lst = part ? part_list(part, n) : nullptr;
   const i64 pitch = stride * width, length = static_cast<i64>(V) * width;
   const int vec = piece_bytes(rows, pitch, length, width);
 #define MC_DIST(T, VEC)                                                       \
   case VEC:                                                                   \
     return launch_member_dist<T, VEC>(s, st_, own, c, rows, pitch, V, sv, n, \
-                                      out)
-  switch (width) {
-    case 1:
-      switch (vec) {
-        MC_DIST(int8_t, 16); MC_DIST(int8_t, 8); MC_DIST(int8_t, 4);
-        MC_DIST(int8_t, 2); MC_DIST(int8_t, 1);
-      }
-      break;
-    case 2:
-      switch (vec) {
-        MC_DIST(int16_t, 16); MC_DIST(int16_t, 8); MC_DIST(int16_t, 4);
-        MC_DIST(int16_t, 2);
-      }
-      break;
-    case 4:
-      switch (vec) {
-        MC_DIST(int32_t, 16); MC_DIST(int32_t, 8); MC_DIST(int32_t, 4);
-      }
-      break;
-    case 8:
-      switch (vec) { MC_DIST(int64_t, 16); MC_DIST(int64_t, 8); }
-      break;
-  }
+                                      out, lst)
+  MC_ROW_CASES(MC_DIST);
 #undef MC_DIST
-  return cudaErrorInvalidValue;
 }
 
 extern "C" int mc_pa_mean_argmin(void* st, const void* dist, const void* mag,
-                                 const void* owner, const void* stamp,
-                                 long long c, int n, void* part,
+                                 const void* stamp, int n, void* part,
                                  void* stream) {
-  pa_mean_argmin_kernel<<<kBlocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  pa_mean_argmin_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<i64*>(st), static_cast<const i64*>(dist),
-      static_cast<const double*>(mag), static_cast<const i64*>(owner),
-      static_cast<const i64*>(stamp), c, n, static_cast<i64*>(part));
+      static_cast<const double*>(mag), static_cast<const i64*>(stamp), n,
+      part_list(part, n));
   return cudaGetLastError();
 }
+
+template <typename T, int VEC>
+static int launch_move(cudaStream_t s, i64* st, const i64* own, i64 c,
+                       const void* rows, i64 pitch, int V, const i64* sv,
+                       int n, const double* mag, const i64* stamp, i64* dist,
+                       i64* part) {
+  pa_move_kernel<T, VEC><<<owner_tiles(n), kThreads, 0, s>>>(
+      st, own, c, static_cast<const char*>(rows), pitch, V, sv, n, mag, stamp,
+      dist, part);
+  return cudaGetLastError();
+}
+
+extern "C" int mc_pa_move(void* st, const void* owner, long long c,
+                          const void* rows, long long stride, int V, int width,
+                          const void* sumvec, int n, const void* mag,
+                          const void* stamp, void* dist, void* part,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  i64* st_ = static_cast<i64*>(st);
+  const i64* own = static_cast<const i64*>(owner);
+  const i64* sv = static_cast<const i64*>(sumvec);
+  const double* mag_ = static_cast<const double*>(mag);
+  const i64* stamp_ = static_cast<const i64*>(stamp);
+  i64* out = static_cast<i64*>(dist);
+  i64* part_ = static_cast<i64*>(part);
+  const i64 pitch = stride * width, length = static_cast<i64>(V) * width;
+  const int vec = piece_bytes(rows, pitch, length, width);
+#define MC_MOVE(T, VEC)                                                     \
+  case VEC:                                                                 \
+    return launch_move<T, VEC>(s, st_, own, c, rows, pitch, V, sv, n, mag_, \
+                               stamp_, out, part_)
+  MC_ROW_CASES(MC_MOVE);
+#undef MC_MOVE
+}
+#undef MC_ROW_CASES

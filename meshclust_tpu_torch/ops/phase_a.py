@@ -1,4 +1,4 @@
-"""Phase A's absorb iteration: five CUDA kernels (csrc/phase_a.cu) and
+"""Phase A's absorb iteration: six CUDA kernels (csrc/phase_a.cu) and
 their plain PyTorch versions.
 
 They take the place, on the card, of the torch ops of one absorb iteration
@@ -13,10 +13,14 @@ meshclust_tpu/core/accumulate_device.py:87). An iteration is
   absorb(st, ...)       the float64 classifier, the absorb of the positives
                         (owner, stamp, active, sumvec, st[COUNT]), n_pos and
                         the first max of f1;
-and, when it absorbed, the move of the center:
+and, when it absorbed, the move of the center, on one rank in one launch:
+  move(st, ...)         member_dist, then mean_argmin;
+and under a mesh in two, around the all-reduce of the distances:
   member_dist(st, ...)  2 * sum min(h, floor(mean)) of the rows (the
-                        kernel: of the members only) and sum floor(mean);
-  mean_argmin(st, ...)  the member closest to the mean -> st[LAST].
+                        kernel: of the members only, which it lists) and
+                        sum floor(mean);
+  mean_argmin(st, ...)  the member closest to the mean -> st[LAST] (the
+                        kernel: over member_dist's list).
 
 The scalars live in one int64 state buffer on the device (new_state), so
 nothing is read back between the steps; st[:LIVE + 1] is the iteration's
@@ -39,9 +43,13 @@ from meshclust_tpu_torch.core.classify import Scorer, mean_floor
 from meshclust_tpu_torch.ops import features as F
 
 # Slots of the state buffer, as csrc/phase_a.cu's constants give them.
-# TAIL, the last live slot, is pa_window's alone (its plain step leaves it).
+# TAIL, the last live slot, is pa_window's alone (its plain step leaves it);
+# TICKET, pa_absorb's ticket; MOVE, pa_move's partials drawn (the bits from
+# MOVE_SHIFT up) and members counted (the bits below); LIST, the length of
+# pa_member_dist's list.
 NPOS, BEST, LAST, LIVE, W0, W1, COUNT, TAIL = range(8)
-TICKETS = 8         # one ticket each: pa_absorb, pa_mean_argmin (kTicket)
+TICKET, MOVE, LIST = range(8, 11)
+MOVE_SHIFT = 40
 # 24: an earlier phase_a.cu (built beside this one by profile_port.py
 # --parts phase_a) uses slots up to 18 of the same buffer
 STATE_LEN = 24
@@ -49,9 +57,9 @@ STATE_LEN = 24
 # core/accumulate_device.window_ranges say what each holds).
 RANGES = ("FRONT", "GE", "FRONT_END", "BACK", "EQ", "GT", "BACK_END", "BIN")
 FRONT, GE, FRONT_END, BACK, EQ, GT, BACK_END, BIN = range(len(RANGES))
-# The persistent grid of pa_mean_argmin (kBlocks), which also bounds
-# pa_absorb's (the card's resident blocks, as pa_sums's), and the partials
-# each block writes in pa_absorb (four) and pa_mean_argmin (three).
+# The most blocks of pa_absorb's grid (kBlocks; the card's resident blocks,
+# as pa_sums's), and the partials a block writes there (four) and a busy
+# tile in pa_move (three).
 BLOCKS = 528
 THREADS = 256
 PARTIALS = 4
@@ -79,15 +87,28 @@ MAX_MODEL_BYTES = 48 * 1024
 _WIDTHS = {torch.int8: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8}
 
 
+def owner_tiles(n: int) -> int:
+    """The blocks of pa_member_dist and pa_move: a tile of owners each
+    (THREADS * 2 * OWNER_LOADS slots)."""
+    return max(1, -(-n // (THREADS * 2 * OWNER_LOADS)))
+
+
+def part_len(n: int) -> int:
+    """The kernels' scratch for n slots, int64: the partials (PARTIALS a
+    block of pa_absorb's grid or a tile of pa_move's), then pa_member_dist's
+    list of members (n int32)."""
+    return PARTIALS * max(BLOCKS, owner_tiles(n)) + (n + 1) // 2
+
+
 def new_state(n: int, device) -> tuple:
-    """(st [STATE_LEN] int64, part [PARTIALS * BLOCKS] int64) for n slots:
+    """(st [STATE_LEN] int64, part [part_len(n)] int64) for n slots:
     pa_window scans for the first live slot on from st[LIVE] and for the
     last down from st[TAIL], so they start at 0 and n - 1 (slots only die
     in a phase)."""
     st = torch.zeros(STATE_LEN, dtype=torch.int64)
     st[TAIL] = n - 1
     return (st.to(device),
-            torch.zeros(PARTIALS * BLOCKS, dtype=torch.int64, device=device))
+            torch.zeros(part_len(n), dtype=torch.int64, device=device))
 
 
 class Model:
@@ -332,7 +353,7 @@ def absorb(st, sums_, model: Model, mag, sq, lenf, owner, stamp, active,
     if sums_.dtype != torch.int64 or sums_.shape != (k, n) \
             or not sums_.is_contiguous():
         raise ValueError(f"sums: need contiguous [{k}, {n}] int64")
-    _vec(part, torch.int64, PARTIALS * BLOCKS, "part")
+    _vec(part, torch.int64, part_len(n), "part")
     dev = _device(st, sums_, model.spec, model.coef, mag, sq, lenf, owner,
                   stamp, active, rows, sumvec, part)
     if dev.type == "cpu":
@@ -371,26 +392,31 @@ def absorb_plain(st, sums_, model, mag, sq, lenf, owner, stamp, active,
 
 # -- pa_member_dist -----------------------------------------------------------
 
-def member_dist(st, owner, c: int, rows, sumvec, out) -> None:
+def member_dist(st, owner, c: int, rows, sumvec, out, part=None) -> None:
     """cw = floor(sumvec / st[COUNT]) (float64, as mean_floor); out[s] =
     2 * sum_v min(h[s, v], cw[v]) for every member s (owner == c; the
     kernel leaves the other slots as they were) and out[n] = sum_v cw[v],
-    int64."""
+    int64. With part (new_state's), the kernel also lists the members there
+    for mean_argmin."""
     n = owner.shape[0]
     _state(st)
     _vec(owner, torch.int64, n, "owner")
     width = _rows(rows, n)
     _vec(sumvec, torch.int64, rows.shape[1], "sumvec")
     _vec(out, torch.int64, n + 1, "out")
-    if _device(st, owner, rows, sumvec, out).type == "cpu":
-        return member_dist_plain(st, owner, c, rows, sumvec, out)
+    if part is not None:
+        _vec(part, torch.int64, part_len(n), "part")
+    if _device(st, owner, rows, sumvec, out,
+               *([] if part is None else [part])).type == "cpu":
+        return member_dist_plain(st, owner, c, rows, sumvec, out, part)
     _launched(_ext.lib().mc_pa_member_dist(
         st.data_ptr(), owner.data_ptr(), c, rows.data_ptr(), rows.stride(0),
         rows.shape[1], width, sumvec.data_ptr(), n, out.data_ptr(),
-        _ext.stream_of(st)), "pa_member_dist")
+        None if part is None else part.data_ptr(), _ext.stream_of(st)),
+        "pa_member_dist")
 
 
-def member_dist_plain(st, owner, c, rows, sumvec, out):
+def member_dist_plain(st, owner, c, rows, sumvec, out, part=None):
     """Every slot. floor(mean) is at most the largest count, so it fits
     the rows' dtype."""
     cw = mean_floor(sumvec, st[COUNT])
@@ -406,20 +432,20 @@ def mean_argmin(st, dist, mag, owner, stamp, c: int, part) -> None:
     center c closest by distance_d to the members' mean, d = 10000 * (1 -
     frac^2), frac = dist[s] / (mag[s] + dist[n]) (floor(h + mean) = h +
     floor(mean) for integer h); ties go to the least stamp, then the least
-    slot (the reference's member-list order)."""
+    slot (the reference's member-list order). The kernel reads the members
+    from the list member_dist(..., part) made, and empties it."""
     n = owner.shape[0]
     _state(st)
     _vec(dist, torch.int64, n + 1, "dist")
     _vec(mag, torch.float64, n, "mag")
     _vec(owner, torch.int64, n, "owner")
     _vec(stamp, torch.int64, n, "stamp")
-    _vec(part, torch.int64, PARTIALS * BLOCKS, "part")
+    _vec(part, torch.int64, part_len(n), "part")
     if _device(st, dist, mag, owner, stamp, part).type == "cpu":
         return mean_argmin_plain(st, dist, mag, owner, stamp, c, part)
     _launched(_ext.lib().mc_pa_mean_argmin(
-        st.data_ptr(), dist.data_ptr(), mag.data_ptr(), owner.data_ptr(),
-        stamp.data_ptr(), c, n, part.data_ptr(), _ext.stream_of(st)),
-        "pa_mean_argmin")
+        st.data_ptr(), dist.data_ptr(), mag.data_ptr(), stamp.data_ptr(), n,
+        part.data_ptr(), _ext.stream_of(st)), "pa_mean_argmin")
 
 
 def mean_argmin_plain(st, dist, mag, owner, stamp, c, part):
@@ -435,11 +461,41 @@ def mean_argmin_plain(st, dist, mag, owner, stamp, c, part):
     st[LAST] = _first(cand & (stamp == first_stamp), slots, n)
 
 
-STEPS = ("window", "sums", "absorb", "member_dist", "mean_argmin")
+# -- pa_move ------------------------------------------------------------------
+
+def move(st, owner, c: int, rows, sumvec, mag, stamp, dist, part) -> None:
+    """member_dist, then mean_argmin, in one launch (one rank): dist as
+    member_dist writes it, st[LAST] the new center. st[COUNT] must be the
+    number of members (owner == c), as accumulate_device keeps it."""
+    n = owner.shape[0]
+    _state(st)
+    _vec(owner, torch.int64, n, "owner")
+    width = _rows(rows, n)
+    _vec(sumvec, torch.int64, rows.shape[1], "sumvec")
+    _vec(mag, torch.float64, n, "mag")
+    _vec(stamp, torch.int64, n, "stamp")
+    _vec(dist, torch.int64, n + 1, "dist")
+    _vec(part, torch.int64, part_len(n), "part")
+    if _device(st, owner, rows, sumvec, mag, stamp, dist,
+               part).type == "cpu":
+        return move_plain(st, owner, c, rows, sumvec, mag, stamp, dist, part)
+    _launched(_ext.lib().mc_pa_move(
+        st.data_ptr(), owner.data_ptr(), c, rows.data_ptr(), rows.stride(0),
+        rows.shape[1], width, sumvec.data_ptr(), n, mag.data_ptr(),
+        stamp.data_ptr(), dist.data_ptr(), part.data_ptr(),
+        _ext.stream_of(st)), "pa_move")
+
+
+def move_plain(st, owner, c, rows, sumvec, mag, stamp, dist, part):
+    member_dist_plain(st, owner, c, rows, sumvec, dist)
+    mean_argmin_plain(st, dist, mag, owner, stamp, c, part)
+
+
+STEPS = ("window", "sums", "absorb", "member_dist", "mean_argmin", "move")
 
 
 def steps(plain: bool) -> types.SimpleNamespace:
-    """The five steps: the wrappers, or (plain) their plain versions."""
+    """The steps: the wrappers, or (plain) their plain versions."""
     return types.SimpleNamespace(**{
         name: globals()[f"{name}_plain" if plain else name]
         for name in STEPS})

@@ -91,7 +91,9 @@ Parts (default: throughput,busy):
               CLSTR byte-equal across the turns. A parent whose pa_window
               takes the per-slot arrays (bin, len, lo, hi, front_bin,
               back_bin) in place of the table is called so
-              (parent_window).
+              (parent_window); a parent with no pa_move moves a center in
+              its two launches, pa_member_dist and a pa_mean_argmin that
+              scans every owner (parent_move).
   ranks       several ranks (parallel/dist), for each n of --ranks: n
               ranks (gloo where they share a card, NCCL where each has its
               own) time each collective at the 15k k-mer run's shapes (a
@@ -766,13 +768,78 @@ def parent_window(handle):
         A._Slots.__init__, P.window = init, window
 
 
+# The C entry points of a move in a csrc/phase_a.cu with no pa_move:
+# pa_member_dist (st, owner, c, rows, row stride, V, width, sumvec, n, dist,
+# stream) and pa_mean_argmin (st, dist, mag, owner, stamp, c, n, part,
+# stream), which scans every owner.
+PARENT_DIST_SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_void_p]
+PARENT_ARGMIN_SIGNATURE = [ctypes.c_void_p] * 5 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def load_library(path: str) -> ctypes.CDLL:
+    """A kernel library, as _ext.load types it, of this tree or an
+    earlier one: an entry point it lacks is left out."""
+    from meshclust_tpu_torch import _ext
+    handle = ctypes.CDLL(path)
+    for name, argtypes in _ext._SIGNATURES.items():
+        if hasattr(handle, name):
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    handle.mc_error_string.argtypes = [ctypes.c_int]
+    handle.mc_error_string.restype = ctypes.c_char_p
+    return handle
+
+
 @contextlib.contextmanager
-def phase_a_library(libs: dict, name: str, old_window: bool):
+def parent_move(handle):
+    """Phase A with handle's move of PARENT_DIST_SIGNATURE and
+    PARENT_ARGMIN_SIGNATURE: two launches a move, through _ext.lib() (the
+    handle, wrapped by host_split)."""
+    from meshclust_tpu_torch import _ext
+    from meshclust_tpu_torch.core import accumulate_device as A
+    from meshclust_tpu_torch.ops import phase_a as P
+    handle.mc_pa_member_dist.argtypes = PARENT_DIST_SIGNATURE
+    handle.mc_pa_mean_argmin.argtypes = PARENT_ARGMIN_SIGNATURE
+    for fn in (handle.mc_pa_member_dist, handle.mc_pa_mean_argmin):
+        fn.restype = ctypes.c_int
+    move = A._Slots.move
+
+    def two_launches(self, c):
+        n, stream, lib = self.N, _ext.stream_of(self.st), _ext.lib()
+        P._launched(lib.mc_pa_member_dist(
+            self.st.data_ptr(), self.owner.data_ptr(), c, self.h.data_ptr(),
+            self.h.stride(0), self.h.shape[1], self.h.element_size(),
+            self.sumvec.data_ptr(), n, self.dist.data_ptr(), stream),
+            "pa_member_dist")
+        P._launched(lib.mc_pa_mean_argmin(
+            self.st.data_ptr(), self.dist.data_ptr(), self.mag.data_ptr(),
+            self.owner.data_ptr(), self.stamp.data_ptr(), c, n,
+            self.part.data_ptr(), stream), "pa_mean_argmin")
+
+    A._Slots.move = two_launches
+    try:
+        yield
+    finally:
+        A._Slots.move = move
+
+
+@contextlib.contextmanager
+def phase_a_library(libs: dict, name: str, old_window: bool,
+                    old_move: bool = False):
     """The wrappers on libs[name]; the parent's pa_window called as
     parent_window calls it where old_window (its signature is
-    PARENT_WINDOW_SIGNATURE)."""
+    PARENT_WINDOW_SIGNATURE), its move as parent_move makes it where
+    old_move."""
+    parent = name == "parent"
     with kernels_from(libs[name]), (
-            parent_window(libs[name]) if name == "parent" and old_window
+            parent_window(libs[name]) if parent and old_window
+            else contextlib.nullcontext()), (
+            parent_move(libs[name]) if parent and old_move
             else contextlib.nullcontext()):
         yield
 
@@ -789,16 +856,18 @@ def phase_a_compare(dev, parent_dir: str, sizes: list) -> None:
                                                      "nw_align_long.cu")]
     paths = build_all({"parent": others + [os.path.abspath(os.path.join(
         parent_dir, "phase_a.cu"))], "this": _ext.sources()})
-    libs = {name: _ext.load(path) for name, path in paths.items()}
+    libs = {name: load_library(path) for name, path in paths.items()}
     with open(os.path.join(parent_dir, "phase_a.cu")) as f:
-        old_window = "const void* front_bin" in f.read()
+        src = f.read()
+    old_window = "const void* front_bin" in src
+    old_move = "mc_pa_move" not in src
     turns = ["parent", "this", "this", "parent"]
     flush = smoke.flush_l2(dev)
     rng = np.random.default_rng(9)
     rows8 = torch.from_numpy(rng.integers(
         0, 128, size=(smoke.PA_SUMS_ROWS, 256), dtype=np.int8)).to(dev)
     for name in turns:
-        with phase_a_library(libs, name, old_window):
+        with phase_a_library(libs, name, old_window, old_move):
             for label, rows in (("int8", rows8),
                                 ("int8 slice [:, 1:129]", rows8[:, 1:129])):
                 r = smoke.sums_case(rows, True, flush)
@@ -832,7 +901,7 @@ def phase_a_compare(dev, parent_dir: str, sizes: list) -> None:
               f"{notes['member warps']:.2f} warps of 32 slots and "
               f"{notes['member tiles']:.2f} tiles", flush=True)
         for name in ("parent", "this"):
-            with phase_a_library(libs, name, old_window):
+            with phase_a_library(libs, name, old_window, old_move):
                 print(f"  {name}, {n} reads:", flush=True)
                 if n <= FULL_CLUSTER_READS:
                     ms = absorb_windows_ms(ps, bv, params)
@@ -844,7 +913,7 @@ def phase_a_compare(dev, parent_dir: str, sizes: list) -> None:
         clstr = set()
         for i, name in enumerate(turns):
             out = os.path.join(smoke.WORK, f"phase_a_{i}.clstr")
-            with phase_a_library(libs, name, old_window):
+            with phase_a_library(libs, name, old_window, old_move):
                 wall, phases = run_path(dev, fasta, out, similarity=0.90)
             with open(out, "rb") as f:
                 clstr.add(f.read())
@@ -952,7 +1021,8 @@ def kvariants(dev, specs: str) -> None:
 SASS_KERNELS = ("nw_align_long_kernel", "kmer_rows_kernelILb0E",
                 "kmer_split_kernel", "pa_absorb_kernelIaE",
                 "pa_sums_kernelIaLi16E", "pa_window_kernel",
-                "pa_member_dist_kernelIaLi16E")
+                "pa_member_dist_kernelIaLi16E", "pa_move_kernelIaLi16E",
+                "pa_mean_argmin_kernel")
 
 
 def sass() -> None:

@@ -30,3 +30,21 @@ def test_bound_symbol_is_defined_once(name):
 @pytest.mark.parametrize("kernel", sorted(_ext.launches))
 def test_counted_kernel_has_entry_point(kernel):
     assert f"mc_{kernel}" in _ext._SIGNATURES
+
+
+def _arities():
+    """{entry point: its number of parameters} in the CUDA sources."""
+    out = {}
+    for path in _ext.sources():
+        with open(path) as f:
+            for name, params in re.findall(
+                    r'extern "C"[^(]*?\b(mc_\w+)\s*\(([^)]*)\)', f.read()):
+                out[name] = len([p for p in params.split(",") if p.strip()])
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_ext._SIGNATURES))
+def test_bound_signature_has_the_sources_arity(name):
+    """ctypes passes what argtypes lists: a count that differs from the C
+    entry point's would shift every later argument on a GPU machine."""
+    assert len(_ext._SIGNATURES[name]) == _arities()[name]

@@ -353,15 +353,12 @@ def phase_a_lockstep(ps, params, sim, bv):
             if n_pos == 0:
                 break
             for sl in both:
-                sl.step.member_dist(sl.st, sl.owner, c, sl.h, sl.sumvec,
-                                    sl.dist)
+                sl.move(c)
             members = torch.nonzero(kern.owner == c).flatten()
             assert torch.equal(plain.dist[members], kern.dist[members])
             assert torch.equal(plain.dist[N], kern.dist[N])
-            for sl in both:
-                sl.step.mean_argmin(sl.st, sl.dist, sl.mag, sl.owner,
-                                    sl.stamp, c, sl.part)
             same()
+            assert not kern.st[P.TICKET: P.LIST + 1].any()
         c += 1
         seed = best if best < N else live_slot
         if seed >= N:
@@ -375,22 +372,24 @@ def phase_a_lockstep(ps, params, sim, bv):
 def test_phase_a_kernels_equal_plain_steps(cuda, dtype):
     """Each Phase A kernel against its plain step on the card, iteration
     by iteration, with the rows in each storage dtype; pa_window, pa_sums
-    and pa_absorb launch once an absorb iteration, the move's two kernels
-    once an iteration that absorbed."""
+    and pa_absorb launch once an absorb iteration, pa_move once an
+    iteration that absorbed, and the mesh path's two kernels never."""
     ps, params, _ = _phase_a_case(PHASE_A_SCALES[dtype], cuda)
     assert ps.hist_dev.dtype == getattr(torch, dtype)
     iters, launched = phase_a_lockstep(ps, params, 0.90, _bvec(ps))
     assert launched["pa_window"] == launched["pa_sums"] == \
         launched["pa_absorb"] == iters
-    assert 0 < launched["pa_member_dist"] == launched["pa_mean_argmin"] \
-        < iters
+    assert 0 < launched["pa_move"] < iters
+    assert launched["pa_member_dist"] == launched["pa_mean_argmin"] == 0
 
 
 @pytest.mark.parametrize("dtype", sorted(PHASE_A_SCALES))
 def test_phase_a_on_the_card_equals_plain_and_cpu(cuda, dtype):
     """The whole Phase A through the kernels against plain=True on the
     card and the CPU path: the same centers with the same members in the
-    same order; at most five Phase A launches an absorb iteration."""
+    same order; three Phase A launches an absorb iteration and one a move
+    of the center (an iteration that absorbed: all but each center's
+    last)."""
     from meshclust_tpu_torch.core.accumulate_device import accumulate_device
     from meshclust_tpu_torch.utils import perf
     ps, params, arrays = _phase_a_case(PHASE_A_SCALES[dtype], cuda)
@@ -398,9 +397,11 @@ def test_phase_a_on_the_card_equals_plain_and_cpu(cuda, dtype):
     perf.reset()
     _ext.reset_launches()
     got = _listed(accumulate_device(ps, _bvec(ps), params, 0.90))
-    iters = perf.counters()["accum_iters"]
+    c = perf.counters()
+    iters, moves = c["accum_iters"], c["accum_iters"] - c["accum_centers"]
     pa = sum(v for k, v in _ext.launches.items() if k.startswith("pa_"))
-    assert 3 * iters <= pa <= 5 * iters
+    assert _ext.launches["pa_move"] == moves
+    assert pa == 3 * iters + moves
     assert got == _listed(accumulate_device(ps, _bvec(ps), params, 0.90,
                                             plain=True))
     assert got == _listed(accumulate_device(host, _bvec(host), params, 0.90))
@@ -425,7 +426,11 @@ def test_phase_a_at_two_ranks_sharing_the_card(cuda):
         for res, w in zip(out, want):
             c = res["counters"]
             assert res["centers"] == w
+            moves = c["accum_iters"] - c["accum_centers"]
             assert res["launches"]["pa_absorb"] == c["accum_iters"]
+            assert res["launches"]["pa_member_dist"] == moves
+            assert res["launches"]["pa_mean_argmin"] == moves
+            assert res["launches"]["pa_move"] == 0
             assert c["accum_iters"] < c["coll_accumulate"] \
                 <= 2 * c["accum_iters"]
 
@@ -561,6 +566,140 @@ def test_pa_member_dist_kernel_equals_plain(cuda, case, aligned):
     mask[n] = True
     assert torch.equal(got[mask], want[mask])
     assert bool((got[~mask] == -7).all())
+
+
+# pa_move's ties: members of center 5 whose rows are t, the floored mean,
+# in three tiles of 1,024 owners (d = 0, the least), and their stamps
+TWINS = [20, 1050, 1051, 1500, 2990]
+TIES = {"least slot": ([2] * 5, 20), "least stamp": ([3, 2, 2, 2, 2], 1050),
+        "least stamp, last tile": ([3, 2, 2, 2, 1], 2990)}
+
+
+def _move_inputs(cuda, case, aligned, n=3000, c=5):
+    """Rows of PA_MEMBER_ROWS[case] (or its column slice) and the members
+    of c: a run of neighbouring slots (1,000-1,099), pairs at slots 300,
+    2,200 and 2,998 and TWINS, in the three tiles. Every member's row is
+    t +- e in pairs, so that the mean is t, and TWINS' rows are t: their d
+    is 0, the least, and they tie. Other slots belong to other centers;
+    owner at a 16-byte address or not."""
+    V, dtype, pool, cols = PA_MEMBER_ROWS[case]
+    rng = np.random.default_rng(V + 2)
+    full = torch.as_tensor(rng.choice(pool, size=(n, V))).to(dtype).to(cuda)
+    rows = full if cols is None else full[:, cols[0]: cols[1]]
+    own = rng.integers(0, 9, size=n)
+    own[own == c] = c + 1
+    pairs = [(x, x + 1) for x in list(range(1000, 1100, 2)) + [300, 2200,
+                                                                 2998]]
+    pairs = [p for p in pairs if p != (1050, 1051)]
+    t = rows[0].to(torch.int64).clamp(1, int(pool.max()) - 1)
+    for a, b in pairs:
+        e = torch.as_tensor(rng.integers(0, 2, size=t.shape[0])).to(cuda)
+        rows[a] = (t + e).to(dtype)
+        rows[b] = (t - e).to(dtype)
+        own[[a, b]] = c
+    rows[TWINS] = t.to(dtype)
+    own[TWINS] = c
+    base = torch.full((n + 1,), -1, dtype=torch.int64, device=cuda)
+    owner = base[:n] if aligned else base[1:]
+    owner.copy_(torch.as_tensor(own))
+    stamp = torch.as_tensor(rng.integers(5, 10, size=n)).to(cuda)
+    mag = rows.to(torch.int64).sum(1).to(torch.float64)
+    members = torch.nonzero(owner == c).flatten()
+    st, part = P_.new_state(n, cuda)
+    st[P_.COUNT] = members.numel()
+    sumvec = rows[members].to(torch.int64).sum(0)
+    assert torch.equal(sumvec, t * members.numel())
+    return st, part, owner, c, rows, sumvec, mag, stamp, members
+
+
+from meshclust_tpu_torch.ops import phase_a as P_  # noqa: E402
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("case", sorted(PA_MEMBER_ROWS))
+def test_pa_move_kernel_equals_plain(cuda, case, aligned):
+    """pa_move against move_plain (member_dist_plain, then
+    mean_argmin_plain), one launch each time: st[LAST], the members'
+    distances and sum cw equal, the other slots keep what they held, and
+    the kernel's counters are back at 0; TWINS tie in d across three
+    blocks, their stamps set in turn so that the least slot, the least
+    stamp, and the least stamp in the last tile win."""
+    st, part, owner, c, rows, sumvec, mag, stamp, members = _move_inputs(
+        cuda, case, aligned)
+    n = owner.shape[0]
+    mask = torch.zeros(n + 1, dtype=torch.bool, device=cuda)
+    mask[members] = True
+    mask[n] = True
+    for stamps, want_last in TIES.values():
+        stamp[TWINS] = torch.tensor(stamps, device=cuda)
+        got = torch.full((n + 1,), -7, dtype=torch.int64, device=cuda)
+        want = torch.zeros(n + 1, dtype=torch.int64, device=cuda)
+        st_p = st.clone()
+        before = _ext.launches["pa_move"]
+        P_.move(st, owner, c, rows, sumvec, mag, stamp, got, part)
+        assert _ext.launches["pa_move"] == before + 1
+        P_.move_plain(st_p, owner, c, rows, sumvec, mag, stamp, want, part)
+        assert torch.equal(got[mask], want[mask])
+        assert bool((got[~mask] == -7).all())
+        assert torch.equal(st, st_p)
+        assert int(st[P_.LAST]) == want_last
+        assert not st[P_.TICKET: P_.LIST + 1].any()
+
+
+@pytest.mark.parametrize("case", ["int8", "int8_odd_slice", "int16",
+                                  "int64_chunked_V2048"])
+def test_pa_mean_argmin_over_the_list_equals_plain(cuda, case):
+    """The mesh path: pa_member_dist with part lists the members (the list
+    holds each member once), pa_mean_argmin over that list against
+    mean_argmin_plain on the same distances, for each of TIES in a row (the
+    list is emptied between moves)."""
+    st, part, owner, c, rows, sumvec, mag, stamp, members = _move_inputs(
+        cuda, case, True)
+    n = owner.shape[0]
+    for stamps, want_last in TIES.values():
+        stamp[TWINS] = torch.tensor(stamps, device=cuda)
+        dist = torch.full((n + 1,), -7, dtype=torch.int64, device=cuda)
+        P_.member_dist(st, owner, c, rows, sumvec, dist, part)
+        listed = part[P_.part_len(n) - (n + 1) // 2:].view(torch.int32)
+        assert int(st[P_.LIST]) == members.numel()
+        assert torch.equal(listed[: members.numel()].sort().values
+                           .to(torch.int64), members)
+        st_p = st.clone()
+        before = _ext.launches["pa_mean_argmin"]
+        P_.mean_argmin(st, dist, mag, owner, stamp, c, part)
+        assert _ext.launches["pa_mean_argmin"] == before + 1
+        P_.mean_argmin_plain(st_p, dist, mag, owner, stamp, c, part)
+        assert int(st[P_.LAST]) == int(st_p[P_.LAST]) == want_last
+        assert int(st[P_.LIST]) == 0
+
+
+def test_device_aligner_unstaged_small_budget_equals_cpu(cuda, monkeypatch):
+    """stage_mb = 0 (each launch packs its own pairs' sequences) and a
+    boundary budget of four pairs at l2 = 400 (the short records' longest):
+    the kernel launches as launch_cuts cuts the sorted pairs (dozens of
+    launches, the 9 kb record's pairs alone), and the identities equal the
+    CPU run's."""
+    rng = np.random.default_rng(7)
+    codes = [rng.integers(0, 4, size=int(rng.integers(5, 400))).astype(
+        np.uint8) for _ in range(40)]
+    codes.append(rng.integers(0, 4, size=9000).astype(np.uint8))
+    pairs = [(int(rng.integers(41)), int(rng.integers(41)))
+             for _ in range(120)] + [(40, 3), (5, 40)]
+    total = torch.cuda.mem_get_info(cuda)[1]
+    monkeypatch.setattr(AD, "BOUNDARY_SHARE", 4 * 36 * 401 / total)
+    before = _ext.launches["nw_align_long"]
+    al = AD.DeviceAligner(codes, cuda, stage_mb=0)
+    got = al.identities(pairs)
+    assert al._staged is None
+    lens = np.asarray([len(c) for c in codes])
+    ia, ib = (np.asarray(x) for x in zip(*pairs))
+    cuts = AD.launch_cuts(lens[ib][np.argsort(lens[ia] + lens[ib],
+                                              kind="stable")],
+                          AD.BOUNDARY_SHARE * AD.device_memory_mb(cuda)
+                          * 2 ** 20)
+    assert _ext.launches["nw_align_long"] - before == len(cuts) - 1 >= 20
+    want = AD.DeviceAligner(codes, "cpu").identities(pairs)
+    np.testing.assert_array_equal(got, want)
 
 
 # pa_sums on rows at the edges of its pieces and byte SIMD: (V, dtype,

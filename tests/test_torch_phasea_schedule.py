@@ -18,11 +18,18 @@ the last block, here in a random block order) and its tie rules:
                   packed arrays in the kernel's order, the first max of f1
                   as (max, least slot) with NaN making it N, positives'
                   rows added into sumvec;
-  pa_member_dist  tiles of owners compacted into member lists (ballots,
+  pa_move         tiles of owners compacted into member lists (ballots,
                   warps in a random order), the floored mean once a block
                   and chunk of V, members in lane groups over pieces; only
-                  the members' rows (owner == c) are read;
-  pa_mean_argmin  the least (d, stamp, slot).
+                  the members' rows (owner == c) are read; each busy block's
+                  least (d, stamp, slot) a partial at an index it drew,
+                  combined by the block whose members complete st[COUNT],
+                  the blocks' draws and adds on one counter interleaved in
+                  a random order, no other block drawing or writing
+                  anything;
+  pa_member_dist  pa_move's tiles, each busy block appending its list to
+                  the rank's (under a mesh);
+  pa_mean_argmin  the least (d, stamp, slot) over that list.
 The rows may be cut into feature shards whose partials are summed, as
 under a mesh. The model is held equal, step by step and iteration by
 iteration, to the plain steps of core/accumulate_device._Slots, on the edge
@@ -30,7 +37,10 @@ corpora of tests/test_torch_accumulate.py (--id 0.60 and 0.97 at their
 window-limit edges, 0.90 on species corpora), with duplicate rows planted
 so that f1 and d tie, with empty windows and with a lone read whose length
 window holds only itself; a copy of the model with either tie rule turned
-around must disagree. The whole phase's centers are held equal to the JAX
+around must disagree. The move is held to move_plain (pa_member_dist's and
+pa_mean_argmin's plain steps in sequence) also on members planted in
+several tiles whose d ties, on a lone member, and at a wrong member count,
+which the models refuse. The whole phase's centers are held equal to the JAX
 package's accumulate_device. Tolerance: exact equality.
 """
 import os
@@ -405,96 +415,206 @@ def model_absorb(st, s, sums, spec, coef, with_dot, shards, sumvecs, c, t,
     st[P.COUNT] += npos
 
 
+def tile_members(owner, c, block, grid, rng):
+    """csrc/phase_a.cu:tile_members: the members (owner == c) of a block's
+    tile of threads * 2 * owner_loads owners, thread t's load j slots tile
+    + 2 * (j * threads + t) + {0, 1}; each (load, slot of the pair) is one
+    ballot a warp, whose members a warp appends to the block's list in the
+    order the warps win the shared atomic."""
+    N = owner.shape[0]
+    T, W, OL = grid["threads"], grid["lanes"], grid["owner_loads"]
+    tile = T * 2 * OL
+    lst = []
+    for e in range(2 * OL):
+        warps = []
+        for w in range(T // W):
+            xs = [block * tile + 2 * ((e >> 1) * T + w * W + lane) + (e & 1)
+                  for lane in range(W)]
+            warps.append([x for x in xs if x < N and owner[x] == c])
+        for w in rng.permutation(len(warps)):
+            lst += warps[w]
+    return lst
+
+
+def owner_tiles(N, grid):
+    return max(1, -(-N // (grid["threads"] * 2 * grid["owner_loads"])))
+
+
+def tile_dist(h, sv, lst, count, vec, grid, out):
+    """csrc/phase_a.cu:tile_dist on one shard's rows h (a rank's slice, its
+    pieces of vec bytes): V in chunks of cw_bytes, cw = floor(sumvec /
+    count) once a chunk, then each member's pieces of the chunk against
+    cw's, int8 partials within 32 bits; the first chunk writes out[x], the
+    later ones add. -> sum cw."""
+    W = grid["lanes"]
+    width = h.dtype.itemsize
+    chunk = grid["cw_bytes"] // width
+    cw_sum = 0
+    for c0 in range(0, h.shape[1], chunk):
+        cw = np.floor(sv[c0: c0 + chunk].astype(np.float64)
+                      / count).astype(np.int64)
+        cw_sum += int(cw.sum())
+        nbytes = cw.shape[0] * width
+        assert nbytes % vec == 0
+        nv, E = nbytes // vec, vec // width
+        lanes = 1
+        while lanes < nv and lanes < W:
+            lanes *= 2
+        m = cw.astype(h.dtype).reshape(nv, E)
+        for x in lst:
+            part = np.minimum(h[x, c0: c0 + chunk].reshape(nv, E),
+                              m).astype(np.int64).sum(1)
+            if h.dtype == np.int8:      # 32-bit lane partials
+                span = lanes if nv <= lanes else W * P.SUMS_UNROLL
+                assert all(fits_int32(part[i: i + span].sum())
+                           for i in range(0, nv, span))
+            d = 2 * int(part.sum())
+            if c0 == 0:
+                out[x] = d
+            else:
+                assert out[x] != -7
+                out[x] += d
+    return cw_sum
+
+
+def shard_pieces(shards):
+    """Each shard's piece (piece_bytes of its slice's address, pitch and
+    length in the [N, V] array the shards are cut from)."""
+    width = shards[0].dtype.itemsize
+    pitch = sum(h.shape[1] for h in shards) * width
+    col0, out = 0, []
+    for h in shards:
+        out.append(piece_bytes(col0 * width, pitch, h.shape[1] * width,
+                               width))
+        col0 += h.shape[1]
+    return out
+
+
 def model_member_dist(st, s, c, shards, sumvecs, grid, rng):
     """pa_member_dist over feature shards (each a rank's launch, their
     dists summed as the psum sums them): -> (dist [N + 1] with -7 where
-    the kernel writes nothing, the slots whose rows it read). A block
-    takes a tile of threads * 2 * owner_loads owners, thread t's load j
-    slots tile + 2 * (j * threads + t) + {0, 1}; each (load, slot of the
-    pair) is one ballot a warp, whose members a warp appends to the
-    block's list in the order the warps win the shared atomic. A block
-    with no member stops (block 0 goes on for dist[N]). V in chunks of
-    cw_bytes: cw = floor(sumvec / count) once a chunk, then each member's
-    pieces of the chunk (piece_bytes of the slice) against cw's, int8
-    partials within 32 bits; the first chunk writes, the later ones
-    add."""
+    the kernel writes nothing, the slots whose rows it read, the member
+    list). A block takes a tile of owners (tile_members); a block with no
+    member stops (block 0 goes on for dist[N]); the others compute their
+    members' distances (tile_dist) and append their list to the rank's
+    list, at an offset drawn from st[LIST] (in the order the blocks win
+    the atomic). Every rank lists the same members."""
     N = s["owner"].shape[0]
-    T, W, OL = grid["threads"], grid["lanes"], grid["owner_loads"]
-    tile = T * 2 * OL
     count = np.float64(st[P.COUNT])
-    width = shards[0].dtype.itemsize
-    pitch = sum(h.shape[1] for h in shards) * width
     dist = np.full(N + 1, -7, np.int64)
-    read, col0 = set(), 0
-    for h, sv in zip(shards, sumvecs):
-        vl = h.shape[1]
-        vec = piece_bytes(col0 * width, pitch, vl * width, width)
-        chunk = grid["cw_bytes"] // width
+    read, lists = set(), []
+    for h, sv, vec in zip(shards, sumvecs, shard_pieces(shards)):
         out = np.full(N + 1, -7, np.int64)
-        for block in range(max(1, -(-N // tile))):
-            lst = []
-            for e in range(2 * OL):
-                warps = []
-                for w in range(T // W):
-                    xs = [block * tile + 2 * ((e >> 1) * T + w * W + lane)
-                          + (e & 1) for lane in range(W)]
-                    warps.append([x for x in xs
-                                  if x < N and s["owner"][x] == c])
-                for w in rng.permutation(len(warps)):
-                    lst += warps[w]
+        busy = []
+        for block in range(owner_tiles(N, grid)):
+            lst = tile_members(s["owner"], c, block, grid, rng)
             if not lst and block:
                 continue
-            cw_sum = 0
-            for c0 in range(0, vl, chunk):
-                cw = np.floor(sv[c0: c0 + chunk].astype(np.float64)
-                              / count).astype(np.int64)
-                cw_sum += int(cw.sum())
-                nbytes = cw.shape[0] * width
-                assert nbytes % vec == 0
-                nv, E = nbytes // vec, vec // width
-                lanes = 1
-                while lanes < nv and lanes < W:
-                    lanes *= 2
-                m = cw.astype(h.dtype).reshape(nv, E)
-                for x in lst:
-                    read.add(x)
-                    part = np.minimum(h[x, c0: c0 + chunk].reshape(nv, E),
-                                      m).astype(np.int64).sum(1)
-                    if h.dtype == np.int8:      # 32-bit lane partials
-                        span = lanes if nv <= lanes else W * P.SUMS_UNROLL
-                        assert all(fits_int32(part[i: i + span].sum())
-                                   for i in range(0, nv, span))
-                    d = 2 * int(part.sum())
-                    if c0 == 0:
-                        out[x] = d
-                    else:
-                        assert out[x] != -7
-                        out[x] += d
+            if lst:
+                busy.append(lst)
+            read.update(lst)
+            cw_sum = tile_dist(h, sv, lst, count, vec, grid, out)
             if block == 0:
                 out[N] = cw_sum
+        lists.append([x for b in rng.permutation(len(busy)) for x in busy[b]])
         written = out != -7
         dist[written] = np.where(dist[written] == -7, 0,
                                  dist[written]) + out[written]
-        col0 += vl
-    return dist, sorted(read)
+    assert all(sorted(x) == sorted(lists[0]) for x in lists)
+    st[P.LIST] += len(lists[0])
+    return dist, sorted(read), lists[0]
 
 
-def model_mean_argmin(st, s, dist, c, grid, rng, stamp_first=True):
-    N = s["owner"].shape[0]
-    cw_sum = np.float64(dist[N])
+def member_d(x, dist, s, cw_sum):
+    """csrc/phase_a.cu:member_d: (d, stamp, slot) of member x."""
+    frac = np.float64(dist[x]) / (s["mag"][x] + cw_sum)
+    d = np.float64(10000.0) * (np.float64(1.0) - frac * frac)
+    return (d, int(s["stamp"][x]), x)
+
+
+def least_d(slots, dist, s, cw_sum, threads, rng, stamp_first):
+    """A block's least (d, stamp, slot) over slots, its threads striding
+    over them, reduced in any order."""
+    none = (np.inf, np.iinfo(np.int64).max, s["owner"].shape[0])
     parts = []
-    for slots in grid_owner(0, N, grid["blocks"],
-                            grid["threads"]).values():
-        best = (np.inf, np.iinfo(np.int64).max, N)
-        for x in slots:
-            if s["owner"][x] != c:
-                continue
-            frac = np.float64(dist[x]) / (s["mag"][x] + cw_sum)
-            d = np.float64(10000.0) * (np.float64(1.0) - frac * frac)
-            best = d_op(best, (d, int(s["stamp"][x]), x), stamp_first)
+    for t in range(threads):
+        best = none
+        for x in slots[t::threads]:
+            best = d_op(best, member_d(x, dist, s, cw_sum), stamp_first)
         parts.append(best)
-    st[P.LAST] = combine(parts, lambda a, b: d_op(a, b, stamp_first),
-                         rng)[2]
+    return combine(parts, lambda a, b: d_op(a, b, stamp_first), rng)
+
+
+def model_mean_argmin(st, s, dist, lst, grid, rng, stamp_first=True):
+    """pa_mean_argmin (under a mesh): one block over the st[LIST] members
+    that pa_member_dist listed; the least (d, stamp, slot) becomes
+    st[LAST], and the list is emptied."""
+    assert st[P.LIST] == len(lst) == st[P.COUNT]
+    st[P.LAST] = least_d(lst, dist, s, np.float64(dist[-1]),
+                         grid["threads"], rng, stamp_first)[2]
+    st[P.LIST] = 0
+
+
+def model_move(st, s, c, h, sv, grid, rng, stamp_first=True):
+    """pa_move on one rank's rows h: -> (dist as model_member_dist gives it,
+    the slots whose rows it read). The blocks of pa_member_dist's tiles
+    that hold a member (no other block draws or writes anything) each draw
+    a partial's index from st[MOVE]'s high field, divide the whole mean
+    (sum cw), serve their members and reduce their own least (d, stamp,
+    slot) to that partial, then add their member count to st[MOVE]'s low
+    field: the draws and adds of the blocks interleave in any order, each
+    block's draw before its add. st[COUNT] is the number of members, so the
+    block whose add reaches it comes last, when every partial is in and the
+    high field it read back is their number: it combines them, writes
+    st[LAST] and dist[N], and resets st[MOVE]."""
+    N = s["owner"].shape[0]
+    assert st[P.MOVE] == 0
+    count = np.float64(st[P.COUNT])
+    dist = np.full(N + 1, -7, np.int64)
+    vec = shard_pieces([h])[0]
+    busy = []
+    for block in range(owner_tiles(N, grid)):
+        lst = tile_members(s["owner"], c, block, grid, rng)
+        if not lst:
+            continue
+        cw_sum = tile_dist(h, sv, lst, count, vec, grid, dist)
+        busy.append((len(lst), least_d(lst, dist, s, np.float64(cw_sum),
+                                       grid["threads"], rng, stamp_first),
+                     cw_sum))
+    assert len({cw for *_, cw in busy}) == 1    # every busy block's sum cw
+    events = [(b, "draw") for b in range(len(busy))] + \
+        [(b, "add") for b in range(len(busy))]
+    events = [events[i] for i in rng.permutation(len(events))]
+    seen = set()
+    for i, (b, kind) in enumerate(events):      # each block's draw first
+        if kind == "add" and b not in seen:
+            j = events.index((b, "draw"))
+            events[i], events[j] = events[j], events[i]
+            b, kind = events[i]
+        seen.add(b)
+    mask = (1 << P.MOVE_SHIFT) - 1
+    at, parts, combined = {}, {}, 0
+    for b, kind in events:
+        m, best, cw_sum = busy[b]
+        old = int(st[P.MOVE])
+        if kind == "draw":
+            at[b] = old >> P.MOVE_SHIFT
+            st[P.MOVE] = old + (1 << P.MOVE_SHIFT)
+            continue
+        parts[at[b]] = best
+        st[P.MOVE] = old + m
+        if (old & mask) + m == st[P.COUNT]:     # the combining block
+            combined += 1
+            n_parts = old >> P.MOVE_SHIFT
+            assert n_parts == len(parts) == len(busy)
+            st[P.LAST] = combine([parts[i] for i in range(n_parts)],
+                                 lambda a, b: d_op(a, b, stamp_first),
+                                 rng)[2]
+            dist[N] = cw_sum
+            st[P.MOVE] = 0
+    assert combined == 1
+    read = sorted(np.flatnonzero(dist[:N] != -7).tolist())
+    return dist, read
 
 
 # -- lockstep against _Slots' plain steps -----------------------------------------
@@ -506,11 +626,16 @@ def numpy_slots(sl):
 
 
 def lockstep(ps, bv, params, sim, n_shards=1, grid=SMALL, seed=0,
-             least_slot=True, stamp_first=True):
+             least_slot=True, stamp_first=True, fused=None):
     """Phase A driven as accumulate_device drives it, each step by the
     plain _Slots and by the model, every value the next step reads
-    compared. -> (center slots, owner, stamp, slots, record) where record
-    counts empty windows, ties and iterations."""
+    compared; the move as move_plain against pa_move's model (fused, the
+    default on one shard) or against pa_member_dist's and pa_mean_argmin's
+    (the mesh path, the default on several). -> (center slots, owner,
+    stamp, slots, record) where record counts empty windows, ties and
+    iterations."""
+    fused = n_shards == 1 if fused is None else fused
+    assert not (fused and n_shards > 1)
     rng = np.random.default_rng(seed)
     sl = A._Slots(ps, bv, params, sim, plain=True)
     N, step = sl.N, sl.step
@@ -569,18 +694,24 @@ def lockstep(ps, bv, params, sim, n_shards=1, grid=SMALL, seed=0,
             rec["iters"] += 1
             if n_pos == 0:
                 break
-            step.member_dist(sl.st, sl.owner, c, sl.h, sl.sumvec, sl.dist)
-            mdist, read = model_member_dist(st, s, c, shards, sumvecs, grid,
-                                            rng)
+            step.move(sl.st, sl.owner, c, sl.h, sl.sumvec, sl.mag,
+                      sl.stamp, sl.dist, sl.part)
             members = np.flatnonzero(s["owner"] == c).tolist()
+            if fused:
+                mdist, read = model_move(st, s, c, shards[0], sumvecs[0],
+                                         grid, rng, stamp_first)
+            else:
+                mdist, read, lst = model_member_dist(st, s, c, shards,
+                                                     sumvecs, grid, rng)
+                assert sorted(lst) == members
             assert read == members
             np.testing.assert_array_equal(mdist[members + [N]],
                                           sl.dist.numpy()[members + [N]])
             d = _d_of(sl, members)
             rec["d_ties"] += int(np.sum(d == d.min()) > 1)
-            step.mean_argmin(sl.st, sl.dist, sl.mag, sl.owner, sl.stamp, c,
-                             sl.part)
-            model_mean_argmin(st, s, mdist, c, grid, rng, stamp_first)
+            if not fused:
+                model_mean_argmin(st, s, mdist, lst, grid, rng, stamp_first)
+            assert not st[P.TICKET: P.LIST + 1].any()
             same_state()
         center_slot.append(last_h)
         seed_slot = best if best < N else live_slot
@@ -685,12 +816,19 @@ def _edge_case(name):
 @pytest.mark.parametrize("grid", ["small", "own"])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_model_equals_plain_steps(name, grid):
+    """Each step's model against its plain step, iteration by iteration,
+    the move by pa_move's model; on the SMALL grid by the mesh path's
+    pa_member_dist and pa_mean_argmin too."""
     ps, params, sim = _edge_case(name)
     bv = port_bv(ps, 7)
     got = lockstep(ps, bv, params, sim, grid=SMALL if grid == "small"
                    else OWN, seed=len(name))
     want = listed(A.accumulate_device(ps, port_bv(ps, 7), params, sim))
     assert centers_of(*got[:4]) == want
+    if grid == "small":
+        mesh = lockstep(ps, port_bv(ps, 7), params, sim, seed=len(name),
+                        fused=False)
+        assert centers_of(*mesh[:4]) == want
     rec = got[4]
     assert rec["empty"] >= 1            # at least the last center's window
     assert rec["iters"] > len(want)
@@ -725,25 +863,104 @@ def test_model_with_the_f1_tie_rule_turned_around_disagrees():
         lockstep(ps, port_bv(ps, 7), params, sim, least_slot=False)
 
 
+def move_case(n=40, c=2, seed=4):
+    """Slots 0..n-1 whose owners are random centers other than c but for
+    c's members 1 (stamp 9), 20 (stamp 3) and 35 (stamp 3), three equal
+    rows in three tiles of the SMALL grid (16 slots; n is not a multiple),
+    whose d ties at the least, and 3 (stamp 5), a row of zeros; their mag
+    and sumvec as Phase A keeps them, st[COUNT] their number."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 60, size=(n, 24)).astype(np.int8)
+    rows[[20, 35]] = rows[1]
+    rows[3] = 0
+    owner = np.where(rng.random(n) < 0.5, 0, 5)
+    stamp = rng.integers(0, 4, size=n)
+    owner[[1, 20, 35, 3]] = c
+    stamp[[1, 20, 35, 3]] = [9, 3, 3, 5]
+    return rows, owner, stamp
+
+
+def move_models(rows, owner, stamp, c, count, grid, stamp_first, fused,
+                seed=0):
+    """st[LAST] and dist by pa_move's model (fused) or by pa_member_dist's
+    and pa_mean_argmin's."""
+    rng = np.random.default_rng(seed)
+    n = owner.shape[0]
+    s = {"owner": owner, "stamp": stamp,
+         "mag": rows.astype(np.int64).sum(1).astype(np.float64)}
+    sv = rows[owner == c].astype(np.int64).sum(0)
+    st = P.new_state(n, "cpu")[0].numpy().copy()
+    st[P.COUNT] = count
+    if fused:
+        dist, _ = model_move(st, s, c, rows, sv, grid, rng, stamp_first)
+    else:
+        dist, _, lst = model_member_dist(st, s, c, [rows], [sv], grid, rng)
+        model_mean_argmin(st, s, dist, lst, grid, rng, stamp_first)
+    return int(st[P.LAST]), dist
+
+
+def plain_move(rows, owner, stamp, c, count):
+    """move_plain through the wrapper (CPU tensors): (st[LAST], dist)."""
+    n = owner.shape[0]
+    h = torch.as_tensor(rows)
+    st, part = P.new_state(n, "cpu")
+    st[P.COUNT] = count
+    dist = torch.zeros(n + 1, dtype=torch.int64)
+    P.move(st, torch.as_tensor(owner), c, h, h[torch.as_tensor(owner) == c]
+           .to(torch.int64).sum(0), h.to(torch.int64).sum(1).to(torch.float64),
+           torch.as_tensor(stamp), dist, part)
+    return int(st[P.LAST]), dist.numpy()
+
+
+@pytest.mark.parametrize("grid", ["small", "own"])
+@pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("stamp_first", [True, False])
-def test_mean_argmin_tie_goes_to_the_least_stamp(stamp_first):
-    """Members 1, 4 and 6 of center 2 tie in d (the same row and mass);
-    slot 1 was absorbed last: the plain step takes slot 4 (least stamp,
-    then slot), as the model does, and a copy that ranks by slot alone
-    takes slot 1."""
+def test_mean_argmin_tie_goes_to_the_least_stamp(stamp_first, fused, grid):
+    """Members 1, 20 and 35 of center 2 tie in d (the same row and mass)
+    across three blocks; slot 1 was absorbed last: the plain step takes
+    slot 20 (least stamp, then slot), as pa_move's model and the mesh
+    path's do in any block order, and a copy that ranks by slot alone
+    takes slot 1. The argmin of the first plain step, on distances given,
+    also takes the least stamp."""
+    rows, owner, stamp = move_case()
+    members = np.flatnonzero(owner == 2).tolist() + [owner.shape[0]]
+    want, want_dist = plain_move(rows, owner, stamp, 2, 4)
+    assert want == 20
+    for seed in range(4):
+        got, dist = move_models(rows, owner, stamp, 2, 4,
+                                SMALL if grid == "small" else OWN,
+                                stamp_first, fused, seed)
+        np.testing.assert_array_equal(dist[members], want_dist[members])
+        assert (got == 20) == stamp_first and (got == 1) != stamp_first
     n = 8
     owner = torch.tensor([0, 2, 1, 2, 2, 0, 2, 1])
     stamp = torch.tensor([1, 9, 2, 5, 3, 1, 3, 4])
     dist = torch.tensor([4, 50, 4, 40, 50, 4, 50, 4, 30])
-    mag = torch.full((n,), 200.0, dtype=torch.float64)
     st, part = P.new_state(n, "cpu")
-    P.mean_argmin(st, dist, mag, owner, stamp, 2, part)
-    s = {"owner": owner.numpy(), "stamp": stamp.numpy(), "mag": mag.numpy()}
-    mst = st.numpy().copy()
-    model_mean_argmin(mst, s, dist.numpy(), 2, SMALL,
-                      np.random.default_rng(0), stamp_first)
+    P.mean_argmin(st, dist, torch.full((n,), 200.0, dtype=torch.float64),
+                  owner, stamp, 2, part)
     assert int(st[P.LAST]) == 4
-    assert (mst[P.LAST] == 4) == stamp_first
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_move_of_a_lone_member(fused):
+    """A center whose only member is itself: it stays, on both grids."""
+    rows, owner, stamp = move_case()
+    owner[owner == 2] = 0
+    owner[33] = 2
+    assert plain_move(rows, owner, stamp, 2, 1)[0] == 33
+    for grid in (SMALL, OWN):
+        assert move_models(rows, owner, stamp, 2, 1, grid, True,
+                           fused)[0] == 33
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_move_models_need_the_member_count(fused):
+    """st[COUNT] one off the members' number: no block of pa_move combines
+    (its model fails), and pa_mean_argmin's list length disagrees."""
+    rows, owner, stamp = move_case()
+    with pytest.raises(AssertionError):
+        move_models(rows, owner, stamp, 2, 5, SMALL, True, fused)
 
 
 @pytest.fixture(scope="module", params=sorted(CORPORA))
@@ -1017,6 +1234,7 @@ def test_source_constants_match_the_wrappers():
         return 1 << int(re.search(rf"\b{name} = 1 << (\d+)", src).group(1))
 
     assert const("kBlocks") == P.BLOCKS
+    assert const("kPartials") == P.PARTIALS
     assert const("kThreads") == P.THREADS
     assert const("kMaxSingles") == P.MAX_SINGLES
     assert const("kPieceBytes") == P.PIECE_BYTES
@@ -1029,7 +1247,8 @@ def test_source_constants_match_the_wrappers():
     for name, want in (("kNPos", P.NPOS), ("kBest", P.BEST),
                        ("kLast", P.LAST), ("kLive", P.LIVE), ("kW0", P.W0),
                        ("kW1", P.W1), ("kCount", P.COUNT), ("kTail", P.TAIL),
-                       ("kTicket", P.TICKETS),
+                       ("kTicket", P.TICKET), ("kMove", P.MOVE),
+                       ("kList", P.LIST), ("kMoveShift", P.MOVE_SHIFT),
                        ("kComboSquared", F.COMBO_SQUARED)):
         assert const(name) == want, name
     for i, col in enumerate(P.RANGES):
@@ -1042,7 +1261,10 @@ def test_source_constants_match_the_wrappers():
                        ("kFeatSimRatio", F.FEAT_SIMRATIO),
                        ("kFeatKulczynski2", F.FEAT_KULCZYNSKI2)):
         assert flag(name) == want, name
-    assert P.TICKETS + 2 <= P.STATE_LEN
+    assert P.LIST < P.STATE_LEN
+    # pa_move's partials fit part at every size: three a busy tile
+    for n in (1, 1023, 1024, 1025, 10 ** 6):
+        assert 3 * P.owner_tiles(n) <= P.part_len(n) - (n + 1) // 2
     assert set(P.SUPPORTED) == {F.FEAT_LD, F.FEAT_MANHATTAN,
                                 F.FEAT_INTERSECTION, F.FEAT_PEARSON,
                                 F.FEAT_SIMRATIO, F.FEAT_KULCZYNSKI2}
