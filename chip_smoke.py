@@ -39,7 +39,14 @@ Phases (any failure exits non-zero before the last line):
      and without the dot, int16, int32, and an int8 column slice at an odd
      byte) and on the 15k corpus's rows, over a window of every slot, with
      the L2 flushed, beside its bound and the PyTorch yardstick (cdist +
-     matmul on float32 copies);
+     matmul on float32 copies); Phase B's four kernels (csrc/phase_b.cu)
+     on Phase A's centers of the same two corpora: each kernel against
+     its plain step over the 15 iterations (every value the next step
+     reads), then the whole phase_b_loop (assign, centers, valid, t_hist)
+     against the plain steps', in turns with their walls, launches an
+     iteration and the bytes an iteration must move; each kernel's device
+     time and its plain step's from the same profile child; pb_band beside
+     one index_add_ of its positive rows;
   4. run each path on the GPU with the launch counts set to 0 just before
      it, and check that it launched both kernels, kmer_hist exactly once:
      - k-mer mode: 15,000 synthetic reads of ~1 kb, --id 0.90, default
@@ -47,7 +54,8 @@ Phases (any failure exits non-zero before the last line):
        clustered on the device (DeviceBackend, device Phase A through its
        kernels, three an absorb iteration and one, pa_move, a move of the
        center,
-       the fused Phase B with no replay fallback; its accumulate and
+       the fused Phase B through its four kernels, each once an iteration,
+       no plain step, with no replay fallback; its accumulate and
        phase_b seconds, absorb iterations and readbacks printed) and the
        partition must
        match the planted species (NMI >= 0.95); the same corpus rerun with
@@ -66,7 +74,8 @@ Phases (any failure exits non-zero before the last line):
      - the 15k k-mer run with checkpoint=PREFIX must write both JSON
        files; its rerun must resume both (no train, no accumulate phase),
        cluster on DeviceBackend with the fused Phase B, launch kmer_hist
-       once and the NW kernel never, and write the same CLSTR;
+       once, each Phase B kernel once an iteration, the NW and Phase A
+       kernels never, and write the same CLSTR;
      - the genome align-mode run under MESHCLUST_TRACE must write one
        trace that names the NW kernel and the kmer_hist kernel it ran, and
        the same CLSTR as without the trace;
@@ -81,7 +90,8 @@ Phases (any failure exits non-zero before the last line):
      CLSTR byte for byte, each rank launching kmer_hist once, the NW
      kernel as often as phase 4's run, pa_absorb once an absorb
      iteration and a move as pa_member_dist and pa_mean_argmin (the
-     all-reduce of the distances between them); each rank prints its
+     all-reduce of the distances between them), and each Phase B kernel
+     once an iteration on its block of the pool; each rank prints its
      device and
      backend, rows featurized, launches, featurize/train/accumulate/
      phase_b seconds and its collectives and bytes by site, and the wall
@@ -580,12 +590,12 @@ def listed_moves():
         A._Slots.move = move
 
 
-def ranged(name, fn):
-    """fn inside the profiler range phase_a.<name>."""
+def ranged(name, fn, prefix: str = "phase_a"):
+    """fn inside the profiler range <prefix>.<name>."""
     import torch
 
     def call(*a, **kw):
-        with torch.profiler.record_function(f"phase_a.{name}"):
+        with torch.profiler.record_function(f"{prefix}.{name}"):
             return fn(*a, **kw)
     return call
 
@@ -900,9 +910,11 @@ def phase_a_lockstep_errors(ps, bv, params, iters: int) -> dict:
 
 def phase_a_profile_child(paths: list) -> int:
     """The child process of check_phase_a: for each saved (points, bvec,
-    params) file, the device ms of each step on both paths; prints one
-    JSON line {path: [kernel ms, plain ms, kernel ms an iteration, plain
-    ms an iteration]}. A process of its own, so that the smoke's later
+    params) file, the device ms of each Phase A step on both paths, then
+    of each Phase B step (phase_b_device_ms); prints one JSON line {path:
+    [kernel ms, plain ms, kernel ms an iteration, plain ms an iteration,
+    the mesh pair's ms an iteration, Phase B's kernel ms, plain ms, kernel
+    ms an iteration, plain ms an iteration]}. A process of its own, so that the smoke's later
     traced run starts with no earlier profiler session in its process."""
     import torch
     out = {}
@@ -919,7 +931,10 @@ def phase_a_profile_child(paths: list) -> int:
                                          PROFILE_CENTERS, listed=True)
         for k in ("pa_member_dist", "pa_mean_argmin"):
             ms[k], plain_ms[k] = two[k], two_plain[k]
-        out[path] = [ms, plain_ms, dev_ms, plain_dev_ms, two_dev_ms]
+        pb = [phase_b_device_ms(ps, bv, params, plain)
+              for plain in (False, True)]
+        out[path] = [ms, plain_ms, dev_ms, plain_dev_ms, two_dev_ms,
+                     pb[0][0], pb[1][0], pb[0][1], pb[1][1]]
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1212,6 +1227,7 @@ def check_phase_a(dev) -> list:
               f"{notes['tiles']:.0f} tiles (a scan narrowed to the members' "
               f"range would read {span:.2f}); pa_move's bound {b['bound_ms']:.6g} ms a launch "
               f"({per_launch['pa_move']:.0f} B)", flush=True)
+        INPUTS[n] = path
         found[n] = (path, err, per_launch, ops_s, md["library_ms"],
                     mv["library_ms"])
         if n == 15000:
@@ -1224,10 +1240,11 @@ def check_phase_a(dev) -> list:
     if child.returncode != 0:
         fail(f"the Phase A profile failed:\n{child.stderr[-3000:]}")
     timed_ = json.loads(child.stdout.strip().splitlines()[-1])
+    PROFILED.update({n: timed_[found[n][0]] for n in found})
     rows = None
     for n, (path, err, per_launch, ops_s, dist_lib_ms,
             move_lib_ms) in found.items():
-        ms, plain_ms, dev_ms, plain_dev_ms, two_dev_ms = timed_[path]
+        ms, plain_ms, dev_ms, plain_dev_ms, two_dev_ms = timed_[path][:5]
         two_ms = ms["pa_member_dist"] + ms["pa_mean_argmin"]
         print(f"  Phase A at {n} reads under the profiler (first "
               f"{PROFILE_CENTERS} centers, a child process, "
@@ -1260,6 +1277,292 @@ def check_phase_a(dev) -> list:
                      "max_abs_err": err[k],
                      **bound(per_launch[k], ops_s[k])} for k in PHASE_A]
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3: Phase B's kernels (csrc/phase_b.cu)
+# ---------------------------------------------------------------------------
+
+PHASE_B = ("pb_band", "pb_dist", "pb_pick", "pb_merge")
+# The JAX code each Phase B kernel replaces (meshclust_tpu/core/
+# classify.py:_build_phaseb: cls_body, dist_body, pos_body, the move and
+# the merge).
+PHASE_B_REPLACES = {"pb_band": 644, "pb_dist": 680, "pb_pick": 727,
+                    "pb_merge": 742}
+# Phase B's settings on the main path (ClusterConfig's defaults).
+PB_DELTA, PB_ITERS = 5, 15
+# check_phase_a's saved (points, bvec, params) files and its child's
+# profile, by corpus size
+INPUTS = {}
+PROFILED = {}
+
+
+@contextlib.contextmanager
+def phase_b_steps(wrap):
+    """ops/phase_b.steps patched so that each step runs as wrap(name, fn)."""
+    import types
+    from meshclust_tpu_torch.ops import phase_b as PB
+    steps = PB.steps
+    PB.steps = lambda plain: types.SimpleNamespace(**{
+        name: wrap(name, getattr(steps(plain), name)) for name in PB.STEPS})
+    try:
+        yield
+    finally:
+        PB.steps = steps
+
+
+def phase_b_inputs(ps, bv, params) -> tuple:
+    """Phase A's centers of a run's points as run_phase_b_device hands them
+    to phase_b_loop: (backend, members, assign, center rows)."""
+    from meshclust_tpu_torch.core.accumulate_device import accumulate_device
+    from meshclust_tpu_torch.core.classify import DeviceBackend
+    centers = accumulate_device(ps, bv, params, 0.90)
+    members = np.asarray([m for c in centers for m in c.members], np.int64)
+    assign = np.repeat(np.arange(len(centers)),
+                       [len(c.members) for c in centers])
+    rows = np.asarray([c.center for c in centers], np.int64)
+    return DeviceBackend(ps, params), members, assign, rows
+
+
+def phase_b_device_ms(ps, bv, params, plain: bool) -> tuple:
+    """(device ms a call of each step, device ms an iteration) of the
+    fused Phase B under torch.profiler, as phase_a_device_ms takes them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    be, members, assign, rows = phase_b_inputs(ps, bv, params)
+    torch.cuda.synchronize()
+    with phase_b_steps(lambda n, f: ranged(n, f, "phase_b")), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        be.phase_b_loop(members, assign, rows, PB_DELTA, PB_ITERS,
+                        plain=plain)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    out = {}
+    for k in PHASE_B:
+        name = k[3:]
+        if plain:
+            evs = [e for e in prof.events() if e.name == f"phase_b.{name}"
+                   and e.device_type == DeviceType.CPU]
+            out[k] = (sum(device_total_us(e) for e in evs) / 1e3
+                      / max(1, len(evs)))
+        else:
+            ks = [e for e in ka if e.device_type == DeviceType.CUDA
+                  and f"{k}_kernel" in e.key]
+            out[k] = (sum(e.self_device_time_total for e in ks) / 1e3
+                      / max(1, sum(e.count for e in ks)))
+    dev_ms = sum(e.self_device_time_total for e in ka
+                 if e.device_type == DeviceType.CUDA
+                 and not e.key.startswith("phase_b.")) / 1e3
+    return out, dev_ms / PB_ITERS
+
+
+def phase_b_lockstep(be, members, assign, rows) -> tuple:
+    """Each Phase B kernel against its plain step on the same inputs over
+    PB_ITERS iterations, both States driven as phase_b_loop drives them:
+    the max abs difference of every value the next step reads (float64 as
+    bit patterns), per kernel; and the bytes each launch must move and the
+    seconds its float64 classifier takes at the card's rate, averaged over
+    the launches, from this run's data (see phase_b_traffic)."""
+    import torch
+    from meshclust_tpu_torch.ops import phase_b as PB
+    both = [be._phase_b_state(members, assign, rows, PB_DELTA, PB_ITERS)
+            for _ in range(2)]
+    steps = (PB.steps(True), PB.steps(False))
+    err = dict.fromkeys(PHASE_B, 0)
+    nbytes = dict.fromkeys(PHASE_B, 0.0)
+    ops_s = dict.fromkeys(PHASE_B, 0.0)
+
+    def diff(name, *attrs):
+        for x in attrs:
+            a, b = (getattr(s, x) for s in both)
+            if a.dtype == torch.float64:
+                a, b = a.view(torch.int64), b.view(torch.int64)
+            err[name] = max(err[name], max_abs_err(a.to(torch.int64),
+                                                   b.to(torch.int64)))
+
+    def run(name, *args):
+        for s, step in zip(both, steps):
+            getattr(step, name)(s, *args)
+
+    for it in range(PB_ITERS):
+        traffic = phase_b_traffic(both[1])
+        run("band")
+        diff("pb_band", "assign", "bits", "sc", "best_d", "best_pos")
+        traffic.update(phase_b_traffic(both[1], banded=True))
+        run("dist")
+        diff("pb_dist", "dstore", "best_d")
+        run("pick")
+        diff("pb_pick", "best_pos", "sc")
+        run("merge", it)
+        diff("pb_merge", "c_idx", "c_valid", "remap")
+        err["pb_merge"] = max(err["pb_merge"], max_abs_err(
+            both[0].t_hist[it], both[1].t_hist[it]))
+        for k, (b, o) in traffic.items():
+            nbytes[k] += b / PB_ITERS
+            ops_s[k] += o / PB_ITERS
+    return err, nbytes, ops_s
+
+
+def phase_b_traffic(pb, banded: bool = False) -> dict:
+    """{kernel: (bytes its launch must move, seconds of its classifier at
+    the float64 rate)} for the iteration pb is at: before the band (banded
+    False) pb_band's and pb_merge's, which depend on assign and c_valid
+    (pb_merge's on the move, bounded by every valid center's row); after
+    it pb_dist's and pb_pick's, which depend on the positives. Each input
+    read once, each output written once: the members' rows (pb_dist: of
+    the members with a positive), each valid center's row, 8 B a member of
+    m_idx, assign (read and written by pb_band), remap and dstore (a
+    positive's d), 24 B of mag, sq and len a member and a center, the bits
+    (4 B a word), sc's rows (written by pb_band and zeroed by pb_pick: the
+    centers with a positive; read by pb_dist), and 8-25 B a center of
+    c_idx, c_valid, best_d, best_pos, t_hist and remap."""
+    import torch
+    M, V = pb.rows.shape
+    C = pb.c_idx.shape[0]
+    w = pb.rows.element_size()
+    words = pb.bits.shape[1]
+    row = V * w
+    if not banded:
+        a = pb.remap[pb.assign]
+        valid = int(pb.c_valid.sum())
+        ok = 0
+        for o in range(-pb.delta, pb.delta + 1):
+            j = a + o
+            ok += int(((j >= 0) & (j < C)
+                       & pb.c_valid[j.clamp(0, C - 1)]).sum())
+        merge_pairs = 0
+        idx = torch.arange(C, device=a.device)
+        for o in range(1, pb.delta + 1):
+            j = idx + o
+            merge_pairs += int((pb.c_valid & (j < C)
+                                & pb.c_valid[j.clamp(max=C - 1)]).sum())
+        fp64 = CLASSIFY_FP64_OPS / FP64_OPS_PER_S
+        return {"pb_band": (M * (row + 8 + 24 + 24 + 4 * words)
+                            + valid * (row + 24) + C * (8 + 1 + 16 + 8),
+                            ok * fp64),
+                "pb_merge": (valid * (row + 24 + 8) + C * (8 + 8 + 1 + 8 + 8
+                                                           + 9),
+                             merge_pairs * fp64)}
+    bits = pb.bits.to(torch.int64) & 0xFFFFFFFF
+    per_member = torch.zeros(M, dtype=torch.int64, device=bits.device)
+    for b in range(32):
+        per_member += ((bits >> b) & 1).sum(1)
+    pos = int(per_member.sum())
+    with_pos = int((per_member > 0).sum())
+    centers = int((pb.sc[:, V] > 0).sum())
+    sc_row = (V + 1) * 8
+    return {"pb_dist": (with_pos * (row + 16) + centers * sc_row
+                        + M * (8 + 4 * words) + pos * 8 + C * 8, 0.0),
+            "pb_pick": (M * (8 + 4 * words) + pos * 8 + C * 16
+                        + centers * sc_row, 0.0)}
+
+
+def band_yardstick(pb) -> float:
+    """The library call that computes pb_band's sums: index_add_ of the
+    positive rows (gathered beforehand as int64) into [C, V] int64, warm,
+    after a band on pb."""
+    import torch
+    V = pb.rows.shape[1]
+    bits = pb.bits.to(torch.int64) & 0xFFFFFFFF
+    ms, js = [], []
+    for oi in range(2 * pb.delta + 1):
+        m = torch.nonzero((bits[:, oi // 32] >> (oi % 32)) & 1).flatten()
+        ms.append(m)
+        js.append(pb.assign[m] + oi - pb.delta)
+    m, j = torch.cat(ms), torch.cat(js)
+    rows = pb.rows[m].to(torch.int64)
+    out = torch.zeros((pb.c_idx.shape[0], V), dtype=torch.int64,
+                      device=rows.device)
+    return cuda_ms(lambda: out.index_add_(0, j, rows), 20)
+
+
+def check_phase_b(dev) -> list:
+    """The fused Phase B through its kernels against the plain steps on
+    the 15k and 150k corpora's Phase A centers (check_phase_a's inputs):
+    each kernel step by step over the 15 iterations, then the whole
+    phase_b_loop (assign, centers, valid, t_hist) in turns (plain, kernels,
+    kernels, plain) with walls, launches an iteration and the bound; each
+    kernel's device time and its plain step's from check_phase_a's profile
+    child. Returns the four kernels' rows (at 15k, the main path's
+    shapes)."""
+    import torch
+    from meshclust_tpu_torch import _ext
+    rows_out = None
+    for n, path in sorted(INPUTS.items()):
+        t0 = time.time()
+        ps, bv, params = torch.load(path, weights_only=False)
+        be, members, assign, rows = phase_b_inputs(ps, bv, params)
+        err, per_launch, ops_s = phase_b_lockstep(be, members, assign, rows)
+        runs = []
+        for plain in (True, False, False, True):
+            _ext.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.time()
+            out = be.phase_b_loop(members, assign, rows, PB_DELTA, PB_ITERS,
+                                  plain=plain)
+            torch.cuda.synchronize()
+            runs.append((out, time.time() - t1,
+                         {k: _ext.launches[k] for k in PHASE_B}))
+        for out, _, launched in runs:
+            for a, b in zip(out, runs[0][0]):
+                if a.shape != b.shape or not np.array_equal(a, b):
+                    fail(f"Phase B at {n} reads: the kernels' loop differs "
+                         f"from the plain steps' (assign, centers, valid or "
+                         f"t_hist)")
+        want = dict.fromkeys(PHASE_B, PB_ITERS)
+        for i, (_, _, launched) in enumerate(runs):
+            if launched != (want if i in (1, 2) else dict.fromkeys(PHASE_B,
+                                                                   0)):
+                fail(f"Phase B at {n} reads launched {launched} (run {i})")
+        if any(err.values()):
+            fail(f"Phase B at {n} reads: a kernel differs from its plain "
+                 f"step ({err})")
+        pb = be._phase_b_state(members, assign, rows, PB_DELTA, 0)
+        from meshclust_tpu_torch.ops import phase_b as PB
+        PB.band(pb)
+        lib_ms = band_yardstick(pb)
+        merged = int((runs[1][0][3] != np.arange(rows.shape[0])).sum())
+        walls = [r[1] * 1e3 / PB_ITERS for r in runs]
+        total = sum(per_launch.values())
+        print(f"  Phase B at {n} reads (--delta {PB_DELTA}, {PB_ITERS} "
+              f"iterations, {ps.hist_dev.dtype} rows, V = {ps.V}): "
+              f"{members.shape[0]} members, {rows.shape[0]} centers, "
+              f"{merged} merge targets over the iterations, "
+              f"{int(runs[1][0][2].sum())} kept; assign, centers, valid and "
+              f"t_hist bit-equal to the plain steps'; each kernel bit-equal "
+              f"to its plain step over all iterations", flush=True)
+        print(f"    phase_b_loop wall ms an iteration, in turns: plain "
+              f"{walls[0]:.4f}, kernels {walls[1]:.4f}, kernels "
+              f"{walls[2]:.4f}, plain {walls[3]:.4f}; Phase B launches an "
+              f"iteration {sum(runs[1][2].values()) / PB_ITERS:.4f} "
+              f"({runs[1][2]}); bound {total / HBM_BYTES_PER_S * 1e3:.5f} "
+              f"ms an iteration ({total:.0f} B at {HBM_BYTES_PER_S:.3g} "
+              f"B/s) (took {time.time() - t0:.1f} s)", flush=True)
+        ms, plain_ms, dev_ms, plain_dev_ms = PROFILED[n][5:9]
+        print(f"  Phase B at {n} reads under the profiler: device ms an "
+              f"iteration: kernels {dev_ms:.5f}, plain {plain_dev_ms:.5f}; "
+              f"pb_band's sums as one index_add_ of the positive rows "
+              f"(gathered beforehand) {lib_ms:.5f} ms warm", flush=True)
+        for k in PHASE_B:
+            b = bound(per_launch[k], ops_s[k])
+            print(f"    {k}: {ms[k]:.5f} ms a launch (plain step "
+                  f"{plain_ms[k]:.5f} ms), bound {b['bound_ms']:.6g} ms "
+                  f"({b['bound_by']}, {per_launch[k]:.0f} B a launch), "
+                  f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4g} of it, "
+                  f"max abs err {err[k]}", flush=True)
+        if rows_out is None:
+            # pb_band's yardstick: index_add_ of its positive rows; no
+            # PyTorch call computes the other kernels' functions
+            rows_out = [{"name": k, "route": "cuda",
+                         "source": "meshclust_tpu_torch/csrc/phase_b.cu",
+                         "replaces": "meshclust_tpu/core/classify.py:"
+                                     f"{PHASE_B_REPLACES[k]}",
+                         "ms": ms[k], "plain_ms": plain_ms[k],
+                         "library_ms": lib_ms if k == "pb_band" else None,
+                         "max_abs_err": err[k],
+                         **bound(per_launch[k], ops_s[k])} for k in PHASE_B]
+    return rows_out
 
 
 # ---------------------------------------------------------------------------
@@ -1338,6 +1641,28 @@ def spy_fused_phase_b():
     return kept_calls, undo
 
 
+def spy_phase_b_plain():
+    """Count the calls of ops/phase_b's plain steps (the wrappers call them
+    for CPU tensors only); -> (counts by step, undo)."""
+    from meshclust_tpu_torch.ops import phase_b as PB
+    calls = dict.fromkeys(PB.STEPS, 0)
+    saved = {name: getattr(PB, f"{name}_plain") for name in PB.STEPS}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(PB, f"{name}_plain", counted(name, fn))
+
+    def undo():
+        for name, fn in saved.items():
+            setattr(PB, f"{name}_plain", fn)
+    return calls, undo
+
+
 def main_path(dev) -> dict:
     """The k-mer path on the device, then the same corpus with exact=True
     (the float64 host classifier and the host Phase A and B): the two
@@ -1347,11 +1672,13 @@ def main_path(dev) -> dict:
     from meshclust_tpu_torch.utils import perf
     out = os.path.join(WORK, "smoke_15k.clstr")
     fused, undo = spy_fused_phase_b()
+    plain_calls, undo_plain = spy_phase_b_plain()
     try:
         res, launches = drive(dev, "k-mer path --id 0.90", bench_corpus(),
                               out, similarity=0.90)
     finally:
         undo()
+        undo_plain()
     phases, counters = perf.phases(), perf.counters()
     expect_launches("k-mer", launches)
     if native.get_lib() is None or native.get_refsort() is None:
@@ -1371,6 +1698,17 @@ def main_path(dev) -> dict:
         fail(f"the k-mer run's Phase A kernels launched "
              f"{ {k: launches[k] for k in PHASE_A} }, not {want} (three an "
              f"absorb iteration, one more a move of the center)")
+    if {k: launches[k] for k in PHASE_B} != dict.fromkeys(PHASE_B,
+                                                           PB_ITERS):
+        fail(f"the k-mer run's Phase B kernels launched "
+             f"{ {k: launches[k] for k in PHASE_B} }, not "
+             f"{PB_ITERS} each (one an iteration)")
+    if any(plain_calls.values()):
+        fail(f"the k-mer run took Phase B's plain steps on the card "
+             f"({plain_calls})")
+    print(f"  Phase B: {sum(launches[k] for k in PHASE_B) / PB_ITERS:.2f} "
+          f"launches an iteration ({ {k: launches[k] for k in PHASE_B} }), "
+          f"no plain step", flush=True)
     print(f"  clustered on the device: accumulate "
           f"{phases.get('accumulate', 0.0):.4f} s, phase_b "
           f"{phases.get('phase_b', 0.0):.4f} s, accum_iters "
@@ -1563,8 +1901,9 @@ def small_parity(dev) -> None:
 def checkpoint_path(dev, kmer_clstr: str) -> None:
     """The 15k k-mer run with a checkpoint, then again: the second run must
     resume both milestones (no train, no accumulate), cluster on the
-    device with the fused Phase B, launch kmer_hist once and the NW kernel
-    never, and write the CLSTR of the first run and of phase 4's run."""
+    device with the fused Phase B, launch kmer_hist once, each Phase B
+    kernel once an iteration and no NW or Phase A kernel, and write the
+    CLSTR of the first run and of phase 4's run."""
     from meshclust_tpu_torch.core.classify import DeviceBackend
     from meshclust_tpu_torch.utils import perf
     prefix = os.path.join(WORK, "ckpt_15k")
@@ -1603,9 +1942,11 @@ def checkpoint_path(dev, kmer_clstr: str) -> None:
     if kept_calls != [True]:
         fail(f"the resumed run's fused Phase B fell back or did not run "
              f"(kept per call: {kept_calls})")
-    if launches != {**dict.fromkeys(launches, 0), "kmer_hist": 1}:
-        fail(f"the resumed run launched {launches}, not kmer_hist once "
-             f"and no other kernel (no NW, no Phase A)")
+    if launches != {**dict.fromkeys(launches, 0), "kmer_hist": 1,
+                    **dict.fromkeys(PHASE_B, PB_ITERS)}:
+        fail(f"the resumed run launched {launches}, not kmer_hist once, "
+             f"each Phase B kernel once an iteration and no other kernel "
+             f"(no NW, no Phase A)")
     texts = []
     for path in outs + [kmer_clstr]:
         with open(path, "rb") as f:
@@ -1932,6 +2273,11 @@ def ranks_path(kmer_launches: dict) -> dict:
             fail(f"rank {o['rank']} moved {moves:.0f} centers with "
                  f"pa_member_dist, pa_mean_argmin and pa_move launched {got} "
                  f"times (a move under the mesh: the first two once each)")
+        got = [o["launches"][k] for k in PHASE_B]
+        if got != [PB_ITERS] * len(PHASE_B):
+            fail(f"rank {o['rank']} launched {PHASE_B} {got} times, not "
+                 f"{PB_ITERS} each (one an iteration on its block of the "
+                 f"pool)")
         for site in ("featurize", "accumulate", "phase_b"):
             if o["counters"].get(f"coll_{site}", 0) <= 0:
                 fail(f"rank {o['rank']} issued no collective at {site}")
@@ -2014,7 +2360,8 @@ def main() -> int:
                     print(f"    {line.strip()}", flush=True)
 
     print("phase 3: kernels against their plain versions", flush=True)
-    rows = [check_histogram(dev), check_nw_long(dev), *check_phase_a(dev)]
+    rows = [check_histogram(dev), check_nw_long(dev), *check_phase_a(dev),
+            *check_phase_b(dev)]
 
     print("phase 4: main paths", flush=True)
     kmer = main_path(dev)

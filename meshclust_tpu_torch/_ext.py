@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches: Dict[str, int] = {"kmer_hist": 0, "nw_align_long": 0,
                              "pa_window": 0, "pa_sums": 0, "pa_absorb": 0,
                              "pa_member_dist": 0, "pa_mean_argmin": 0,
-                             "pa_move": 0}
+                             "pa_move": 0, "pb_band": 0, "pb_dist": 0,
+                             "pb_pick": 0, "pb_merge": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -68,6 +69,22 @@ _SIGNATURES = {
     # st, owner, c, rows, row stride, V, width, sumvec, n, mag, stamp, dist,
     # part, stream
     "mc_pa_move": [_P, _P, _L, _P, _L, _I, _I, _P, _I, _P, _P, _P, _P, _P],
+    # rows, row stride, hist, hist stride, V, width, m_idx, m_valid (or
+    # null), M, assign, remap, c_idx, c_valid, C, mag, sq, lenf, spec,
+    # n_spec, coef, n_coef, delta, bits, sc, best_d, best_pos, M_all, stream
+    "mc_pb_band": [_P, _L, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I,
+                   _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _L, _P],
+    # rows, row stride, V, width, m_idx, M, assign, mag, delta, bits, sc,
+    # dstore, best_d, stream
+    "mc_pb_dist": [_P, _L, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P],
+    # M, assign, delta, bits, dstore, best_d, best_pos, goff, sc, sc_len,
+    # stream
+    "mc_pb_pick": [_I, _P, _I, _P, _P, _P, _P, _L, _P, _L, _P],
+    # hist, hist stride, V, width, C, c_idx, c_valid, best_pos, m_all,
+    # M_all, mag, sq, lenf, spec, n_spec, coef, n_coef, delta, t_row, remap,
+    # scratch, stream
+    "mc_pb_merge": [_P, _L, _I, _I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _P,
+                    _I, _P, _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -80,9 +97,15 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def headers() -> list:
+    """The headers the sources include (csrc/*.cuh): part of every
+    library's hash, so an edited header rebuilds it."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def _digest(srcs: list) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
+    for path in srcs + headers():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())

@@ -4,10 +4,11 @@
 Run from the repository root, after chip_smoke.py has passed:
     python3 profile_port.py [--parts throughput,busy,variants,compare,e2e,
                                      feat,kvariants,sass,phase_a,cluster,
-                                     ranks]
+                                     phase_b,walls,ranks]
                             [--ranks 2,4] [--sizes 15000,150000,1000000]
                             [--against OLD.cu ...] [--variants "R,T,K ..."]
-                            [--parent DIR] [--kmer-variants "SPEC ..."]
+                            [--parent DIR] [--parent-tree DIR]
+                            [--kmer-variants "SPEC ..."]
 
 Parts (default: throughput,busy):
   throughput  the NW kernel's time, throughput (DP cells per second) and
@@ -79,7 +80,8 @@ Parts (default: throughput,busy):
               1M row) run once.
   phase_a     csrc/phase_a.cu of an earlier commit (--parent DIR holding
               its phase_a.cu, e.g. `git show HEAD~1:meshclust_tpu_torch/
-              csrc/phase_a.cu > build/parent/phase_a.cu`) built beside this
+              csrc/phase_a.cu > build/parent/phase_a.cu`, and its
+              csrc/common.cuh where it includes one) built beside this
               tree's, in turns (parent, this, this, parent): pa_sums on
               chip_smoke.py's 1M x 256 int8 rows and on a column slice at
               an odd byte with the L2 flushed; then for each corpus of
@@ -94,6 +96,24 @@ Parts (default: throughput,busy):
               (parent_window); a parent with no pa_move moves a center in
               its two launches, pa_member_dist and a pa_mean_argmin that
               scans every owner (parent_move).
+  phase_b     the fused Phase B (csrc/phase_b.cu) at each read count of
+              --sizes, on Phase A's centers of one run's points and model:
+              phase_b_loop through the kernels and through the plain steps
+              (the torch ops of the parent commit, moved), unprofiled in
+              turns (plain, kernels, kernels, plain), with the outputs
+              equal across the turns; launches an iteration; wall and
+              device ms an iteration under the profiler; each kernel's
+              device ms a launch beside its plain step's, its bound
+              (chip_smoke.py:phase_b_lockstep's traffic from the same
+              run's data), share and loss over a run, launches x (ms -
+              bound).
+  walls       whole k-mer runs (--id 0.90) at each read count of --sizes
+              against an earlier commit's tree (--parent-tree DIR, e.g.
+              `git archive HEAD~1 | tar -x -C build/parent_tree`), in
+              turns (parent, this, this, parent), each a child process in
+              its tree's root that warms up on the 15k corpus first: wall,
+              phases, NMI against the planted species and CLSTR digest
+              (equal across the turns).
   ranks       several ranks (parallel/dist), for each n of --ranks: n
               ranks (gloo where they share a card, NCCL where each has its
               own) time each collective at the 15k k-mer run's shapes (a
@@ -119,6 +139,7 @@ import hashlib
 import json
 import os
 import re
+import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -412,6 +433,128 @@ def cluster(dev, n: int, warm: bool, full: bool) -> None:
     print("    " + piece_line(f"fused Phase B alone ({len(centers)} centers, "
                               f"{members.shape[0]} members)", wall, dev_s,
                               launches, copies, cfg.iterations), flush=True)
+
+
+def phase_b_part(dev, n: int) -> None:
+    """The phase_b part at n reads (see the module docstring)."""
+    import torch
+    from meshclust_tpu_torch import _ext
+    from meshclust_tpu_torch.config import ClusterConfig
+    from meshclust_tpu_torch.core.bvec import BVec
+    from meshclust_tpu_torch.core.runner import run
+    cfg = ClusterConfig(files=[smoke.bench_corpus(n=n)],
+                        output=os.path.join(smoke.WORK, f"pb_{n}.clstr"),
+                        similarity=0.90).finalize()
+    res = run(cfg, device=dev)
+    ps, params = res["pointset"], res["model"].params
+    bv = BVec(ps.lengths.copy(), cfg.bin_size)
+    bv.bulk_insert(ps.lengths)
+    bv.insert_finalize()
+    be, members, assign, rows = smoke.phase_b_inputs(ps, bv, params)
+    it = smoke.PB_ITERS
+    print(f"  {n} reads: {members.shape[0]} members, {rows.shape[0]} "
+          f"centers, --delta {smoke.PB_DELTA}, {it} iterations, "
+          f"{ps.hist_dev.dtype} rows, V = {ps.V}", flush=True)
+    walls, outs = {True: [], False: []}, []
+    for plain in (True, False, False, True):
+        _ext.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        outs.append(be.phase_b_loop(members, assign, rows, smoke.PB_DELTA,
+                                    it, plain=plain))
+        torch.cuda.synchronize()
+        walls[plain].append(time.time() - t0)
+        if not plain:
+            launched = sum(_ext.launches[k] for k in smoke.PHASE_B)
+    same = all(np.array_equal(a, b) for o in outs[1:]
+               for a, b in zip(o, outs[0]))
+    print(f"    phase_b_loop unprofiled, in turns (plain, kernels, kernels, "
+          f"plain), ms an iteration: kernels "
+          + ", ".join(f"{w * 1e3 / it:.4f}" for w in walls[False])
+          + "; plain " + ", ".join(f"{w * 1e3 / it:.4f}"
+                                   for w in walls[True])
+          + f"; outputs equal across the turns {same}; kernel launches "
+          f"{launched / it:.2f} an iteration", flush=True)
+    for plain, name in ((False, "kernels"), (True, "plain steps")):
+        _, wall, dev_s, launches, copies = profiled(
+            lambda: be.phase_b_loop(members, assign, rows, smoke.PB_DELTA,
+                                    it, plain=plain))
+        print("    " + piece_line(f"Phase B ({name}) under the profiler",
+                                  wall, dev_s, launches, copies, it),
+              flush=True)
+    ms, dev_ms = smoke.phase_b_device_ms(ps, bv, params, False)
+    plain_ms, plain_dev_ms = smoke.phase_b_device_ms(ps, bv, params, True)
+    err, per_launch, ops_s = smoke.phase_b_lockstep(be, members, assign,
+                                                    rows)
+    print(f"    device ms an iteration: kernels {dev_ms:.5f}, plain steps "
+          f"{plain_dev_ms:.5f}", flush=True)
+    for k in smoke.PHASE_B:
+        b = smoke.bound(per_launch[k], ops_s[k])
+        print(f"      {k}: {ms[k]:.5f} ms a launch (plain step "
+              f"{plain_ms[k]:.5f}), {it} launches a run, bound "
+              f"{b['bound_ms']:.6g} ms ({b['bound_by']}, "
+              f"{per_launch[k]:.0f} B a launch), share "
+              f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4g}, loss "
+              f"{it * (ms[k] - b['bound_ms']) / 1e3:.6f} s, max abs err "
+              f"{err[k]}", flush=True)
+
+
+# A whole k-mer run in a tree's root (the walls part): warm up on the 15k
+# corpus, then one timed run; prints one JSON line.
+WALL_CHILD = r"""
+import hashlib, json, sys, time
+import torch
+from meshclust_tpu_torch.config import ClusterConfig
+from meshclust_tpu_torch.core.runner import run
+from meshclust_tpu_torch.utils import perf
+warm, fasta, out = sys.argv[1:4]
+dev = torch.device("cuda", 0)
+run(ClusterConfig(files=[warm], output=out + ".warm", similarity=0.90),
+    device=dev)
+perf.reset()
+torch.cuda.synchronize()
+t0 = time.time()
+run(ClusterConfig(files=[fasta], output=out, similarity=0.90), device=dev)
+torch.cuda.synchronize()
+wall = time.time() - t0
+with open(out, "rb") as f:
+    digest = hashlib.sha256(f.read()).hexdigest()[:16]
+print(json.dumps({"wall": wall, "phases": perf.phases(), "digest": digest}))
+"""
+
+
+def walls(parent_tree: str, sizes: list) -> None:
+    """The walls part (see the module docstring)."""
+    trees = {"parent": os.path.abspath(parent_tree),
+             "this": os.path.dirname(os.path.abspath(__file__))}
+    if not os.path.isdir(os.path.join(trees["parent"],
+                                      "meshclust_tpu_torch")):
+        raise SystemExit(f"walls: no meshclust_tpu_torch under "
+                         f"{parent_tree}")
+    warm = smoke.bench_corpus()
+    for n in sizes:
+        fasta = smoke.bench_corpus(n=n)
+        got = []
+        for who in ("parent", "this", "this", "parent"):
+            out = os.path.join(smoke.WORK, f"walls_{who}_{n}.clstr")
+            child = subprocess.run(
+                [sys.executable, "-c", WALL_CHILD, warm, fasta, out],
+                capture_output=True, text=True, timeout=1800,
+                cwd=trees[who], env={**os.environ, "MESHCLUST_QUIET": "1"})
+            if child.returncode != 0:
+                raise SystemExit(f"walls: the {who} run at {n} reads "
+                                 f"failed:\n{child.stderr[-3000:]}")
+            r = json.loads(child.stdout.strip().splitlines()[-1])
+            got.append(r)
+            ph = r["phases"]
+            print(f"  {n} reads, {who}: wall {r['wall']:.4f} s, "
+                  + ", ".join(f"{k} {ph[k]:.4f}" for k in
+                              ("read", "featurize", "train", "accumulate",
+                               "phase_b") if k in ph)
+                  + f" s; NMI vs species {smoke.species_nmi(out):.6f}, "
+                  f"CLSTR sha256 {r['digest']}", flush=True)
+        print(f"  {n} reads: CLSTR equal across the turns "
+              f"{len({r['digest'] for r in got}) == 1}", flush=True)
 
 
 @contextlib.contextmanager
@@ -1210,6 +1353,9 @@ def main() -> int:
                     help="directory with the parent's kmer_hist.cu and "
                     "ops/histogram.py, for the feat part, or its "
                     "phase_a.cu, for the phase_a part")
+    ap.add_argument("--parent-tree", default="build/parent_tree",
+                    help="an earlier commit's whole tree, for the walls "
+                    "part")
     ap.add_argument("--kmer-variants", default="kWarps=4 kClusterCtas=2 "
                     "kClusterCtas=8 @atomic @noatom @loadonly",
                     help="kmer_hist edits (NAME=VALUE, @probe) or "
@@ -1268,6 +1414,13 @@ def main() -> int:
         print("k-mer-mode clustering on the device", flush=True)
         for k, n in enumerate(int(x) for x in args.sizes.split(",")):
             cluster(dev, n, warm=k == 0, full=n <= FULL_CLUSTER_READS)
+    if "phase_b" in parts:
+        print("the fused Phase B: kernels against plain steps", flush=True)
+        for n in (int(x) for x in args.sizes.split(",")):
+            phase_b_part(dev, n)
+    if "walls" in parts:
+        print(f"whole runs against {args.parent_tree}, in turns", flush=True)
+        walls(args.parent_tree, [int(x) for x in args.sizes.split(",")])
     if "ranks" in parts:
         print(f"several ranks on {torch.cuda.device_count()} GPUs",
               flush=True)

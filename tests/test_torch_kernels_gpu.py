@@ -802,3 +802,112 @@ def test_pa_absorb_kernel_equals_plain(cuda, window, nan):
     if window == "all":
         assert st[P.NPOS] > 3
         assert st[P.BEST] == (n if nan else 40)
+
+
+# -- Phase B (csrc/phase_b.cu) -------------------------------------------------
+
+def _phase_b_case(dtype, device):
+    """tests/test_torch_phaseb_schedule.py's species corpus whose species
+    interleave in the length order (merges pass over kept centers, so
+    assign turns non-monotone), rows in `dtype`, Phase A's centers on
+    `device`: (backend, members, assign, center rows)."""
+    from test_torch_phaseb_schedule import species_case
+    return species_case(dtype, device, seed=4, close=True)
+
+
+def phase_b_lockstep(be, members, assign, rows, delta, iterations,
+                     mesh=None):
+    """Phase B driven as phase_b_loop drives it, each step by the plain
+    steps and by the kernels on two States of the same card (with `mesh`,
+    a stand-in holding size and rank: that rank's padded block of the pool,
+    no collectives), every value the next step reads compared bit for bit.
+    -> (launches of each kernel, iterations that merged)."""
+    from meshclust_tpu_torch.ops import phase_b as PB
+    both = [be._phase_b_state(members, assign, rows, delta, iterations, mesh)
+            for _ in range(2)]
+    steps = (PB.steps(True), PB.steps(False))
+
+    def same(*names):
+        for name in names:
+            a, b = (getattr(s, name) for s in both)
+            assert torch.equal(a, b), name
+
+    before = dict(_ext.launches)
+    merged = 0
+    for it in range(iterations):
+        for s, step in zip(both, steps):
+            step.band(s)
+        same("assign", "bits", "sc", "best_d", "best_pos")
+        for s, step in zip(both, steps):
+            step.dist(s)
+        same("dstore", "best_d")
+        for s, step in zip(both, steps):
+            step.pick(s)
+        same("best_pos", "sc")
+        for s, step in zip(both, steps):
+            step.merge(s, it)
+        same("c_idx", "c_valid", "remap")
+        assert torch.equal(both[0].t_hist[it], both[1].t_hist[it])
+        assert both[1].scratch[PB.TICKET] == 0
+        C = rows.shape[0]
+        merged += bool((both[1].t_hist[it].cpu().numpy() != np.arange(C))
+                       .any())
+    same("assign")
+    return ({k: _ext.launches[k] - before[k] for k in _ext.launches},
+            merged)
+
+
+PHASE_B_CASES = {"int8_delta5": ("int8", 5, None),
+                 "int8_delta0": ("int8", 0, None),
+                 "int8_delta40": ("int8", 40, None),
+                 "int16_delta5": ("int16", 5, None),
+                 "int32_delta5": ("int32", 5, None),
+                 "int8_rank1_of2": ("int8", 5, (2, 1)),
+                 "int16_rank0_of3": ("int16", 3, (3, 0))}
+
+
+@pytest.mark.parametrize("case", sorted(PHASE_B_CASES))
+def test_phase_b_kernels_equal_plain_steps(cuda, case):
+    """Each Phase B kernel against its plain step on the card, iteration by
+    iteration over 6 iterations of Phase A's centers of the toy points:
+    rows in each storage dtype, --delta 0, 5 and 40 (81 bits a member,
+    three words), a rank's padded block of the pool; one launch of each
+    kernel an iteration, and the case merges."""
+    import types
+    dtype, delta, ranks = PHASE_B_CASES[case]
+    be, members, assign, rows = _phase_b_case(dtype, cuda)
+    mesh = None if ranks is None else types.SimpleNamespace(
+        size=ranks[0], rank=ranks[1])
+    launched, merged = phase_b_lockstep(be, members, assign, rows, delta, 6,
+                                        mesh)
+    assert {k: v for k, v in launched.items() if k.startswith("pb_")} == \
+        dict.fromkeys(("pb_band", "pb_dist", "pb_pick", "pb_merge"), 6)
+    assert merged or delta == 0
+
+
+def test_phase_b_kernels_one_center(cuda):
+    """C = 1: every member in one center's pool, no merge candidate."""
+    be, members, _, rows = _phase_b_case("int8", cuda)
+    launched, merged = phase_b_lockstep(be, members, np.zeros_like(members),
+                                        rows[:1], 5, 3)
+    assert launched["pb_merge"] == 3 and merged == 0
+
+
+@pytest.mark.parametrize("dtype", sorted(PHASE_A_SCALES))
+def test_phase_b_loop_on_the_card_equals_plain_and_cpu(cuda, dtype):
+    """The whole fused Phase B through the kernels against plain=True on
+    the card and the CPU path (assign, centers, valid, t_hist), four
+    launches an iteration; update_banded on the card against the CPU's."""
+    be, members, assign, rows = _phase_b_case(dtype, cuda)
+    host, _, _, _ = _phase_b_case(dtype, "cpu")
+    _ext.reset_launches()
+    got = be.phase_b_loop(members, assign, rows, 5, 15)
+    assert {k: v for k, v in _ext.launches.items() if v} == dict.fromkeys(
+        ("pb_band", "pb_dist", "pb_pick", "pb_merge"), 15)
+    for want in (be.phase_b_loop(members, assign, rows, 5, 15, plain=True),
+                 host.phase_b_loop(members, assign, rows, 5, 15)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(
+        be.update_banded(members, assign, rows, 5),
+        host.update_banded(members, assign, rows, 5))

@@ -72,6 +72,8 @@ OWN = dict(blocks=P.BLOCKS, threads=P.THREADS, lanes=32,
 SMALL = dict(blocks=3, threads=8, lanes=4, sums_blocks=3, win_loads=1,
              owner_loads=1, cw_bytes=16)
 SOURCE = os.path.join(os.path.dirname(A.__file__), "..", "csrc", "phase_a.cu")
+# The header phase_a.cu includes: its block size, pieces and classifier.
+HEADER = os.path.join(os.path.dirname(SOURCE), "common.cuh")
 
 
 # -- the model -----------------------------------------------------------------
@@ -1222,10 +1224,13 @@ def test_window_ranges_need_sorted_lengths():
 
 
 def test_source_constants_match_the_wrappers():
-    """csrc/phase_a.cu's grid, state slots and flags are the ones
-    ops/phase_a.py and ops/features.py name."""
-    with open(SOURCE) as f:
-        src = f.read()
+    """csrc/phase_a.cu's grid, state slots and flags (and those of the
+    header it includes, csrc/common.cuh) are the ones ops/phase_a.py and
+    ops/features.py name."""
+    src = ""
+    for path in (SOURCE, HEADER):
+        with open(path) as f:
+            src += f.read()
 
     def const(name):
         return int(re.search(rf"\b{name} = (\d+)[,;]", src).group(1))
