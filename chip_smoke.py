@@ -45,8 +45,10 @@ Phases (any failure exits non-zero before the last line):
      reads), then the whole phase_b_loop (assign, centers, valid, t_hist)
      against the plain steps', in turns with their walls, launches an
      iteration and the bytes an iteration must move; each kernel's device
-     time and its plain step's from the same profile child; pb_band beside
-     one index_add_ of its positive rows;
+     time and its plain step's from the same profile child; the tiles
+     pb_band and pb_dist ran on their staged and global paths; pb_band
+     beside one index_add_ of its positive rows, pb_pick beside one
+     scatter_reduce_ (amin) of its ties' pool positions;
   4. run each path on the GPU with the launch counts set to 0 just before
      it, and check that it launched both kernels, kmer_hist exactly once:
      - k-mer mode: 15,000 synthetic reads of ~1 kb, --id 0.90, default
@@ -554,6 +556,15 @@ CLASSIFY_FP64_OPS = 100
 FP64_OPS_PER_S = 34e12
 # Centers of the profiled Phase A runs (of 150 at 15k and 1,500 at 150k).
 PROFILE_CENTERS = 100
+# pb_band's man and dot of int8 rows: per 32-bit word of a pair's two rows,
+# one sum of the 4 bytes' absolute differences (the signed-byte
+# vabsdiff4, the ALU pipe, INT32_OPS_PER_S) and one 4-way dot (IDP.4A, the
+# FMA pipe), so the ALU's one bounds it; profile_port.py sass prints the
+# staged block's opcodes (PERF.md). pb_dist's min sum: __vmins4 has no
+# single instruction on sm_90a (pb_dist_kernelIaLi16E: 4 LOP3.LUT and a
+# PRMT a word, then the IDP.4A), so five on the ALU.
+BAND_ALU_OPS_PER_WORD = 1
+DIST_ALU_OPS_PER_WORD = 5
 
 
 @contextlib.contextmanager
@@ -1363,7 +1374,9 @@ def phase_b_lockstep(be, members, assign, rows) -> tuple:
     the max abs difference of every value the next step reads (float64 as
     bit patterns), per kernel; and the bytes each launch must move and the
     seconds its float64 classifier takes at the card's rate, averaged over
-    the launches, from this run's data (see phase_b_traffic)."""
+    the launches, from this run's data (see phase_b_traffic); and the
+    tiles pb_band and pb_dist ran on each path over the iterations
+    ({PB.PATHS: count})."""
     import torch
     from meshclust_tpu_torch.ops import phase_b as PB
     both = [be._phase_b_state(members, assign, rows, PB_DELTA, PB_ITERS)
@@ -1401,12 +1414,12 @@ def phase_b_lockstep(be, members, assign, rows) -> tuple:
         for k, (b, o) in traffic.items():
             nbytes[k] += b / PB_ITERS
             ops_s[k] += o / PB_ITERS
-    return err, nbytes, ops_s
+    return err, nbytes, ops_s, dict(zip(PB.PATHS, both[1].paths.tolist()))
 
 
 def phase_b_traffic(pb, banded: bool = False) -> dict:
-    """{kernel: (bytes its launch must move, seconds of its classifier at
-    the float64 rate)} for the iteration pb is at: before the band (banded
+    """{kernel: (bytes its launch must move, seconds of its operations at
+    the card's peak)} for the iteration pb is at: before the band (banded
     False) pb_band's and pb_merge's, which depend on assign and c_valid
     (pb_merge's on the move, bounded by every valid center's row); after
     it pb_dist's and pb_pick's, which depend on the positives. Each input
@@ -1416,7 +1429,11 @@ def phase_b_traffic(pb, banded: bool = False) -> dict:
     positive's d), 24 B of mag, sq and len a member and a center, the bits
     (4 B a word), sc's rows (written by pb_band and zeroed by pb_pick: the
     centers with a positive; read by pb_dist), and 8-25 B a center of
-    c_idx, c_valid, best_d, best_pos, t_hist and remap."""
+    c_idx, c_valid, best_d, best_pos, t_hist and remap. The operations:
+    pb_band's and pb_merge's classifier (CLASSIFY_FP64_OPS a pair at the
+    float64 rate) and pb_band's man and dot (BAND_ALU_OPS_PER_WORD a word of
+    a pair's rows on the ALU pipe), whichever takes longer; pb_dist's min
+    sums (DIST_ALU_OPS_PER_WORD a word of a positive's rows)."""
     import torch
     M, V = pb.rows.shape
     C = pb.c_idx.shape[0]
@@ -1438,9 +1455,10 @@ def phase_b_traffic(pb, banded: bool = False) -> dict:
             merge_pairs += int((pb.c_valid & (j < C)
                                 & pb.c_valid[j.clamp(max=C - 1)]).sum())
         fp64 = CLASSIFY_FP64_OPS / FP64_OPS_PER_S
+        alu = ok * (row / 4) * BAND_ALU_OPS_PER_WORD / INT32_OPS_PER_S
         return {"pb_band": (M * (row + 8 + 24 + 24 + 4 * words)
                             + valid * (row + 24) + C * (8 + 1 + 16 + 8),
-                            ok * fp64),
+                            max(ok * fp64, alu)),
                 "pb_merge": (valid * (row + 24 + 8) + C * (8 + 8 + 1 + 8 + 8
                                                            + 9),
                              merge_pairs * fp64)}
@@ -1453,7 +1471,9 @@ def phase_b_traffic(pb, banded: bool = False) -> dict:
     centers = int((pb.sc[:, V] > 0).sum())
     sc_row = (V + 1) * 8
     return {"pb_dist": (with_pos * (row + 16) + centers * sc_row
-                        + M * (8 + 4 * words) + pos * 8 + C * 8, 0.0),
+                        + M * (8 + 4 * words) + pos * 8 + C * 8,
+                        pos * (row / 4) * DIST_ALU_OPS_PER_WORD
+                        / INT32_OPS_PER_S),
             "pb_pick": (M * (8 + 4 * words) + pos * 8 + C * 16
                         + centers * sc_row, 0.0)}
 
@@ -1477,6 +1497,25 @@ def band_yardstick(pb) -> float:
     return cuda_ms(lambda: out.index_add_(0, j, rows), 20)
 
 
+def pick_yardstick(pb) -> float:
+    """The library call that computes pb_pick's function: one
+    scatter_reduce_ (amin) of the ties' pool positions (the positives
+    whose d is their center's least, gathered beforehand) into best_pos,
+    warm, after a band and a dist on pb."""
+    import torch
+    bits = pb.bits.to(torch.int64) & 0xFFFFFFFF
+    ps, js = [], []
+    for oi in range(2 * pb.delta + 1):
+        m = torch.nonzero((bits[:, oi // 32] >> (oi % 32)) & 1).flatten()
+        j = pb.assign[m] + oi - pb.delta
+        tie = pb.dstore[m, oi] == pb.best_d[j]
+        ps.append(pb.goff + m[tie])
+        js.append(j[tie])
+    pos, j = torch.cat(ps), torch.cat(js)
+    out = torch.full_like(pb.best_pos, pb.m_all.shape[0])
+    return cuda_ms(lambda: out.scatter_reduce_(0, j, pos, reduce="amin"), 20)
+
+
 def check_phase_b(dev) -> list:
     """The fused Phase B through its kernels against the plain steps on
     the 15k and 150k corpora's Phase A centers (check_phase_a's inputs):
@@ -1493,7 +1532,8 @@ def check_phase_b(dev) -> list:
         t0 = time.time()
         ps, bv, params = torch.load(path, weights_only=False)
         be, members, assign, rows = phase_b_inputs(ps, bv, params)
-        err, per_launch, ops_s = phase_b_lockstep(be, members, assign, rows)
+        err, per_launch, ops_s, paths = phase_b_lockstep(be, members, assign,
+                                                         rows)
         runs = []
         for plain in (True, False, False, True):
             _ext.reset_launches()
@@ -1522,6 +1562,8 @@ def check_phase_b(dev) -> list:
         from meshclust_tpu_torch.ops import phase_b as PB
         PB.band(pb)
         lib_ms = band_yardstick(pb)
+        PB.dist(pb)
+        pick_lib_ms = pick_yardstick(pb)
         merged = int((runs[1][0][3] != np.arange(rows.shape[0])).sum())
         walls = [r[1] * 1e3 / PB_ITERS for r in runs]
         total = sum(per_launch.values())
@@ -1543,7 +1585,13 @@ def check_phase_b(dev) -> list:
         print(f"  Phase B at {n} reads under the profiler: device ms an "
               f"iteration: kernels {dev_ms:.5f}, plain {plain_dev_ms:.5f}; "
               f"pb_band's sums as one index_add_ of the positive rows "
-              f"(gathered beforehand) {lib_ms:.5f} ms warm", flush=True)
+              f"(gathered beforehand) {lib_ms:.5f} ms warm; pb_pick's as "
+              f"one scatter_reduce_ (amin) of the ties' pool positions "
+              f"{pick_lib_ms:.5f} ms warm; tiles over the {PB_ITERS} "
+              f"iterations by path: {paths}", flush=True)
+        if paths["band_staged"] == 0 or paths["dist_staged"] == 0:
+            fail(f"Phase B at {n} reads: no tile of pb_band or pb_dist "
+                 f"staged its span ({paths})")
         for k in PHASE_B:
             b = bound(per_launch[k], ops_s[k])
             print(f"    {k}: {ms[k]:.5f} ms a launch (plain step "
@@ -1552,14 +1600,16 @@ def check_phase_b(dev) -> list:
                   f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4g} of it, "
                   f"max abs err {err[k]}", flush=True)
         if rows_out is None:
-            # pb_band's yardstick: index_add_ of its positive rows; no
-            # PyTorch call computes the other kernels' functions
+            # pb_band's yardstick: index_add_ of its positive rows;
+            # pb_pick's: scatter_reduce_ of its ties' positions; no PyTorch
+            # call computes pb_dist's or pb_merge's function
+            library = {"pb_band": lib_ms, "pb_pick": pick_lib_ms}
             rows_out = [{"name": k, "route": "cuda",
                          "source": "meshclust_tpu_torch/csrc/phase_b.cu",
                          "replaces": "meshclust_tpu/core/classify.py:"
                                      f"{PHASE_B_REPLACES[k]}",
                          "ms": ms[k], "plain_ms": plain_ms[k],
-                         "library_ms": lib_ms if k == "pb_band" else None,
+                         "library_ms": library.get(k),
                          "max_abs_err": err[k],
                          **bound(per_launch[k], ops_s[k])} for k in PHASE_B]
     return rows_out

@@ -71,12 +71,15 @@ _SIGNATURES = {
     "mc_pa_move": [_P, _P, _L, _P, _L, _I, _I, _P, _I, _P, _P, _P, _P, _P],
     # rows, row stride, hist, hist stride, V, width, m_idx, m_valid (or
     # null), M, assign, remap, c_idx, c_valid, C, mag, sq, lenf, spec,
-    # n_spec, coef, n_coef, delta, bits, sc, best_d, best_pos, M_all, stream
+    # n_spec, coef, n_coef, delta, bits, sc, best_d, best_pos, M_all,
+    # span_cap, paths, stream
     "mc_pb_band": [_P, _L, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I,
-                   _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _L, _P],
+                   _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _L, _I,
+                   _P, _P],
     # rows, row stride, V, width, m_idx, M, assign, mag, delta, bits, sc,
-    # dstore, best_d, stream
-    "mc_pb_dist": [_P, _L, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P],
+    # dstore, best_d, span_cap, paths, stream
+    "mc_pb_dist": [_P, _L, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I,
+                   _P, _P],
     # M, assign, delta, bits, dstore, best_d, best_pos, goff, sc, sc_len,
     # stream
     "mc_pb_pick": [_I, _P, _I, _P, _P, _P, _P, _L, _P, _L, _P],

@@ -209,14 +209,45 @@ __device__ __forceinline__ A group_sum(A v, int lanes) {
 // The classifier, packed by ops/phase_a.py:Model:
 //   spec (int32): S, J, singles[S], is_sim[S], kinds[J], off[J + 1], idx[..]
 //   coef (f64):   V, mins[S], spans[S], weights[J + 1]
-// Scorer.__call__ for one pair (a: the center, b: the slot), op for op:
-// -> score >= 0, and f1 (the first combo's product). Each single flag the
-// model has is computed once; the normalized singles norm[] stay in
-// registers (kMaxSingles unrolled, picked by predicated selects).
-__device__ bool classify(const int* spec, const double* coef, double man,
-                         double dot, double mag_a, double mag_b, double sq_a,
-                         double sq_b, double len_a, double len_b,
-                         double* f1_out) {
+// The flags of the singles the model has (each computed once a pair).
+__device__ __forceinline__ int model_flags(const int* spec) {
+  const int S = spec[0];
+  int flags = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxSingles; ++i)
+    if (i < S) flags |= spec[2 + i];
+  return flags;
+}
+
+// What the classifier takes of one side of a pair that depends on that
+// side alone: its mag, sq and length, Kulczynski's mag / V and Pearson's
+// rounded mean and centred norm, each in the plain version's operations.
+// A kernel that meets a row in several pairs computes them once.
+struct RowTerms {
+  double mag, sq, len, kap, pap, pn;
+};
+
+__device__ __forceinline__ RowTerms row_terms(int flags, double V, double mag,
+                                              double sq, double len) {
+  RowTerms r = {mag, sq, len, 0.0, 0.0, 0.0};
+  if (flags & kFeatKulczynski2) r.kap = __ddiv_rn(mag, V);
+  if (flags & kFeatPearson) {
+    r.pap = floor(__dadd_rn(__ddiv_rn(mag, V), 0.5));
+    r.pn = __dadd_rn(__dsub_rn(sq, __dmul_rn(__dmul_rn(2.0, r.pap), mag)),
+                     __dmul_rn(__dmul_rn(V, r.pap), r.pap));
+  }
+  return r;
+}
+
+// Scorer.__call__ for one pair (a: the center, b: the slot), op for op,
+// from the two sides' RowTerms: -> score >= 0, and f1 (the first combo's
+// product). Each single flag the model has is computed once; the
+// normalized singles norm[] stay in registers (kMaxSingles unrolled,
+// picked by predicated selects).
+__device__ bool classify_terms(const int* spec, const double* coef,
+                               int flags, double man, double dot,
+                               const RowTerms& a, const RowTerms& b,
+                               double* f1_out) {
   const int S = spec[0], J = spec[1];
   const int* singles = spec + 2;
   const int* is_sim = singles + S;
@@ -228,42 +259,31 @@ __device__ bool classify(const int* spec, const double* coef, double man,
   const double* spans = mins + S;
   const double* weights = spans + S;
   const double nan = __longlong_as_double(0x7ff8000000000000LL);
-  int flags = 0;
-#pragma unroll
-  for (int i = 0; i < kMaxSingles; ++i)
-    if (i < S) flags |= singles[i];
   double ld = nan, inter = nan, kulc = nan, simr = nan, pear = nan;
-  if (flags & kFeatLD) ld = fabs(__dsub_rn(len_a, len_b));
+  if (flags & kFeatLD) ld = fabs(__dsub_rn(a.len, b.len));
   if (flags & (kFeatIntersection | kFeatKulczynski2)) {
-    const double mm = __dadd_rn(mag_a, mag_b);
+    const double mm = __dadd_rn(a.mag, b.mag);
     const double min_sum = __ddiv_rn(__dsub_rn(mm, man), 2.0);
     if (flags & kFeatIntersection)
       inter = __ddiv_rn(__dmul_rn(2.0, min_sum), mm);
     if (flags & kFeatKulczynski2) {
-      const double ap = __ddiv_rn(mag_a, V), aq = __ddiv_rn(mag_b, V);
-      const double coeff = __ddiv_rn(__dmul_rn(V, __dadd_rn(ap, aq)),
-                                     __dmul_rn(__dmul_rn(2.0, ap), aq));
+      const double coeff =
+          __ddiv_rn(__dmul_rn(V, __dadd_rn(a.kap, b.kap)),
+                    __dmul_rn(__dmul_rn(2.0, a.kap), b.kap));
       kulc = __dmul_rn(coeff, min_sum);
     }
   }
   if (flags & kFeatSimRatio) {
-    double norm2 = __dsub_rn(__dadd_rn(sq_a, sq_b), __dmul_rn(2.0, dot));
+    double norm2 = __dsub_rn(__dadd_rn(a.sq, b.sq), __dmul_rn(2.0, dot));
     norm2 = norm2 < 0.0 ? 0.0 : norm2;            // clamp(min=0); NaN stays
     simr = __ddiv_rn(dot, __dadd_rn(dot, __dsqrt_rn(norm2)));
   }
   if (flags & kFeatPearson) {
-    const double ap = floor(__dadd_rn(__ddiv_rn(mag_a, V), 0.5));
-    const double aq = floor(__dadd_rn(__ddiv_rn(mag_b, V), 0.5));
-    const double np_ =
-        __dadd_rn(__dsub_rn(sq_a, __dmul_rn(__dmul_rn(2.0, ap), mag_a)),
-                  __dmul_rn(__dmul_rn(V, ap), ap));
-    const double nq_ =
-        __dadd_rn(__dsub_rn(sq_b, __dmul_rn(__dmul_rn(2.0, aq), mag_b)),
-                  __dmul_rn(__dmul_rn(V, aq), aq));
     const double dotc = __dadd_rn(
-        __dsub_rn(__dsub_rn(dot, __dmul_rn(ap, mag_b)), __dmul_rn(aq, mag_a)),
-        __dmul_rn(__dmul_rn(V, ap), aq));
-    double p = __dmul_rn(np_, nq_);
+        __dsub_rn(__dsub_rn(dot, __dmul_rn(a.pap, b.mag)),
+                  __dmul_rn(b.pap, a.mag)),
+        __dmul_rn(__dmul_rn(V, a.pap), b.pap));
+    double p = __dmul_rn(a.pn, b.pn);
     p = p < 0.5 ? 0.5 : p;                        // clamp(min=0.5)
     pear = __ddiv_rn(dotc, __dsqrt_rn(p));
   }
@@ -299,6 +319,18 @@ __device__ bool classify(const int* spec, const double* coef, double man,
   }
   *f1_out = f1;
   return score >= 0.0;
+}
+
+// classify_terms for a pair given by its sides' mag, sq and length.
+__device__ bool classify(const int* spec, const double* coef, double man,
+                         double dot, double mag_a, double mag_b, double sq_a,
+                         double sq_b, double len_a, double len_b,
+                         double* f1_out) {
+  const int flags = model_flags(spec);
+  const double V = coef[0];
+  return classify_terms(spec, coef, flags, man, dot,
+                        row_terms(flags, V, mag_a, sq_a, len_a),
+                        row_terms(flags, V, mag_b, sq_b, len_b), f1_out);
 }
 
 // A piece of the floored mean in shared memory (16-byte aligned there).

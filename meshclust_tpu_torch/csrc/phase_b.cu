@@ -44,32 +44,56 @@
 // chains' ends are a fixpoint, which the plain steps' ceil(log2 C) jumps
 // also reach.
 //
-// Bound: bytes. An iteration must read the members' rows twice (the band's
+// Bound: bytes, and for pb_band the integer operations of man and dot as
+// much. An iteration must read the members' rows twice (the band's
 // classifier, the distances), each center's row (L2-resident: C rows), the
 // members' assign, bits and, for the positives, dstore, and write sc. At 1M
 // reads (V = 256 int8 counts, 12k centers) that is ~2 x 256 MB: ~0.15 ms
 // at 3.35 TB/s; the plain steps built [M, V] int64 temporaries at every
-// offset (2 GB at 1M). The design reads each member row once a kernel in
-// its storage dtype (pieces of 16 bytes, byte SIMD for int8, widened in
-// registers), keeps the member's piece in a register over its 2 delta + 1
-// centers, whose rows a block's tile shares in L1 (a tile's members belong
-// to a few neighbouring centers); lists a tile's positives offset by
-// offset in member order, so that equal centers form runs, and adds a run's
-// rows with one atomic a column; divides a center's mean once a run into
-// shared memory and serves the run's members from it (common.cuh:
-// tile_dist); and does the merge's C-sized steps in the last block of
-// pb_merge, with no host round trip.
+// offset (2 GB at 1M). The design: pb_band and pb_dist take a tile of 32
+// members a block and stage its member rows once in shared memory
+// (cp.async), and the tile's span of centers (pb_band: their rows; pb_dist:
+// their floored means, divided once a tile); then one thread a (member,
+// offset) pair reads both rows from shared memory (byte SIMD for int8, no
+// shuffle) and runs the classifier on its own pair, with the terms of one
+// side alone computed once a row (common.cuh:row_terms); a center's
+// positives in the tile are a 32-bit mask, so the tile adds a center's
+// rows once, an atomic a column, whatever the offsets. A tile whose span
+// of centers does not fit the stage (after merges assign is not monotone)
+// reads the centers through L1 in the same kernel. pb_merge does the
+// merge's C-sized steps in its last block, with no host round trip.
 #include "common.cuh"
 
 namespace {
 
-// Members of a block's tile in pb_band (one a thread of the first kTile
-// when listing the positives): half a block, so that 15k members fill 118
-// blocks and a run re-reads at most 128 rows. pb_dist's tile is a whole
-// block: a run divides its center's mean once, so its tiles hold fewer,
-// longer runs.
-constexpr int kTile = 128;
-constexpr int kDistTile = kThreads;
+// pb_band's and pb_dist's tile: kTile members, a lane each (and a bit each
+// in a center's 32-bit mask), so that 15k members make 469 tiles, past two
+// blocks an SM on 132 SMs; a block of kTileThreads, a warp an offset of the
+// tile's members at a time.
+constexpr int kTile = 32;
+constexpr int kTileThreads = 128;
+constexpr int kTileWarps = kTileThreads / 32;
+// The blocks of pb_band and of pb_dist an SM must hold at once (their
+// registers' limit, 64 and 51 a thread): a tile's phases wait on memory
+// and barriers, so the tiles in flight set the time (profile_port.py
+// pbvariants times both against kBandBlocks=1 and kDistBlocks=1).
+constexpr int kBandBlocks = 8;
+constexpr int kDistBlocks = 10;
+static_assert(kTile == 32, "a lane a member, a bit a member in a mask");
+// A tile stages its members' rows, and the rows of its span of centers
+// (pb_band) or their floored means (pb_dist), in shared memory: at most
+// kSpanRows center rows, and at most kStageBytes of rows in all. A tile
+// whose span is longer takes the kernel's global path (centers read
+// through L1, sums added a positive at a time).
+constexpr int kStageBytes = 49152;
+constexpr int kSpanRows = 32;
+// State.paths: the tiles pb_band and pb_dist ran on each path.
+constexpr int kBandStaged = 0, kBandGlobal = 1, kDistStaged = 2,
+              kDistGlobal = 3;
+// The pieces a thread sums in 32 bits before it widens (int8: 2^23 at most).
+constexpr int kChunkPieces = 32;
+// The columns of a center's sums a lane of pb_dist loads before it divides.
+constexpr int kMeanLoads = 8;
 // Slots of pb_merge's scratch (ops/phase_b.py: scratch_len): its ticket,
 // then c_new (the moved centers), T (the chains' ends) and NP (the kept
 // centers' new slots), C int64 each.
@@ -77,23 +101,8 @@ constexpr int kTicket = 0, kScratchHead = 1;
 // DBL_MIN, the floor of the merge's best f1 (Trainer.cpp:132-135).
 constexpr double kDblMin = 2.2250738585072014e-308;
 
-// The positions of the threads with p set, in thread order, written to
-// out[0, total); -> total, in every thread.
-__device__ int block_compact(bool p, int val, int* out) {
-  __shared__ int wc[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned b = __ballot_sync(0xffffffffu, p);
-  if (lane == 0) wc[warp] = __popc(b);
-  __syncthreads();
-  int base = 0, total = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    base += w < warp ? wc[w] : 0;
-    total += wc[w];
-  }
-  if (p) out[base + __popc(b & ((1u << lane) - 1u))] = val;
-  __syncthreads();
-  return total;
+__host__ __device__ __forceinline__ i64 round16(i64 x) {
+  return (x + 15) & ~static_cast<i64>(15);
 }
 
 // The inclusive sum of x over the threads in thread order; *total, the
@@ -119,36 +128,18 @@ __device__ int block_scan(int x, int* total) {
   return base + x;
 }
 
-// The positives of a tile at one offset, listed (values from val_of) in
-// member order in list[0, L), and the starts of the runs of equal centers
-// in runs[0, R], runs[R] = L; -> R (0 when L = 0). asg[t] is member t's
-// center (tile-local t).
-__device__ int tile_runs(bool p, int val, const i64* asg, int base,
-                         int* list, int* runs) {
-  const int tid = threadIdx.x;
-  const int L = block_compact(p, val, list);
-  if (L == 0) return 0;
-  bool start = false;
-  if (tid < L)
-    start = tid == 0 || asg[list[tid] - base] != asg[list[tid - 1] - base];
-  const int R = block_compact(start, tid, runs);
-  if (tid == 0) runs[R] = L;
-  __syncthreads();
-  return R;
-}
-
 // The classifier's packed arrays (ops/phase_a.py:Model) into shared memory.
 __device__ void stage_model(double* model, const int* spec_g, int n_spec,
                             const double* coef_g, int n_coef) {
   int* spec = reinterpret_cast<int*>(model + n_coef);
-  for (int i = threadIdx.x; i < n_coef; i += kThreads) model[i] = coef_g[i];
-  for (int i = threadIdx.x; i < n_spec; i += kThreads) spec[i] = spec_g[i];
+  for (int i = threadIdx.x; i < n_coef; i += blockDim.x) model[i] = coef_g[i];
+  for (int i = threadIdx.x; i < n_spec; i += blockDim.x) spec[i] = spec_g[i];
 }
 
 // man and dot of row a against row b over the group of `lanes` lanes (in
 // every lane of the group): nv pieces of VEC bytes. Short rows (nv <=
 // lanes) pass b's piece, which the caller holds in a register; long rows
-// (lanes = 32) read both rows' pieces.
+// (lanes = 32) read both rows' pieces. (pb_merge.)
 template <typename T, int VEC>
 __device__ __forceinline__ void pair_sums(const char* a_row,
                                           const char* b_row,
@@ -189,24 +180,257 @@ __device__ __forceinline__ int row_lanes(int nv) {
 }
 
 // ---------------------------------------------------------------------------
+// Staging a tile's rows, and a thread's sums over a pair of rows
+// ---------------------------------------------------------------------------
+
+// 16 bytes from device to shared memory without a register (cp.async; L2
+// only: each row is read once a tile).
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_piece(char* p, const Piece<VEC>& v) {
+  if constexpr (VEC >= 4) {
+#pragma unroll
+    for (int i = 0; i < Piece<VEC>::kWords; ++i)
+      reinterpret_cast<uint32_t*>(p)[i] = v.w[i];
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<unsigned short*>(p) =
+        static_cast<unsigned short>(v.w[0]);
+  } else {
+    *p = static_cast<char>(v.w[0]);
+  }
+}
+
+// Rows src(r), r < n (length bytes each, VEC dividing it), into shared
+// memory at dst + r * spitch, zero past length up to a whole 16-byte
+// piece; a thread a piece at a time, 16-byte pieces by cp.async (the
+// caller waits: copies_done, then a barrier). src(r) null: not copied.
+template <int VEC, class Src>
+__device__ void stage_rows(char* dst, int spitch, int n, int length,
+                           Src src) {
+  const int pieces = length / VEC;
+  for (int i = threadIdx.x; i < n * pieces; i += blockDim.x) {
+    const int r = i / pieces, p = i - r * pieces;
+    const char* s = src(r);
+    if (s == nullptr) continue;
+    char* d = dst + r * spitch + p * VEC;
+    if constexpr (VEC == 16)
+      copy16_async(d, s + p * 16);
+    else
+      store_piece<VEC>(d, load_row<VEC>(s + p * VEC));
+  }
+  const int pad = static_cast<int>(round16(length)) - length;
+  for (int i = threadIdx.x; i < n * pad; i += blockDim.x) {
+    const int r = i / pad;
+    if (src(r) != nullptr) dst[r * spitch + length + (i - r * pad)] = 0;
+  }
+}
+
+// One row (length bytes, VEC dividing it) into shared memory at dst by
+// one thread, zero past length up to a whole 16-byte piece.
+template <int VEC>
+__device__ void stage_row(char* dst, const char* src, int length) {
+  for (int p = 0; p < length; p += VEC) {
+    if constexpr (VEC == 16)
+      copy16_async(dst + p, src + p);
+    else
+      store_piece<VEC>(dst + p, load_row<VEC>(src + p));
+  }
+  for (int b = length; b < round16(length); ++b) dst[b] = 0;
+}
+
+// man += sum |a - b| and dot += sum a * b over one 16-byte piece of
+// staged rows: int8 by the signed-byte form of vabsdiff4 (add_piece biases
+// both sides to unsigned for __vsadu4, two more operations a word) and
+// __dp4a, exact in 32 bits; wider counts as add_piece.
+template <typename T>
+__device__ __forceinline__ void add_staged(const Piece<16>& a,
+                                           const Piece<16>& b,
+                                           typename Acc<T>::type& man,
+                                           typename Acc<T>::type& dot) {
+  if constexpr (sizeof(T) == 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      asm("vabsdiff4.u32.s32.s32.add %0, %1, %2, %0;"
+          : "+r"(man)
+          : "r"(a.w[i]), "r"(b.w[i]));
+      dot = __dp4a(static_cast<int>(a.w[i]), static_cast<int>(b.w[i]), dot);
+    }
+  } else {
+    add_piece<T, 16>(a, b, man, dot);
+  }
+}
+
+// man and dot of two rows staged in shared memory (np 16-byte pieces, zero
+// past the rows' end), a thread a pair: Acc<T> sums over kChunkPieces
+// pieces, 64 bits across them.
+template <typename T>
+__device__ __forceinline__ void staged_sums(const char* a, const char* b,
+                                            int np, i64& man, i64& dot) {
+  typedef typename Acc<T>::type A;
+  man = 0;
+  dot = 0;
+  for (int p0 = 0; p0 < np; p0 += kChunkPieces) {
+    const int p1 = np < p0 + kChunkPieces ? np : p0 + kChunkPieces;
+    A m = 0, d = 0;
+#pragma unroll 4
+    for (int p = p0; p < p1; ++p)
+      add_staged<T>(load_shared<16>(a + p * 16), load_shared<16>(b + p * 16),
+                    m, d);
+    man += m;
+    dot += d;
+  }
+}
+
+// The same with a's row in device memory (through L1: a tile's members
+// meet a center at several offsets) and b's in shared or device memory
+// (a generic load), in nv pieces of VEC bytes.
+template <typename T, int VEC>
+__device__ __forceinline__ void global_sums(const char* a, const char* b,
+                                            int nv, i64& man, i64& dot) {
+  typedef typename Acc<T>::type A;
+  man = 0;
+  dot = 0;
+  for (int p0 = 0; p0 < nv; p0 += kChunkPieces) {
+    const int p1 = nv < p0 + kChunkPieces ? nv : p0 + kChunkPieces;
+    A m = 0, d = 0;
+    for (int p = p0; p < p1; ++p)
+      add_piece<T, VEC>(load_center<VEC>(a + static_cast<i64>(p) * VEC),
+                        load_shared<VEC>(b + static_cast<i64>(p) * VEC), m,
+                        d);
+    man += m;
+    dot += d;
+  }
+}
+
+// sum min(a, b) of a member's row and a floored mean, both staged.
+template <typename T>
+__device__ __forceinline__ i64 staged_min_sum(const char* a, const char* b,
+                                              int np) {
+  typedef typename Acc<T>::type A;
+  i64 s = 0;
+  for (int p0 = 0; p0 < np; p0 += kChunkPieces) {
+    const int p1 = np < p0 + kChunkPieces ? np : p0 + kChunkPieces;
+    A acc = 0;
+#pragma unroll 4
+    for (int p = p0; p < p1; ++p)
+      add_min<T, 16>(load_shared<16>(a + p * 16), load_shared<16>(b + p * 16),
+                     acc);
+    s += acc;
+  }
+  return s;
+}
+
+// A column sum of up to kTile counts: 32 bits for int8 and int16 counts
+// (kTile x 32767 fits), 64 otherwise (wrapping as torch's int64 sums).
+template <typename T>
+struct ColSum {
+  typedef i64 type;
+};
+template <>
+struct ColSum<int8_t> {
+  typedef int type;
+};
+template <>
+struct ColSum<int16_t> {
+  typedef int type;
+};
+
+// Columns v0 .. v0 + 3 (those below V) of the staged rows of the members
+// in mask, summed and added into out (int64 atomics, none for a zero).
+template <typename T>
+__device__ __forceinline__ void add_columns(const char* mrow, int spitch,
+                                            unsigned mask, int v0, int V,
+                                            i64* out) {
+  typename ColSum<T>::type acc[4] = {0, 0, 0, 0};
+  for (unsigned mm = mask; mm; mm &= mm - 1) {
+    const char* row = mrow + (__ffs(mm) - 1) * spitch;
+    if constexpr (sizeof(T) == 1) {
+      // 4 counts in one word: v0 is a multiple of 4, and the padded row
+      // holds v0 + 3
+      const unsigned x = *reinterpret_cast<const unsigned*>(row + v0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[e] += static_cast<int8_t>(x >> (8 * e));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (v0 + e < V) acc[e] += reinterpret_cast<const T*>(row)[v0 + e];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (v0 + e < V && acc[e])
+      atomicAdd(reinterpret_cast<u64*>(out + v0 + e),
+                static_cast<u64>(static_cast<i64>(acc[e])));
+}
+
+// Byte offsets of pb_band's and pb_dist's dynamic shared memory, laid out
+// by the host (its size) and the kernel alike: the classifier's arrays
+// (pb_band), the tile's member rows [kTile][spitch], then the span's
+// center rows (pb_band) or floored means (pb_dist) [cap][spitch], then
+// per tile member and per span row: RowTerms, the centers' point rows (-1:
+// not valid) and masks of positive members (pb_band); sum cw, the least d
+// and a flag of a positive (pb_dist).
+struct TileSmem {
+  i64 mrow, crow, mt, ct, cpt, cmask, cwt, least, cflag, bytes;
+};
+
+__host__ __device__ inline TileSmem tile_smem(i64 model, int spitch, int cap,
+                                              bool band) {
+  TileSmem s;
+  i64 o = round16(model);
+  s.mrow = o;
+  o += static_cast<i64>(kTile) * spitch;
+  s.crow = o;
+  o += static_cast<i64>(cap) * spitch;
+  s.mt = o;
+  if (band) o += kTile * static_cast<i64>(sizeof(RowTerms));
+  s.ct = o;
+  if (band) o += cap * static_cast<i64>(sizeof(RowTerms));
+  s.cpt = s.cwt = o;
+  o += cap * 8;
+  s.least = o;
+  if (!band) o += cap * 8;
+  s.cmask = s.cflag = o;
+  o += cap * 4;
+  s.bytes = o;
+  return s;
+}
+
+// ---------------------------------------------------------------------------
 // pb_band
 // ---------------------------------------------------------------------------
 
-// A block a tile of kTile members. It maps the tile's assign through remap
-// (written back), and its threads reset best_d and best_pos in a grid
-// stride. Then a group of `lanes` lanes a member walks its 2 delta + 1
-// offsets: the member's piece stays in a register, the center's comes
-// through L1; after each group_sum the lane whose number is the offset's
-// (mod lanes) keeps man and dot, and after `lanes` offsets each such lane
-// classifies its own, so a group classifies up to `lanes` offsets at once;
-// a ballot gathers the group's bits into the member's words. Then, offset
-// by offset, the tile's positives are listed in member order (tile_runs)
-// and each run of equal centers adds its rows and count into sc with one
-// int64 atomic a column (none for a zero).
+// A block a tile of kTile members. Its first warp maps the tile's assign
+// through remap (written back) and finds the tile's span of centers,
+// [min assign - delta, max assign + delta] over its members that count;
+// the grid resets best_d and best_pos. The tile's member rows go to shared
+// memory once (cp.async), and, where the span holds at most `cap` rows,
+// the span's center rows and the RowTerms of both sides (the staged path).
+// Then a thread a (member, offset) pair, a warp an offset and a lane a
+// member: man and dot over the whole row from shared memory (no shuffle),
+// the float64 classifier, the bit into the member's word in shared memory,
+// and on the staged path the member's bit into its center's mask. The
+// bits are written a word at a time (32 offsets). Staged, each center of
+// the span with a positive then adds, a column a thread, its members' rows
+// and count into sc with one int64 atomic a column of the tile (none for a
+// zero). On the global path (a span past cap, or rows too wide to stage)
+// the centers are read through L1 and each positive adds its member's row
+// into sc, an atomic a column.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads, kBandBlocks)
 pb_band_kernel(const char* __restrict__ rows, i64 pitch,
-               const char* __restrict__ hist, i64 hpitch, int nv, int V,
+               const char* __restrict__ hist, i64 hpitch, int V, int length,
                const i64* __restrict__ m_idx,
                const uint8_t* __restrict__ m_valid, int M,
                i64* __restrict__ assign, const i64* __restrict__ remap,
@@ -215,179 +439,399 @@ pb_band_kernel(const char* __restrict__ rows, i64 pitch,
                const double* __restrict__ mag, const double* __restrict__ sq,
                const double* __restrict__ lenf, const int* __restrict__ spec_g,
                int n_spec, const double* __restrict__ coef_g, int n_coef,
-               int delta, int W, unsigned* __restrict__ bits,
-               i64* __restrict__ sc, double* __restrict__ best_d,
-               i64* __restrict__ best_pos, i64 m_all) {
-  extern __shared__ double model[];
-  __shared__ i64 asg[kTile];
-  __shared__ int list[kTile];
-  __shared__ int runs[kTile + 1];
+               int delta, int W, int spitch, int cap,
+               unsigned* __restrict__ bits, i64* __restrict__ sc,
+               double* __restrict__ best_d, i64* __restrict__ best_pos,
+               i64 m_all, i64* __restrict__ paths) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ i64 asg[kTile];          // -1: no pair (past M, not m_valid)
+  __shared__ unsigned word_s[kTile];  // the members' bits, a word at a time
+  __shared__ int span_lo, span_hi;    // of the members' assign
+  __shared__ int rlist[kSpanRows];
+  __shared__ int n_rows;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int K = 2 * delta + 1;
+  const i64 Vp = static_cast<i64>(V) + 1;
+  const TileSmem L = tile_smem(
+      n_coef * static_cast<i64>(sizeof(double)) + n_spec * 4, spitch, cap,
+      true);
+  double* model = reinterpret_cast<double*>(smem);
+  char* mrow = smem + L.mrow;
+  char* crow = smem + L.crow;
+  RowTerms* mt = reinterpret_cast<RowTerms*>(smem + L.mt);
+  RowTerms* ct = reinterpret_cast<RowTerms*>(smem + L.ct);
+  i64* cpt = reinterpret_cast<i64*>(smem + L.cpt);
+  unsigned* cmask = reinterpret_cast<unsigned*>(smem + L.cmask);
   stage_model(model, spec_g, n_spec, coef_g, n_coef);
   const double* coef = model;
   const int* spec = reinterpret_cast<const int*>(model + n_coef);
-  for (i64 j = blockIdx.x * static_cast<i64>(kThreads) + tid; j < C;
-       j += static_cast<i64>(gridDim.x) * kThreads) {
+  for (i64 j = blockIdx.x * static_cast<i64>(kTileThreads) + tid; j < C;
+       j += static_cast<i64>(gridDim.x) * kTileThreads) {
     best_d[j] = INFINITY;
     best_pos[j] = m_all;
   }
+  for (int r = tid; r < cap; r += kTileThreads) cmask[r] = 0u;
+  // the first warp, a lane a member, beside the model's loads: the remap,
+  // the member's mag, sq and length, the span by warp reductions
   const i64 m0 = blockIdx.x * static_cast<i64>(kTile);
-  if (tid < kTile) {
-    const i64 m = m0 + tid;
+  double m_mag = 0.0, m_sq = 0.0, m_len = 0.0;
+  if (warp == 0) {
+    const i64 m = m0 + lane;
     i64 a = -1;
     if (m < M) {
-      a = remap[assign[m]];
-      assign[m] = a;
+      const i64 r = remap[assign[m]];
+      assign[m] = r;
+      if (m_valid == nullptr || m_valid[m]) {
+        a = r;
+        const i64 pt = m_idx[m];
+        m_mag = mag[pt];
+        m_sq = sq[pt];
+        m_len = lenf[pt];
+      }
     }
-    asg[tid] = a;
+    asg[lane] = a;
+    const int lo_a = __reduce_min_sync(
+        0xffffffffu, a >= 0 ? static_cast<int>(a) : 0x7fffffff);
+    const int hi_a = __reduce_max_sync(0xffffffffu, static_cast<int>(a));
+    if (lane == 0) {
+      span_lo = lo_a;
+      span_hi = hi_a;
+    }
   }
-  __syncthreads();                    // also: the model is in shared memory
+  __syncthreads();                    // the model, asg, the span
 
-  const int lanes = row_lanes(nv);
-  const int sub = lane & (lanes - 1), grp = lane / lanes;
-  const int groups = 32 / lanes;
-  const unsigned gmask = lanes == 32 ? 0xffffffffu : (1u << lanes) - 1u;
-  for (int g0 = warp * groups; g0 < kTile; g0 += kWarps * groups) {
-    const int g = g0 + grp;
-    const i64 m = m0 + g;
-    const bool have = m < M;
-    const bool mv = have && (m_valid == nullptr || m_valid[m]);
-    const i64 a_m = asg[g];
-    const i64 pt = have ? m_idx[m] : 0;
-    const char* b_row = rows + (have ? m : 0) * pitch;
-    // through L1: the run adds below read the tile's rows again
-    Piece<VEC> b = {};
-    if (nv <= lanes && have && sub < nv)
-      b = load_center<VEC>(b_row + sub * VEC);
-    const double mag_b = mag[pt], sq_b = sq[pt], len_b = lenf[pt];
-    i64 my_man = 0, my_dot = 0, my_a = -1;
-    unsigned word = 0;
-    int shift = 0, wi = 0;
-    for (int oi = 0; oi < K; ++oi) {
+  const int flags = model_flags(spec);
+  const double Vd = coef[0];
+  if (warp == 0 && asg[lane] >= 0)
+    mt[lane] = row_terms(flags, Vd, m_mag, m_sq, m_len);
+  const i64 lo = span_lo - static_cast<i64>(delta) > 0
+                     ? span_lo - static_cast<i64>(delta) : 0;
+  const i64 hi = span_hi + static_cast<i64>(delta) < C - 1
+                     ? span_hi + static_cast<i64>(delta) : C - 1;
+  const int span = span_hi < 0 ? 0 : static_cast<int>(hi - lo + 1);
+  const bool staged = spitch > 0 && span <= cap;
+  if (spitch > 0)
+    stage_rows<VEC>(mrow, spitch, kTile, length, [&](int t) -> const char* {
+      return asg[t] >= 0 ? rows + (m0 + t) * pitch : nullptr;
+    });
+  if (staged) {
+    // a thread a center of the span: its row's copies, then its terms
+    for (int r = tid; r < span; r += kTileThreads) {
+      const i64 j = lo + r;
+      i64 pt = -1;
+      if (c_valid[j]) {
+        pt = c_idx[j];
+        stage_row<VEC>(crow + r * spitch, hist + pt * hpitch, length);
+        ct[r] = row_terms(flags, Vd, mag[pt], sq[pt], lenf[pt]);
+      }
+      cpt[r] = pt;
+    }
+  }
+  copies_done();
+
+  const int nv = length / VEC, np = static_cast<int>(round16(length) / 16);
+  for (int w = 0; w * 32 < K; ++w) {
+    if (tid < kTile) word_s[tid] = 0u;
+    __syncthreads();                  // the rows (first word), word_s
+    const int o1 = K < 32 * (w + 1) ? K : 32 * (w + 1);
+    for (int oi = 32 * w + warp; oi < o1; oi += kTileWarps) {
+      const int t = lane;
+      const i64 a_m = asg[t];
       const i64 j = a_m + oi - delta;
-      const bool ok = mv && j >= 0 && j < C && c_valid[j];
-      const i64 a = ok ? c_idx[j] : 0;
-      i64 man, dot;
-      pair_sums<T, VEC>(hist + a * hpitch, b_row, b, ok, nv, sub, lanes, man,
-                        dot);
-      const int at = oi & (lanes - 1);
-      if (sub == at) {
-        my_man = man;
-        my_dot = dot;
-        my_a = ok ? a : -1;
-      }
-      if (at != lanes - 1 && oi != K - 1) continue;
+      const bool ok = a_m >= 0 && j >= 0 && j < C;
       bool pos = false;
-      if (sub <= at && my_a >= 0) {
-        double f1;
-        pos = classify(spec, coef, static_cast<double>(my_man),
-                       static_cast<double>(my_dot), mag[my_a], mag_b,
-                       sq[my_a], sq_b, lenf[my_a], len_b, &f1);
-      }
-      const unsigned ballot = __ballot_sync(0xffffffffu, pos);
-      word |= ((ballot >> (grp * lanes)) & gmask) << shift;
-      shift += lanes;
-      if (shift == 32 || oi == K - 1) {
-        if (have && sub == 0) bits[m * W + wi] = word;
-        word = 0;
-        shift = 0;
-        ++wi;
-      }
-    }
-  }
-  __syncthreads();                    // the tile's bits are written
-
-  const i64 Vp = static_cast<i64>(V) + 1;
-  for (int oi = 0; oi < K; ++oi) {
-    const i64 m = m0 + tid;
-    const bool p = tid < kTile && m < M &&
-                   ((bits[m * W + (oi >> 5)] >> (oi & 31)) & 1u);
-    const int R = tile_runs(p, tid, asg, 0, list, runs);
-    for (int r = 0; r < R; ++r) {
-      const int p0 = runs[r], p1 = runs[r + 1];
-      i64* out = sc + (asg[list[p0]] + oi - delta) * Vp;
-      for (int v = tid; v <= V; v += kThreads) {
-        i64 acc = p1 - p0;
-        if (v < V) {
-          acc = 0;
-          for (int q = p0; q < p1; ++q)
-            acc += *reinterpret_cast<const T*>(
-                rows + (m0 + list[q]) * pitch + static_cast<i64>(v) * sizeof(T));
+      double f1;
+      if (staged) {
+        const int r = static_cast<int>(j - lo);
+        if (ok && cpt[r] >= 0) {
+          i64 man, dot;
+          staged_sums<T>(crow + r * spitch, mrow + t * spitch, np, man, dot);
+          pos = classify_terms(spec, coef, flags, static_cast<double>(man),
+                               static_cast<double>(dot), ct[r], mt[t], &f1);
+          if (pos) atomicOr(cmask + r, 1u << t);
         }
-        if (acc)
-          atomicAdd(reinterpret_cast<u64*>(out + v), static_cast<u64>(acc));
+      } else if (ok && c_valid[j]) {
+        const i64 pt = c_idx[j];
+        i64 man, dot;
+        global_sums<T, VEC>(hist + pt * hpitch,
+                            spitch > 0 ? mrow + t * spitch
+                                       : rows + (m0 + t) * pitch,
+                            nv, man, dot);
+        pos = classify_terms(spec, coef, flags, static_cast<double>(man),
+                             static_cast<double>(dot),
+                             row_terms(flags, Vd, mag[pt], sq[pt], lenf[pt]),
+                             mt[t], &f1);
+      }
+      if (pos) atomicOr(word_s + t, 1u << (oi & 31));
+    }
+    __syncthreads();                  // the word's bits
+    if (tid < kTile && m0 + tid < M) bits[(m0 + tid) * W + w] = word_s[tid];
+    if (!staged) {
+      for (int t = warp; t < kTile; t += kTileWarps) {
+        unsigned word = word_s[t];
+        const char* row =
+            spitch > 0 ? mrow + t * spitch : rows + (m0 + t) * pitch;
+        while (word) {
+          const int oi = 32 * w + __ffs(word) - 1;
+          word &= word - 1;
+          i64* out = sc + (asg[t] + oi - delta) * Vp;
+          for (int v = lane; v <= V; v += 32) {
+            const i64 x =
+                v < V ? static_cast<i64>(reinterpret_cast<const T*>(row)[v])
+                      : 1;
+            if (x) atomicAdd(reinterpret_cast<u64*>(out + v),
+                             static_cast<u64>(x));
+          }
+        }
       }
     }
-    __syncthreads();                  // before the next offset's lists
+    __syncthreads();                  // word_s read before the next word
   }
+
+  if (staged) {
+    if (warp == 0) {
+      int n = 0;
+      for (int r0 = 0; r0 < span; r0 += 32) {
+        const int r = r0 + lane;
+        const bool has = r < span && cmask[r] != 0u;
+        const unsigned b = __ballot_sync(0xffffffffu, has);
+        if (has) rlist[n + __popc(b & ((1u << lane) - 1u))] = r;
+        n += __popc(b);
+      }
+      if (lane == 0) n_rows = n;
+    }
+    __syncthreads();
+    // a thread 4 columns of a center (the last chunk: the count)
+    const int chunks = (V + 3) / 4 + 1;
+    for (int i = tid; i < n_rows * chunks; i += kTileThreads) {
+      const int q = i / chunks, c = i - q * chunks;
+      const int r = rlist[q];
+      const unsigned mask = cmask[r];
+      i64* out = sc + (lo + r) * Vp;
+      if (c == chunks - 1)
+        atomicAdd(reinterpret_cast<u64*>(out + V),
+                  static_cast<u64>(__popc(mask)));
+      else
+        add_columns<T>(mrow, spitch, mask, 4 * c, V, out);
+    }
+  }
+  if (tid == 0)
+    atomicAdd(reinterpret_cast<u64*>(paths + (staged ? kBandStaged
+                                                     : kBandGlobal)),
+              1ull);
 }
 
 // ---------------------------------------------------------------------------
 // pb_dist
 // ---------------------------------------------------------------------------
 
-// A block a tile of kDistTile members. Offset by offset it lists the tile's
-// positives (global member numbers) in member order, and for each run of
-// equal centers divides the center's mean once into shared memory and
-// serves the run's members from it (common.cuh:tile_dist: their distances
-// in dl, and sum cw), then takes d for each, keeps it in dstore, and adds
-// the run's least d into best_d[center] with one 64-bit atomicMin.
+// A block a tile of kTile members, pb_band's. Its first warp, a lane a
+// member, reads the member's bits, counts its positives (a warp scan gives
+// each member its first pair number) and finds the tile's span of
+// centers with a positive. The rows of the members with a positive go to
+// shared memory (cp.async). Where the span holds at most `cap` rows (the
+// staged path), a warp a center of the span with a positive divides its
+// floored mean cw = floor(sums / max(count, 1)) into shared memory in the
+// rows' dtype (as common.cuh:tile_dist does) and sums cw; then a thread a
+// positive pair (member and offset from the pair's number: the scan, then
+// the member's bits) takes 2 sum min(h, cw) from shared memory (byte SIMD
+// for int8), d = 10000 (1 - frac^2) in the plain chain, d into dstore and
+// into its center's least in shared memory (a 64-bit atomicMin on the
+// bits of non-negative doubles); then one atomicMin a center into best_d.
+// On the global path a positive divides its center's mean column by column
+// itself and takes best_d's atomicMin directly.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-pb_dist_kernel(const char* __restrict__ rows, i64 pitch, int V,
+__global__ void __launch_bounds__(kTileThreads, kDistBlocks)
+pb_dist_kernel(const char* __restrict__ rows, i64 pitch, int V, int length,
                const i64* __restrict__ m_idx, int M,
                const i64* __restrict__ assign, const double* __restrict__ mag,
-               int delta, int W, const unsigned* __restrict__ bits,
-               const i64* __restrict__ sc, double* __restrict__ dstore,
-               double* __restrict__ best_d) {
-  __shared__ __align__(16) char cw_s[kCwBytes];
-  __shared__ i64 asg[kDistTile];
-  __shared__ i64 dl[kDistTile];
-  __shared__ int list[kDistTile];
-  __shared__ int runs[kDistTile + 1];
-  __shared__ double cw_total;
-  const int tid = threadIdx.x;
+               int delta, int W, int spitch, int cap,
+               const unsigned* __restrict__ bits, const i64* __restrict__ sc,
+               double* __restrict__ dstore, double* __restrict__ best_d,
+               i64* __restrict__ paths) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ i64 asg[kTile];          // -1: no positive
+  __shared__ double mmag[kTile];
+  __shared__ int first[kTile + 1];    // member t's pairs: first[t] .. [t + 1]
+  __shared__ int span_lo, span_hi;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int K = 2 * delta + 1;
   const i64 Vp = static_cast<i64>(V) + 1;
-  const int m0 = blockIdx.x * kDistTile;
-  asg[tid] = m0 + tid < M ? assign[m0 + tid] : -1;
+  const TileSmem L = tile_smem(0, spitch, cap, false);
+  char* mrow = smem + L.mrow;
+  char* means = smem + L.crow;
+  double* cwt = reinterpret_cast<double*>(smem + L.cwt);
+  u64* least = reinterpret_cast<u64*>(smem + L.least);
+  int* cflag = reinterpret_cast<int*>(smem + L.cflag);
+  const i64 m0 = blockIdx.x * static_cast<i64>(kTile);
+  // the first warp, a lane a member: its bits, their count and offsets,
+  // the span by warp reductions, a scan for the pairs' numbers, and on
+  // the staged path the flags of the span's centers with a positive
+  double m_mag = 0.0;
+  if (warp == 0) {
+    for (int r = lane; r < cap; r += 32) {
+      cflag[r] = 0;
+      least[r] = ~0ull;
+    }
+    const i64 m = m0 + lane;
+    int cnt = 0, j_lo = 0x7fffffff, j_hi = -1;
+    i64 a = -1;
+    if (m < M) {
+      const i64 a_m = assign[m], pt = m_idx[m];  // beside the bits' loads
+      int o_first = -1, o_last = -1;
+      for (int w = 0; w < W; ++w) {
+        const unsigned word = bits[m * W + w];
+        if (word) {
+          if (o_first < 0) o_first = 32 * w + __ffs(word) - 1;
+          o_last = 32 * w + 31 - __clz(word);
+          cnt += __popc(word);
+        }
+      }
+      if (cnt) {
+        a = a_m;
+        m_mag = mag[pt];              // stored once the means are issued
+        j_lo = static_cast<int>(a + o_first - delta);
+        j_hi = static_cast<int>(a + o_last - delta);
+      }
+    }
+    asg[lane] = a;
+    int x = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int n = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += n;
+    }
+    first[lane + 1] = x;
+    if (lane == 0) first[0] = 0;
+    j_lo = __reduce_min_sync(0xffffffffu, j_lo);
+    j_hi = __reduce_max_sync(0xffffffffu, j_hi);
+    if (lane == 0) {
+      span_lo = j_lo;
+      span_hi = j_hi;
+    }
+    __syncwarp();                     // cflag zeroed
+    if (spitch > 0 && j_hi >= 0 && j_hi - j_lo + 1 <= cap && cnt) {
+      for (int w = 0; w < W; ++w) {
+        unsigned word = bits[m * W + w];
+        while (word) {
+          cflag[a + 32 * w + __ffs(word) - 1 - delta - j_lo] = 1;
+          word &= word - 1;
+        }
+      }
+    }
+  }
   __syncthreads();
-  for (int oi = 0; oi < K; ++oi) {
-    const int m = m0 + tid;
-    const bool p = m < M && ((bits[static_cast<i64>(m) * W + (oi >> 5)] >>
-                              (oi & 31)) & 1u);
-    const int R = tile_runs(p, m, asg, m0, list, runs);
-    for (int r = 0; r < R; ++r) {
-      const int p0 = runs[r], p1 = runs[r + 1];
-      const i64 jc = asg[list[p0] - m0] + oi - delta;
+
+  const int npos = first[kTile];
+  const int lo = span_lo;
+  const int span = span_hi < 0 ? 0 : span_hi - span_lo + 1;
+  const bool staged = spitch > 0 && span <= cap;
+  // pair i's member t and offset oi
+  auto pair_of = [&](int i, int& t, int& oi) {
+    t = 0;
+#pragma unroll
+    for (int s = kTile / 2; s; s >>= 1)
+      if (first[t + s] <= i) t += s;
+    int k = i - first[t];
+    const unsigned* mb = bits + (m0 + t) * W;
+    int w = 0;
+    unsigned word = mb[0];
+    for (int c = __popc(word); k >= c; c = __popc(word)) {
+      k -= c;
+      word = mb[++w];
+    }
+    for (; k; --k) word &= word - 1;
+    oi = 32 * w + __ffs(word) - 1;
+  };
+  if (npos > 0 && spitch > 0)
+    stage_rows<VEC>(mrow, spitch, kTile, length, [&](int t) -> const char* {
+      return asg[t] >= 0 ? rows + (m0 + t) * pitch : nullptr;
+    });
+  if (npos > 0 && staged) {
+    const i64 pad = round16(length);
+    for (int r = warp; r < span; r += kTileWarps) {
+      if (!cflag[r]) continue;
+      const i64* srow = sc + (lo + r) * Vp;
+      const i64 cnt = srow[V];
+      const double count = static_cast<double>(cnt > 1 ? cnt : 1);
+      char* cw = means + r * spitch;
+      i64 part = 0;
+      // kMeanLoads columns a lane: their loads all in flight, then the
+      // divisions, which do not wait on each other
+      for (int v0 = lane; v0 < V; v0 += 32 * kMeanLoads) {
+        i64 sv[kMeanLoads];
+#pragma unroll
+        for (int u = 0; u < kMeanLoads; ++u)
+          sv[u] = v0 + 32 * u < V ? srow[v0 + 32 * u] : 0;
+#pragma unroll
+        for (int u = 0; u < kMeanLoads; ++u) {
+          const i64 x = static_cast<i64>(
+              floor(__ddiv_rn(static_cast<double>(sv[u]), count)));
+          if (v0 + 32 * u < V) {
+            reinterpret_cast<T*>(cw)[v0 + 32 * u] = static_cast<T>(x);
+            part += x;
+          }
+        }
+      }
+      for (i64 b = length + lane; b < pad; b += 32) cw[b] = 0;
+      part = warp_reduce(part, Sum());
+      if (lane == 0) cwt[r] = static_cast<double>(part);
+    }
+  }
+  if (warp == 0) mmag[lane] = m_mag;
+  copies_done();
+  __syncthreads();                    // the rows, the means, mmag
+
+  const int np = static_cast<int>(round16(length) / 16);
+  for (int i = tid; i < npos; i += kTileThreads) {
+    int t, oi;
+    pair_of(i, t, oi);
+    const i64 m = m0 + t;
+    const i64 jc = asg[t] + oi - delta;
+    const char* h = spitch > 0 ? mrow + t * spitch : rows + m * pitch;
+    i64 dl;
+    double cw_total;
+    if (staged) {
+      const int r = static_cast<int>(jc - lo);
+      dl = 2 * staged_min_sum<T>(h, means + r * spitch, np);
+      cw_total = cwt[r];
+    } else {
       const i64* srow = sc + jc * Vp;
       const i64 cnt = srow[V];
       const double count = static_cast<double>(cnt > 1 ? cnt : 1);
-      const i64 sv0 = tid < V ? srow[tid] : 0;
-      i64 cw_sum = tile_dist<T, VEC>(rows, pitch, V, srow, sv0, count,
-                                     list + p0, p1 - p0, cw_s, dl + p0,
-                                     nullptr);
-      cw_sum = block_reduce(cw_sum, Sum());
-      if (tid == 0) cw_total = static_cast<double>(cw_sum);
-      __syncthreads();
-      i64 least = 0x7fffffffffffffffLL;
-      for (int i = p0 + tid; i < p1; i += kThreads) {
-        const i64 mm = list[i];
-        const double frac = __ddiv_rn(static_cast<double>(dl[i]),
-                                      __dadd_rn(mag[m_idx[mm]], cw_total));
-        const double d =
-            __dmul_rn(10000.0, __dsub_rn(1.0, __dmul_rn(frac, frac)));
-        dstore[mm * K + oi] = d;
-        least = imin(least, __double_as_longlong(d));
+      i64 s = 0, cs = 0;
+      for (int v = 0; v < V; ++v) {
+        const i64 x = static_cast<i64>(
+            floor(__ddiv_rn(static_cast<double>(srow[v]), count)));
+        const i64 c = static_cast<T>(x);
+        const i64 y = reinterpret_cast<const T*>(h)[v];
+        s += y < c ? y : c;
+        cs += x;
       }
-      least = block_reduce(least, Min());
-      if (tid == 0)
-        atomicMin(reinterpret_cast<u64*>(best_d + jc),
-                  static_cast<u64>(least));
-      __syncthreads();                // before the next run's mean
+      dl = 2 * s;
+      cw_total = static_cast<double>(cs);
     }
+    const double frac = __ddiv_rn(static_cast<double>(dl),
+                                  __dadd_rn(mmag[t], cw_total));
+    const double d =
+        __dmul_rn(10000.0, __dsub_rn(1.0, __dmul_rn(frac, frac)));
+    dstore[m * K + oi] = d;
+    const u64 key = static_cast<u64>(__double_as_longlong(d));
+    if (staged)
+      atomicMin(least + (jc - lo), key);
+    else
+      atomicMin(reinterpret_cast<u64*>(best_d + jc), key);
   }
+  if (staged) {
+    __syncthreads();                  // the span's least d
+    for (int r = tid; r < span; r += kTileThreads)
+      if (cflag[r])
+        atomicMin(reinterpret_cast<u64*>(best_d + lo + r), least[r]);
+  }
+  if (tid == 0)
+    atomicAdd(reinterpret_cast<u64*>(paths + (staged ? kDistStaged
+                                                     : kDistGlobal)),
+              1ull);
 }
 
 // ---------------------------------------------------------------------------
@@ -561,11 +1005,41 @@ static int tiles(int n) { return n > 0 ? (n + kTile - 1) / kTile : 1; }
 static int thread_blocks(int n) {
   return n > 0 ? (n + kThreads - 1) / kThreads : 1;
 }
+static int words(int delta) { return (2 * delta + 1 + 31) / 32; }
 
 // The classifier's shared memory (ops/phase_a.py:Model keeps it below the
 // 48 KB a launch may take without an attribute).
 static size_t model_bytes(int n_spec, int n_coef) {
   return n_coef * sizeof(double) + n_spec * sizeof(int);
+}
+
+// A staged row's pitch in shared memory: its 16-byte pieces, an odd number
+// of them, so that the 8 lanes of a quarter warp reading 16 bytes of 8
+// rows at one column meet 8 distinct bank groups; 0 where a tile's member
+// rows and one center row do not fit kStageBytes (every tile then takes
+// the global path).
+static int stage_pitch(i64 length) {
+  const i64 pitch = 16 * (((length + 15) / 16) | 1);
+  return (kTile + 1) * pitch <= kStageBytes ? static_cast<int>(pitch) : 0;
+}
+
+// The center rows a tile may stage: kSpanRows, or fewer where kStageBytes
+// holds fewer beside its member rows, or span_cap where that is smaller
+// and not negative (the tests' way to send tiles down the global path).
+static int stage_cap(int spitch, int span_cap) {
+  if (spitch == 0) return 0;
+  int cap = (kStageBytes - kTile * spitch) / spitch;
+  cap = cap < kSpanRows ? cap : kSpanRows;
+  return span_cap >= 0 && span_cap < cap ? span_cap : cap;
+}
+
+// Launch with `bytes` of dynamic shared memory, past 48 KB by the
+// kernel's attribute.
+template <class K>
+static void allow_smem(K kernel, i64 bytes) {
+  if (bytes > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(bytes));
 }
 
 template <typename T, int VEC>
@@ -576,21 +1050,25 @@ static int launch_band(cudaStream_t s, const void* rows, i64 pitch,
                        const void* c_valid, int C, const void* mag,
                        const void* sq, const void* lenf, const void* spec,
                        int n_spec, const void* coef, int n_coef, int delta,
-                       int W, void* bits, void* sc, void* best_d,
-                       void* best_pos, long long m_all) {
-  pb_band_kernel<T, VEC>
-      <<<tiles(M), kThreads, model_bytes(n_spec, n_coef), s>>>(
-          static_cast<const char*>(rows), pitch,
-          static_cast<const char*>(hist), hpitch,
-          static_cast<int>(length / VEC), V, static_cast<const i64*>(m_idx),
-          static_cast<const uint8_t*>(m_valid), M, static_cast<i64*>(assign),
-          static_cast<const i64*>(remap), static_cast<const i64*>(c_idx),
-          static_cast<const uint8_t*>(c_valid), C,
-          static_cast<const double*>(mag), static_cast<const double*>(sq),
-          static_cast<const double*>(lenf), static_cast<const int*>(spec),
-          n_spec, static_cast<const double*>(coef), n_coef, delta, W,
-          static_cast<unsigned*>(bits), static_cast<i64*>(sc),
-          static_cast<double*>(best_d), static_cast<i64*>(best_pos), m_all);
+                       void* bits, void* sc, void* best_d, void* best_pos,
+                       long long m_all, int span_cap, void* paths) {
+  const int spitch = stage_pitch(length);
+  const int cap = stage_cap(spitch, span_cap);
+  const i64 bytes =
+      tile_smem(model_bytes(n_spec, n_coef), spitch, cap, true).bytes;
+  allow_smem(pb_band_kernel<T, VEC>, bytes);
+  pb_band_kernel<T, VEC><<<tiles(M), kTileThreads, bytes, s>>>(
+      static_cast<const char*>(rows), pitch, static_cast<const char*>(hist),
+      hpitch, V, static_cast<int>(length), static_cast<const i64*>(m_idx),
+      static_cast<const uint8_t*>(m_valid), M, static_cast<i64*>(assign),
+      static_cast<const i64*>(remap), static_cast<const i64*>(c_idx),
+      static_cast<const uint8_t*>(c_valid), C,
+      static_cast<const double*>(mag), static_cast<const double*>(sq),
+      static_cast<const double*>(lenf), static_cast<const int*>(spec),
+      n_spec, static_cast<const double*>(coef), n_coef, delta, words(delta),
+      spitch, cap, static_cast<unsigned*>(bits), static_cast<i64*>(sc),
+      static_cast<double*>(best_d), static_cast<i64*>(best_pos), m_all,
+      static_cast<i64*>(paths));
   return cudaGetLastError();
 }
 
@@ -612,34 +1090,39 @@ extern "C" int mc_pb_band(const void* rows, long long stride,
                           const void* spec, int n_spec, const void* coef,
                           int n_coef, int delta, void* bits, void* sc,
                           void* best_d, void* best_pos, long long m_all,
-                          void* stream) {
+                          int span_cap, void* paths, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const i64 pitch = stride * width, hpitch = hstride * width;
   const i64 length = static_cast<i64>(V) * width;
   const int vec = pair_piece(rows, pitch, hist, hpitch, length, width);
-  const int W = (2 * delta + 1 + 31) / 32;
 #define MC_BAND(T, VEC)                                                     \
   case VEC:                                                                 \
     return launch_band<T, VEC>(s, rows, pitch, hist, hpitch, length, V,     \
                                m_idx, m_valid, M, assign, remap, c_idx,     \
                                c_valid, C, mag, sq, lenf, spec, n_spec,     \
-                               coef, n_coef, delta, W, bits, sc, best_d,    \
-                               best_pos, m_all)
+                               coef, n_coef, delta, bits, sc, best_d,       \
+                               best_pos, m_all, span_cap, paths)
   MC_ROW_CASES(MC_BAND);
 #undef MC_BAND
 }
 
 template <typename T, int VEC>
 static int launch_dist(cudaStream_t s, const void* rows, i64 pitch, int V,
-                       const void* m_idx, int M, const void* assign,
-                       const void* mag, int delta, const void* bits,
-                       const void* sc, void* dstore, void* best_d) {
-  pb_dist_kernel<T, VEC><<<thread_blocks(M), kThreads, 0, s>>>(
-      static_cast<const char*>(rows), pitch, V,
+                       i64 length, const void* m_idx, int M,
+                       const void* assign, const void* mag, int delta,
+                       const void* bits, const void* sc, void* dstore,
+                       void* best_d, int span_cap, void* paths) {
+  const int spitch = stage_pitch(length);
+  const int cap = stage_cap(spitch, span_cap);
+  const i64 bytes = tile_smem(0, spitch, cap, false).bytes;
+  allow_smem(pb_dist_kernel<T, VEC>, bytes);
+  pb_dist_kernel<T, VEC><<<tiles(M), kTileThreads, bytes, s>>>(
+      static_cast<const char*>(rows), pitch, V, static_cast<int>(length),
       static_cast<const i64*>(m_idx), M, static_cast<const i64*>(assign),
-      static_cast<const double*>(mag), delta, (2 * delta + 1 + 31) / 32,
+      static_cast<const double*>(mag), delta, words(delta), spitch, cap,
       static_cast<const unsigned*>(bits), static_cast<const i64*>(sc),
-      static_cast<double*>(dstore), static_cast<double*>(best_d));
+      static_cast<double*>(dstore), static_cast<double*>(best_d),
+      static_cast<i64*>(paths));
   return cudaGetLastError();
 }
 
@@ -647,14 +1130,16 @@ extern "C" int mc_pb_dist(const void* rows, long long stride, int V,
                           int width, const void* m_idx, int M,
                           const void* assign, const void* mag, int delta,
                           const void* bits, const void* sc, void* dstore,
-                          void* best_d, void* stream) {
+                          void* best_d, int span_cap, void* paths,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const i64 pitch = stride * width, length = static_cast<i64>(V) * width;
   const int vec = piece_bytes(rows, pitch, length, width);
 #define MC_DIST(T, VEC)                                                    \
   case VEC:                                                                \
-    return launch_dist<T, VEC>(s, rows, pitch, V, m_idx, M, assign, mag,   \
-                               delta, bits, sc, dstore, best_d)
+    return launch_dist<T, VEC>(s, rows, pitch, V, length, m_idx, M,        \
+                               assign, mag, delta, bits, sc, dstore,       \
+                               best_d, span_cap, paths)
   MC_ROW_CASES(MC_DIST);
 #undef MC_DIST
 }
@@ -665,7 +1150,7 @@ extern "C" int mc_pb_pick(int M, const void* assign, int delta,
                           void* sc, long long sc_len, void* stream) {
   pb_pick_kernel<<<thread_blocks(M), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      M, static_cast<const i64*>(assign), delta, (2 * delta + 1 + 31) / 32,
+      M, static_cast<const i64*>(assign), delta, words(delta),
       static_cast<const unsigned*>(bits), static_cast<const double*>(dstore),
       static_cast<const double*>(best_d), static_cast<i64*>(best_pos), goff,
       static_cast<i64*>(sc), sc_len);

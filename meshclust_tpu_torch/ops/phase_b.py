@@ -41,17 +41,25 @@ from meshclust_tpu_torch.core.classify import mean_floor
 from meshclust_tpu_torch.core.meanshift import _DBL_MIN
 from meshclust_tpu_torch.ops.phase_a import Model
 
-# Members a block's tile holds in pb_band (kTile) and pb_dist (kDistTile),
-# and the block size (kThreads; pb_pick's blocks take a member a thread).
-TILE = 128
-DIST_TILE = 256
+# pb_band's and pb_dist's tile of members (kTile) and their block
+# (kTileThreads); pb_pick's and pb_merge's block (kThreads; pb_pick takes a
+# member a thread).
+TILE = 32
+TILE_THREADS = 128
 THREADS = 256
+# A tile's staged rows in shared memory: at most STAGE_BYTES of member and
+# center rows, at most SPAN_ROWS center rows (kStageBytes, kSpanRows).
+STAGE_BYTES = 49152
+SPAN_ROWS = 32
 # The bits of a word of pb_band's positives (2 delta + 1 bits a member).
 WORD_BITS = 32
 # pb_merge's scratch: its ticket, then c_new, T and NP, C int64 each
 # (kTicket, kScratchHead).
 TICKET = 0
 SCRATCH_HEAD = 1
+# State.paths: the tiles pb_band and pb_dist ran on each path (kBandStaged,
+# kBandGlobal, kDistStaged, kDistGlobal).
+PATHS = ("band_staged", "band_global", "dist_staged", "dist_global")
 _WIDTHS = {torch.int8: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8}
 
 
@@ -62,6 +70,25 @@ def words(delta: int) -> int:
 
 def scratch_len(C: int) -> int:
     return SCRATCH_HEAD + 3 * C
+
+
+def stage_pitch(length: int) -> int:
+    """A staged row's pitch in bytes (stage_pitch): its 16-byte pieces, an
+    odd number of them; 0 where a tile's member rows and one center row do
+    not fit STAGE_BYTES."""
+    pitch = 16 * ((-(-length // 16)) | 1)
+    return pitch if (TILE + 1) * pitch <= STAGE_BYTES else 0
+
+
+def stage_cap(length: int, span_cap: int = -1) -> int:
+    """The center rows a tile of rows of `length` bytes may stage
+    (stage_cap): a tile whose span of centers is longer takes the global
+    path."""
+    pitch = stage_pitch(length)
+    if pitch == 0:
+        return 0
+    cap = min(SPAN_ROWS, (STAGE_BYTES - TILE * pitch) // pitch)
+    return span_cap if 0 <= span_cap < cap else cap
 
 
 def n_jump(C: int) -> int:
@@ -149,6 +176,8 @@ class State:
         self.best_d = torch.empty(C, dtype=torch.float64, device=dev)
         self.best_pos = torch.empty(C, **i64)
         self.scratch = torch.zeros(scratch_len(C), **i64)
+        self.paths = torch.zeros(len(PATHS), **i64)
+        self.span_cap = -1
 
     @property
     def on_cpu(self) -> bool:
@@ -196,7 +225,8 @@ def band(pb: State) -> None:
         pb.model.spec.shape[0], pb.model.coef.data_ptr(),
         pb.model.coef.shape[0], pb.delta, pb.bits.data_ptr(),
         pb.sc.data_ptr(), pb.best_d.data_ptr(), pb.best_pos.data_ptr(),
-        pb.m_all.shape[0], _ext.stream_of(pb.hist)), "pb_band")
+        pb.m_all.shape[0], pb.span_cap, pb.paths.data_ptr(),
+        _ext.stream_of(pb.hist)), "pb_band")
 
 
 def band_plain(pb: State) -> None:
@@ -236,7 +266,8 @@ def dist(pb: State) -> None:
         pb.rows.data_ptr(), pb.rows.stride(0), V, _WIDTHS[pb.rows.dtype],
         pb.m_idx.data_ptr(), M, pb.assign.data_ptr(), pb.mag.data_ptr(),
         pb.delta, pb.bits.data_ptr(), pb.sc.data_ptr(), pb.dstore.data_ptr(),
-        pb.best_d.data_ptr(), _ext.stream_of(pb.hist)), "pb_dist")
+        pb.best_d.data_ptr(), pb.span_cap, pb.paths.data_ptr(),
+        _ext.stream_of(pb.hist)), "pb_dist")
 
 
 def dist_plain(pb: State) -> None:

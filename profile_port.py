@@ -4,7 +4,7 @@
 Run from the repository root, after chip_smoke.py has passed:
     python3 profile_port.py [--parts throughput,busy,variants,compare,e2e,
                                      feat,kvariants,sass,phase_a,cluster,
-                                     phase_b,walls,ranks]
+                                     phase_b,pbvariants,walls,ranks]
                             [--ranks 2,4] [--sizes 15000,150000,1000000]
                             [--against OLD.cu ...] [--variants "R,T,K ..."]
                             [--parent DIR] [--parent-tree DIR]
@@ -106,7 +106,23 @@ Parts (default: throughput,busy):
               device ms a launch beside its plain step's, its bound
               (chip_smoke.py:phase_b_lockstep's traffic from the same
               run's data), share and loss over a run, launches x (ms -
-              bound).
+              bound); the tiles pb_band and pb_dist ran on each path;
+              pb_band's yardstick (one index_add_ of its positive rows)
+              and pb_pick's (one scatter_reduce_ of its ties' positions).
+  pbvariants  pb_band and pb_dist of an earlier csrc/phase_b.cu (--parent
+              DIR holding it and its common.cuh, e.g. from `git show
+              HEAD~1:...`) beside this tree's, and probes of the earlier
+              pb_band that each remove one cost (@noclassify: the positives
+              read back from the last launch's bits in place of the
+              classifier; @noadds: no adds of a run's rows into sc;
+              @nolists: no lists of positives and no adds), built under
+              build/pbvariants/, at each read count of --sizes on Phase A's
+              centers of one run: each build's device ms a launch (CUDA
+              events around each launch, all queued behind a sleeping
+              kernel), in turns (the earlier one, this, the probes, then
+              back), and the bits each wrote equal to this tree's; also
+              this tree's pb_band probed the same way (@this-noclassify,
+              @this-nosums) and built with other constants (NAME=VALUE).
   walls       whole k-mer runs (--id 0.90) at each read count of --sizes
               against an earlier commit's tree (--parent-tree DIR, e.g.
               `git archive HEAD~1 | tar -x -C build/parent_tree`), in
@@ -435,22 +451,38 @@ def cluster(dev, n: int, warm: bool, full: bool) -> None:
                               launches, copies, cfg.iterations), flush=True)
 
 
+PB_SETUP: dict = {}
+
+
+def phase_b_setup(dev, n: int) -> tuple:
+    """(points, bvec, model params, backend, members, assign, center rows)
+    of one k-mer run at n reads (--id 0.90): Phase A's centers as
+    run_phase_b_device hands them to phase_b_loop; kept for the other
+    parts of this run."""
+    if n not in PB_SETUP:
+        from meshclust_tpu_torch.config import ClusterConfig
+        from meshclust_tpu_torch.core.bvec import BVec
+        from meshclust_tpu_torch.core.runner import run
+        cfg = ClusterConfig(files=[smoke.bench_corpus(n=n)],
+                            output=os.path.join(smoke.WORK, f"pb_{n}.clstr"),
+                            similarity=0.90).finalize()
+        res = run(cfg, device=dev)
+        ps, params = res["pointset"], res["model"].params
+        bv = BVec(ps.lengths.copy(), cfg.bin_size)
+        bv.bulk_insert(ps.lengths)
+        bv.insert_finalize()
+        PB_SETUP.clear()
+        PB_SETUP[n] = (ps, bv, params,
+                       *smoke.phase_b_inputs(ps, bv, params))
+    return PB_SETUP[n]
+
+
 def phase_b_part(dev, n: int) -> None:
     """The phase_b part at n reads (see the module docstring)."""
     import torch
     from meshclust_tpu_torch import _ext
-    from meshclust_tpu_torch.config import ClusterConfig
-    from meshclust_tpu_torch.core.bvec import BVec
-    from meshclust_tpu_torch.core.runner import run
-    cfg = ClusterConfig(files=[smoke.bench_corpus(n=n)],
-                        output=os.path.join(smoke.WORK, f"pb_{n}.clstr"),
-                        similarity=0.90).finalize()
-    res = run(cfg, device=dev)
-    ps, params = res["pointset"], res["model"].params
-    bv = BVec(ps.lengths.copy(), cfg.bin_size)
-    bv.bulk_insert(ps.lengths)
-    bv.insert_finalize()
-    be, members, assign, rows = smoke.phase_b_inputs(ps, bv, params)
+    from meshclust_tpu_torch.ops import phase_b as PB
+    ps, bv, params, be, members, assign, rows = phase_b_setup(dev, n)
     it = smoke.PB_ITERS
     print(f"  {n} reads: {members.shape[0]} members, {rows.shape[0]} "
           f"centers, --delta {smoke.PB_DELTA}, {it} iterations, "
@@ -484,10 +516,19 @@ def phase_b_part(dev, n: int) -> None:
               flush=True)
     ms, dev_ms = smoke.phase_b_device_ms(ps, bv, params, False)
     plain_ms, plain_dev_ms = smoke.phase_b_device_ms(ps, bv, params, True)
-    err, per_launch, ops_s = smoke.phase_b_lockstep(be, members, assign,
-                                                    rows)
+    err, per_launch, ops_s, paths = smoke.phase_b_lockstep(
+        be, members, assign, rows)
+    pb = be._phase_b_state(members, assign, rows, smoke.PB_DELTA, 0)
+    PB.band(pb)
+    band_lib = smoke.band_yardstick(pb)
+    PB.dist(pb)
+    pick_lib = smoke.pick_yardstick(pb)
+    del pb
     print(f"    device ms an iteration: kernels {dev_ms:.5f}, plain steps "
-          f"{plain_dev_ms:.5f}", flush=True)
+          f"{plain_dev_ms:.5f}; tiles over the {it} iterations by path "
+          f"{paths}; library calls, warm: pb_band's sums as one index_add_ "
+          f"{band_lib:.5f} ms, pb_pick's as one scatter_reduce_ "
+          f"{pick_lib:.5f} ms", flush=True)
     for k in smoke.PHASE_B:
         b = smoke.bound(per_launch[k], ops_s[k])
         print(f"      {k}: {ms[k]:.5f} ms a launch (plain step "
@@ -497,6 +538,204 @@ def phase_b_part(dev, n: int) -> None:
               f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4g}, loss "
               f"{it * (ms[k] - b['bound_ms']) / 1e3:.6f} s, max abs err "
               f"{err[k]}", flush=True)
+
+
+# Probes of pb_band for --parts pbvariants: edits of the earlier
+# csrc/phase_b.cu (in --parent; the probes fit the pb_band that lists its
+# positives offset by offset) or of this tree's ("@this-")
+# that remove one cost each, run on a State whose bits a real band wrote
+# (@noclassify writes the same bits, the others the same bits and less of
+# sc).
+PB_PROBES = {
+    # the positives read back from the bits in place of the classifier
+    # and its gathers of each center's mag, sq and length
+    "@noclassify": [(
+        "        pos = classify(spec, coef, static_cast<double>(my_man),\n"
+        "                       static_cast<double>(my_dot), mag[my_a], "
+        "mag_b,\n"
+        "                       sq[my_a], sq_b, lenf[my_a], len_b, &f1);",
+        "        const int o_ = oi - at + sub;\n"
+        "        pos = ((bits[m * W + (o_ >> 5)] >> (o_ & 31)) & 1u) !=\n"
+        "              (my_man == -1 && my_dot == 7 && f1 == 0.0);")],
+    # the lists of positives kept, no run's rows added into sc
+    "@noadds": [(
+        "    for (int r = 0; r < R; ++r) {\n"
+        "      const int p0 = runs[r], p1 = runs[r + 1];\n"
+        "      i64* out = sc + (asg[list[p0]] + oi - delta) * Vp;",
+        "    for (int r = 0; r < 0 * R; ++r) {\n"
+        "      const int p0 = runs[r], p1 = runs[r + 1];\n"
+        "      i64* out = sc + (asg[list[p0]] + oi - delta) * Vp;")],
+    # neither the lists nor the adds
+    "@nolists": [(
+        "  const i64 Vp = static_cast<i64>(V) + 1;\n"
+        "  for (int oi = 0; oi < K; ++oi) {\n"
+        "    const i64 m = m0 + tid;",
+        "  const i64 Vp = static_cast<i64>(V) + 1;\n"
+        "  for (int oi = 0; oi < 0 * K; ++oi) {\n"
+        "    const i64 m = m0 + tid;")],
+    # this tree's: the staged path's classifier read back from the bits
+    "@this-noclassify": [(
+        "          pos = classify_terms(spec, coef, flags, "
+        "static_cast<double>(man),\n"
+        "                               static_cast<double>(dot), ct[r], "
+        "mt[t], &f1);",
+        "          pos = ((bits[(m0 + t) * W + (oi >> 5)] >> (oi & 31)) & "
+        "1u) !=\n"
+        "                (man == -1 && dot == 7);")],
+    # this tree's: no staged adds of a center's rows into sc
+    "@this-nosums": [(
+        "    for (int i = tid; i < n_rows * chunks; i += kTileThreads) {",
+        "    for (int i = tid; i < 0 * n_rows * chunks; "
+        "i += kTileThreads) {")],
+}
+PB_VARIANTS = ("@noclassify", "@noadds", "@nolists", "@noclassify,@nolists",
+               "@this-noclassify", "@this-nosums",
+               "@this-noclassify,@this-nosums", "kBandBlocks=1",
+               "kDistBlocks=1")
+
+
+def pb_variant_source(parent_dir: str, spec: str) -> str:
+    """A copy of parent_dir's phase_b.cu (or, for "@this-" probes and
+    NAME=VALUE constants, this tree's) and its common.cuh under
+    build/pbvariants/ with the edits of spec applied; returns its path."""
+    from meshclust_tpu_torch import _ext
+    src_dir = parent_dir if this_tree(spec) is False else _ext.CSRC
+    with open(os.path.join(src_dir, "phase_b.cu")) as f:
+        src = f.read()
+    for item in spec.split(","):
+        if "=" in item:
+            name, value = item.split("=")
+            src, n = re.subn(rf"constexpr int {name} = \d+;",
+                             f"constexpr int {name} = {int(value)};", src)
+            if n != 1:
+                smoke.fail(f"phase_b.cu: no constant {name}")
+            continue
+        for old, new in PB_PROBES[item]:
+            if src.count(old) != 1:
+                smoke.fail(f"phase_b.cu: probe {item} does not apply")
+            src = src.replace(old, new)
+    out = os.path.join(os.path.dirname(_ext.BUILD_DIR), "pbvariants",
+                       re.sub(r"[^A-Za-z0-9]+", "_", spec), "phase_b.cu")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        f.write(src)
+    with open(os.path.join(src_dir, "common.cuh")) as f, \
+            open(os.path.join(os.path.dirname(out), "common.cuh"), "w") as g:
+        g.write(f.read())
+    return out
+
+
+def this_tree(spec: str) -> bool:
+    """Whether a pbvariants build edits this tree's phase_b.cu."""
+    return spec == "this" or all(item.startswith("@this-") or "=" in item
+                                 for item in spec.split(","))
+
+
+class ParentPhaseB:
+    """A kernel library whose mc_pb_band and mc_pb_dist take no span_cap
+    and no paths (the earlier signature), called with this tree's
+    arguments."""
+
+    def __init__(self, handle):
+        self.handle = handle
+        for name in ("mc_pb_band", "mc_pb_dist"):
+            fn = getattr(handle, name)
+            fn.argtypes = _ext_signature(name)[:-3] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+    def __getattr__(self, name):
+        return getattr(self.handle, name)
+
+    def mc_pb_band(self, *a):
+        return self.handle.mc_pb_band(*a[:-3], a[-1])
+
+    def mc_pb_dist(self, *a):
+        return self.handle.mc_pb_dist(*a[:-3], a[-1])
+
+
+def _ext_signature(name: str) -> list:
+    from meshclust_tpu_torch import _ext
+    return list(_ext._SIGNATURES[name])
+
+
+def kernel_ms(calls, reps: int) -> dict:
+    """{name: device ms a launch} of each (name, fn) of calls, each fn one
+    launch: the calls run in order reps times behind a kernel that sleeps
+    while the host enqueues them all, so that no launch waits on the host,
+    and CUDA events between them time each on the card."""
+    import torch
+    for _, fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(len(calls) + 1)]
+          for _ in range(reps)]
+    torch.cuda._sleep(20_000_000)
+    for r in range(reps):
+        ev[r][0].record()
+        for i, (_, fn) in enumerate(calls):
+            fn()
+            ev[r][i + 1].record()
+    torch.cuda.synchronize()
+    return {name: sum(ev[r][i].elapsed_time(ev[r][i + 1])
+                      for r in range(reps)) / reps
+            for i, (name, _) in enumerate(calls)}
+
+
+def pbvariants(dev, parent_dir: str, sizes: list) -> None:
+    """The pbvariants part (see the module docstring)."""
+    import torch
+    from meshclust_tpu_torch import _ext
+    from meshclust_tpu_torch.ops import phase_b as PB
+    parent_src = os.path.abspath(os.path.join(parent_dir, "phase_b.cu"))
+    nw = os.path.join(_ext.CSRC, "nw_align_long.cu")   # mc_error_string
+    builds = {"parent": [parent_src, nw],
+              "this": [os.path.join(_ext.CSRC, "phase_b.cu"), nw]}
+    for spec in PB_VARIANTS:
+        builds[spec] = [os.path.abspath(pb_variant_source(parent_dir, spec)),
+                        nw]
+    paths = build_all(builds)
+    libs = {name: load_library(path) for name, path in paths.items()}
+    for name in libs:
+        if not this_tree(name):
+            libs[name] = ParentPhaseB(libs[name])
+    turns = ["parent", "this", *PB_VARIANTS, "this", "parent"]
+    for n in sizes:
+        ps, bv, params, be, members, assign, rows = phase_b_setup(dev, n)
+        pb = be._phase_b_state(members, assign, rows, smoke.PB_DELTA, 1)
+        PB.band(pb)
+        want = pb.bits.clone()
+        pos = int(((want.to(torch.int64) & 0xFFFFFFFF).unsqueeze(-1)
+                   >> torch.arange(32, device=want.device) & 1).sum())
+        reps = 20 if n <= 150000 else 10
+        print(f"  {n} reads: {members.shape[0]} members, {rows.shape[0]} "
+              f"centers, {pos} positive pairs; device ms a launch (CUDA "
+              f"events, launches queued behind a sleeping kernel) over "
+              f"{reps} launches of each, in turns:", flush=True)
+        got = {}
+        for name in turns:
+            with kernels_from(libs[name]):
+                ms = kernel_ms((("pb_band_kernel", lambda: PB.band(pb)),
+                                ("pb_dist_kernel", lambda: PB.dist(pb))),
+                               reps)
+                same = torch.equal(pb.bits, want)
+            got.setdefault(name, []).append(ms)
+            print(f"    {name}: pb_band {ms['pb_band_kernel']:.5f}, pb_dist "
+                  f"{ms['pb_dist_kernel']:.5f}; bits equal to this tree's "
+                  f"{same}", flush=True)
+        b = {k: min(m["pb_band_kernel"] for m in v) for k, v in got.items()}
+        print(f"  {n} reads, pb_band of the parent split by the probes (the "
+              f"least of each build's turns): whole {b['parent']:.5f} ms; "
+              f"classifier {b['parent'] - b['@noclassify']:.5f}; adds "
+              f"{b['parent'] - b['@noadds']:.5f}; lists "
+              f"{b['@noadds'] - b['@nolists']:.5f}; pair sums, staging and "
+              f"the rest {b['@noclassify,@nolists']:.5f}", flush=True)
+        print(f"  {n} reads, this tree's pb_band split the same way: whole "
+              f"{b['this']:.5f} ms; classifier "
+              f"{b['this'] - b['@this-noclassify']:.5f}; the staged adds "
+              f"{b['this'] - b['@this-nosums']:.5f}; pair sums, staging "
+              f"and the rest {b['@this-noclassify,@this-nosums']:.5f}",
+              flush=True)
+        del pb
 
 
 # A whole k-mer run in a tree's root (the walls part): warm up on the 15k
@@ -1165,7 +1404,8 @@ SASS_KERNELS = ("nw_align_long_kernel", "kmer_rows_kernelILb0E",
                 "kmer_split_kernel", "pa_absorb_kernelIaE",
                 "pa_sums_kernelIaLi16E", "pa_window_kernel",
                 "pa_member_dist_kernelIaLi16E", "pa_move_kernelIaLi16E",
-                "pa_mean_argmin_kernel")
+                "pa_mean_argmin_kernel", "pb_band_kernelIaLi16E",
+                "pb_dist_kernelIaLi16E")
 
 
 def sass() -> None:
@@ -1209,6 +1449,15 @@ def sass_counts(label: str, func: str, op) -> None:
                 block = []
     blocks.append(block)
     longest = max(blocks, key=len)
+    if label.split()[-1].startswith("pb_"):
+        # pb_band's and pb_dist's staged pair sums: the block of 16-byte
+        # shared-memory loads with the most IDP.4A
+        staged = max(blocks, key=lambda b: (
+            "LDS.128" in b, sum(o.startswith("IDP") for o in b)))
+        print(f"  {label}: staged block {len(staged)}: "
+              + ", ".join(f"{o} {n}" for o, n in
+                          collections.Counter(staged).most_common()),
+              flush=True)
     ops = collections.Counter(o for b in blocks for o in b)
     local = {k: sum(n for o, n in ops.items() if o.split(".")[0] == k)
              for k in ("LDL", "STL")}
@@ -1351,8 +1600,9 @@ def main() -> int:
                     help="NW sources for the compare and e2e parts")
     ap.add_argument("--parent", default="build/parent",
                     help="directory with the parent's kmer_hist.cu and "
-                    "ops/histogram.py, for the feat part, or its "
-                    "phase_a.cu, for the phase_a part")
+                    "ops/histogram.py, for the feat part, its "
+                    "phase_a.cu, for the phase_a part, or its phase_b.cu "
+                    "and common.cuh, for the pbvariants part")
     ap.add_argument("--parent-tree", default="build/parent_tree",
                     help="an earlier commit's whole tree, for the walls "
                     "part")
@@ -1414,10 +1664,16 @@ def main() -> int:
         print("k-mer-mode clustering on the device", flush=True)
         for k, n in enumerate(int(x) for x in args.sizes.split(",")):
             cluster(dev, n, warm=k == 0, full=n <= FULL_CLUSTER_READS)
-    if "phase_b" in parts:
-        print("the fused Phase B: kernels against plain steps", flush=True)
+    if "phase_b" in parts or "pbvariants" in parts:
         for n in (int(x) for x in args.sizes.split(",")):
-            phase_b_part(dev, n)
+            if "phase_b" in parts:
+                print(f"the fused Phase B at {n} reads: kernels against "
+                      f"plain steps", flush=True)
+                phase_b_part(dev, n)
+            if "pbvariants" in parts:
+                print(f"pb_band and pb_dist at {n} reads against "
+                      f"{args.parent}/phase_b.cu and its probes", flush=True)
+                pbvariants(dev, args.parent, [n])
     if "walls" in parts:
         print(f"whole runs against {args.parent_tree}, in turns", flush=True)
         walls(args.parent_tree, [int(x) for x in args.sizes.split(",")])

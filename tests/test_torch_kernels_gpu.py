@@ -816,15 +816,18 @@ def _phase_b_case(dtype, device):
 
 
 def phase_b_lockstep(be, members, assign, rows, delta, iterations,
-                     mesh=None):
+                     mesh=None, span_cap=-1):
     """Phase B driven as phase_b_loop drives it, each step by the plain
     steps and by the kernels on two States of the same card (with `mesh`,
     a stand-in holding size and rank: that rank's padded block of the pool,
-    no collectives), every value the next step reads compared bit for bit.
-    -> (launches of each kernel, iterations that merged)."""
+    no collectives; span_cap: the most center rows a tile of pb_band and
+    pb_dist stages), every value the next step reads compared bit for bit.
+    -> (launches of each kernel, iterations that merged, the kernels' tiles
+    on each path {PB.PATHS: count})."""
     from meshclust_tpu_torch.ops import phase_b as PB
     both = [be._phase_b_state(members, assign, rows, delta, iterations, mesh)
             for _ in range(2)]
+    both[1].span_cap = span_cap
     steps = (PB.steps(True), PB.steps(False))
 
     def same(*names):
@@ -854,7 +857,7 @@ def phase_b_lockstep(be, members, assign, rows, delta, iterations,
                        .any())
     same("assign")
     return ({k: _ext.launches[k] - before[k] for k in _ext.launches},
-            merged)
+            merged, dict(zip(PB.PATHS, both[1].paths.tolist())))
 
 
 PHASE_B_CASES = {"int8_delta5": ("int8", 5, None),
@@ -878,8 +881,8 @@ def test_phase_b_kernels_equal_plain_steps(cuda, case):
     be, members, assign, rows = _phase_b_case(dtype, cuda)
     mesh = None if ranks is None else types.SimpleNamespace(
         size=ranks[0], rank=ranks[1])
-    launched, merged = phase_b_lockstep(be, members, assign, rows, delta, 6,
-                                        mesh)
+    launched, merged, _ = phase_b_lockstep(be, members, assign, rows,
+                                           delta, 6, mesh)
     assert {k: v for k, v in launched.items() if k.startswith("pb_")} == \
         dict.fromkeys(("pb_band", "pb_dist", "pb_pick", "pb_merge"), 6)
     assert merged or delta == 0
@@ -888,9 +891,43 @@ def test_phase_b_kernels_equal_plain_steps(cuda, case):
 def test_phase_b_kernels_one_center(cuda):
     """C = 1: every member in one center's pool, no merge candidate."""
     be, members, _, rows = _phase_b_case("int8", cuda)
-    launched, merged = phase_b_lockstep(be, members, np.zeros_like(members),
-                                        rows[:1], 5, 3)
+    launched, merged, _ = phase_b_lockstep(
+        be, members, np.zeros_like(members), rows[:1], 5, 3)
     assert launched["pb_merge"] == 3 and merged == 0
+
+
+# (rows, --delta, the most center rows a tile stages, the paths that must
+# run): budgets below the stage's 32 rows, which tests/
+# test_torch_phaseb_schedule.py's model shows sending these tiles down
+# both paths
+PAST_BUDGET = {
+    "int8_delta1_cap4": ("int8", 1, 4, ("band_staged", "band_global",
+                                        "dist_staged", "dist_global")),
+    "int8_delta2_cap5": ("int8", 2, 5, ("band_staged", "band_global",
+                                        "dist_staged", "dist_global")),
+    "int8_delta40_cap3": ("int8", 40, 3, ("band_global", "dist_staged",
+                                          "dist_global")),
+    "int16_delta1_cap3": ("int16", 1, 3, ("band_global", "dist_staged",
+                                          "dist_global")),
+    "int16_delta2_cap5": ("int16", 2, 5, ("band_staged", "band_global",
+                                          "dist_staged"))}
+
+
+@pytest.mark.parametrize("case", sorted(PAST_BUDGET))
+def test_phase_b_kernels_tiles_past_the_budget(cuda, case):
+    """pb_band and pb_dist with a budget of staged center rows that some
+    tiles' spans pass (after merges assign is non-monotone): those tiles
+    take the global path in the same launch as the staged ones; every step
+    stays bit-equal to its plain step over 6 iterations, at --delta 1, 2
+    and 40 (three words of bits) and with int16 rows, and the paths named
+    ran."""
+    dtype, delta, cap, paths = PAST_BUDGET[case]
+    be, members, assign, rows = _phase_b_case(dtype, cuda)
+    launched, merged, ran = phase_b_lockstep(be, members, assign, rows,
+                                             delta, 6, span_cap=cap)
+    assert launched["pb_band"] == launched["pb_dist"] == 6 and merged
+    for path in paths:
+        assert ran[path] > 0, (path, ran)
 
 
 @pytest.mark.parametrize("dtype", sorted(PHASE_A_SCALES))

@@ -2,20 +2,26 @@
 checked on the CPU through a numpy model of their decomposition.
 
 The kernels run only on a CUDA card. The model below replays each one with
-its grid (blocks of a tile of members, run in a random order), its lane
-groups and its reductions:
-  pb_band   assign mapped through remap; a group of `lanes` lanes a member
-            over its 2 delta + 1 offsets, the lane whose number is the
-            offset's (mod lanes) keeping man and dot and classifying at the
-            end of each chunk of `lanes` offsets (the float64 classifier
-            read from ops/phase_a.Model's packed arrays), the chunk's bits
-            shifted into 32-bit words; then offset by offset the tile's
-            positives listed in member order, cut into runs of equal
-            centers, one add a run and column into sc (none for a zero);
-  pb_dist   the same lists and runs; a run's floored mean divided once a
-            chunk of V (kCwBytes of the rows' dtype), the run's members
-            served chunk by chunk, d in float64 (IEEE, no FMA), the run's
-            least d added into best_d as a minimum of bit patterns;
+its grid (blocks of a tile of members, run in a random order), its threads
+and its reductions:
+  pb_band   assign mapped through remap; the tile's span of centers [min
+            assign - delta, max assign + delta] over the members that count,
+            staged where it holds at most the budget's rows (the kernels'
+            shared memory, or a small budget); a thread a (member, offset)
+            pair in any order, man and dot over the whole row (32-bit
+            partial sums for int8 counts, checked), the float64 classifier
+            read from ops/phase_a.Model's packed arrays, the bit into the
+            member's word and, staged, the member's bit into its center's
+            mask; then staged, each center of the span with a positive adds
+            its masked members' rows (32-bit column sums for int8 and int16
+            counts, checked) and count into sc, an add a column, none for a
+            zero; on the global path each positive adds its member's row;
+  pb_dist   the tile's positives numbered member by member; the span of
+            centers with a positive, staged within the budget: each such
+            center's floored mean and its sum once a tile, then a thread a
+            positive, d in float64 (IEEE, no FMA), each center's least d a
+            minimum of bit patterns merged into best_d once a tile; on the
+            global path a positive divides the mean itself;
   pb_pick   a thread a member, its positives in bit order (__ffs), the
             least pool position among the ties; sc zeroed in a grid stride;
   pb_merge  a group a center over its candidates in chunks of `lanes`, the
@@ -30,9 +36,12 @@ centers, then merges that make assign non-monotone), with rows in int8,
 int16 and int32, --delta 0, 5 and 40 (three words of bits), a rank's
 padded block of the pool, C = 1, rows duplicated so that distances tie
 inside a tile and across tiles, and centers with no positive; at the
-kernels' own tile and lanes and at small ones (many tiles, one lane). A
-copy of the model with the pick's tie rule turned around, or with the
-merge chains left after one hop, must disagree. The wrappers on CPU tensors are the plain steps, and
+kernels' own tile and budget, at small ones where tiles' spans pass the
+budget (both paths in one step), and with no budget (every tile global).
+Copies of the model with the pick's tie rule turned around, the merge
+chains left after one hop, the band's accumulator one row short of the
+span, or the dist's span taken from assign without the offsets, must
+disagree. The wrappers on CPU tensors are the plain steps, and
 csrc/phase_b.cu's constants are ops/phase_b.py's. Tolerance: exact
 equality.
 """
@@ -60,11 +69,14 @@ HEADER = os.path.join(os.path.dirname(SOURCE), "common.cuh")
 SCALES = {"int8": 1, "int16": 1000, "int32": 5000}
 # pb_band's and pb_dist's tiles, lanes (None: the kernel's, from the rows'
 # pieces), pb_merge's block
-OWN = dict(tile=PB.TILE, dist_tile=PB.DIST_TILE, lanes=None,
-           threads=PB.THREADS)
-SMALL = dict(tile=8, dist_tile=16, lanes=4, threads=8)
-ONE_LANE = dict(tile=5, dist_tile=5, lanes=1, threads=4)
-CW_BYTES = 8192                       # common.cuh: kCwBytes
+# pb_band's and pb_dist's tile and budget of staged center rows (None:
+# the kernels', PB.stage_cap of the rows' bytes), pb_merge's lanes (None:
+# the kernel's, from the rows' pieces) and block
+OWN = dict(tile=PB.TILE, cap=None, lanes=None, threads=PB.THREADS)
+SMALL = dict(tile=8, cap=12, lanes=4, threads=8)
+ONE_LANE = dict(tile=5, cap=0, lanes=1, threads=4)
+GRIDS = {"own": OWN, "small": SMALL, "one_lane": ONE_LANE}
+CHUNK_PIECES = 32                     # phase_b.cu: kChunkPieces
 PIECE_BYTES = 16                      # common.cuh: kPieceBytes
 
 
@@ -134,6 +146,7 @@ def numpy_state(pb):
     s["itemsize"] = pb.rows.element_size()
     s["delta"], s["goff"] = pb.delta, pb.goff
     s["m_valid"] = (None if pb.m_valid is None else pb.m_valid.numpy())
+    s["paths"] = np.zeros(len(PB.PATHS), np.int64)
     return s
 
 
@@ -168,109 +181,192 @@ def lane_sums(row_a, row_b, lanes, itemsize):
     return man, dot
 
 
-def offset_words(s, m, asg, lanes):
-    """pb_band's words of member m (assign asg): the lane chunks, each
-    lane's classification at its chunk's end, shifted in."""
-    K, W, C = 2 * s["delta"] + 1, PB.words(s["delta"]), s["c_idx"].shape[0]
-    mv = s["m_valid"] is None or bool(s["m_valid"][m])
-    held = [None] * lanes
-    out = np.zeros(W, np.uint32)
-    word = shift = wi = 0
-    b = s["m_idx"][m]
-    for oi in range(K):
-        j = asg + oi - s["delta"]
-        ok = mv and 0 <= j < C and bool(s["c_valid"][j])
-        a = int(s["c_idx"][j]) if ok else -1
-        at = oi % lanes
-        held[at] = (lane_sums(s["hist"][a], s["rows"][m], lanes,
-                              s["itemsize"]) if ok else (0, 0), a)
-        if at != lanes - 1 and oi != K - 1:
-            continue
-        chunk = 0
-        for sub in range(at + 1):
-            (man, dot), a_ = held[sub]
-            if a_ >= 0 and classify(s, man, dot, a_, b)[0]:
-                chunk |= 1 << sub
-        word |= chunk << shift
-        shift += lanes
-        if shift == 32 or oi == K - 1:
-            out[wi] = word
-            word = shift = 0
-            wi += 1
-    return out
+def thread_sums(row_a, row_b, itemsize):
+    """man and dot of two rows as one thread sums them: 32-bit partial sums
+    over CHUNK_PIECES 16-byte pieces for int8 counts (checked to fit), 64
+    bits across them."""
+    per = CHUNK_PIECES * PIECE_BYTES // itemsize
+    man = dot = 0
+    for c0 in range(0, row_a.shape[0], per):
+        a, b = row_a[c0: c0 + per], row_b[c0: c0 + per]
+        m, d = int(np.abs(a - b).sum()), int((a * b).sum())
+        if itemsize == 1:
+            assert abs(m) < 2 ** 31 and abs(d) < 2 ** 31
+        man, dot = man + m, dot + d
+    return man, dot
 
 
-def runs_of(s, tile_members, oi, asg):
-    """A tile's positives at offset oi in member order, cut into runs of
-    equal centers: [(center, members)]."""
-    listed = [m for m in tile_members
-              if (int(s["bits"][m, oi // 32]) >> (oi % 32)) & 1]
-    out = []
-    for m in listed:
-        jc = asg[m] + oi - s["delta"]
-        if out and out[-1][0] == jc:
-            out[-1][1].append(m)
-        else:
-            out.append((jc, [m]))
-    return out
-
-
-def tiles(s, grid, rng, key="tile"):
+def tiles(s, grid, rng):
     M = s["rows"].shape[0]
-    t = grid[key]
+    t = grid["tile"]
     n = max(1, -(-M // t))
     return [list(range(b * t, min(b * t + t, M)))
             for b in rng.permutation(n)]
 
 
-def model_band(s, grid, rng):
+def stage_cap(s, grid):
+    """The center rows a tile stages: the kernels' (PB.stage_cap of the
+    rows' bytes) or the grid's budget."""
+    length = s["rows"].shape[1] * s["itemsize"]
+    return PB.stage_cap(length) if grid["cap"] is None else grid["cap"]
+
+
+def add_row(s, jc, row, count, rng):
+    """A tile's sums of center jc added into sc: an atomic a column, none
+    for a zero, in any order."""
+    acc = np.append(row, count)
+    for v in rng.permutation(acc.shape[0]):
+        if acc[v]:
+            s["sc"][jc, v] += acc[v]
+
+
+def model_band(s, grid, rng, drop_edge=False):
+    """pb_band: tiles of grid["tile"] members in any order; each maps its
+    assign through remap, takes its span of centers [min - delta, max +
+    delta] over the members that count, stages it where it holds at most
+    the budget's rows; a thread a (member, offset) pair in any order, its
+    bit and, staged, its member's bit in the center's mask; then staged,
+    each center of the span with a positive adds its masked members' rows
+    (32-bit column sums for int8 and int16 counts, checked) and count;
+    on the global path each positive adds its member's row and a count.
+    With drop_edge the accumulator's rows stop one short of the span (a
+    broken copy)."""
     C = s["c_idx"].shape[0]
-    V = s["rows"].shape[1]
-    lanes = lanes_of(s, grid)
+    M, V = s["rows"].shape
+    K, W, delta = 2 * s["delta"] + 1, PB.words(s["delta"]), s["delta"]
+    cap = stage_cap(s, grid)
     s["best_d"][:] = np.inf
     s["best_pos"][:] = s["m_all"].shape[0]
     for tile in tiles(s, grid, rng):
         for m in tile:
             s["assign"][m] = s["remap"][s["assign"][m]]
+        valid = [m for m in tile
+                 if s["m_valid"] is None or bool(s["m_valid"][m])]
+        asg = {m: int(s["assign"][m]) for m in valid}
+        if valid:
+            lo = max(0, min(asg.values()) - delta)
+            span = min(C - 1, max(asg.values()) + delta) - lo + 1
+        else:
+            lo, span = 0, 0
+        staged = span <= cap
+        s["paths"][0 if staged else 1] += 1
+        mask = np.zeros(max(span, 1), np.int64)
+        bits = {m: np.zeros(W, np.uint32) for m in tile}
+        pairs = [(t, oi) for t in range(len(tile)) for oi in range(K)]
+        for i in rng.permutation(len(pairs)):
+            t, oi = pairs[i]
+            m = tile[t]
+            if m not in asg:
+                continue
+            j = asg[m] + oi - delta
+            if not (0 <= j < C and s["c_valid"][j]):
+                continue
+            if staged:
+                assert lo <= j < lo + span
+            a = int(s["c_idx"][j])
+            man, dot = thread_sums(s["hist"][a], s["rows"][m],
+                                   s["itemsize"])
+            if classify(s, man, dot, a, s["m_idx"][m])[0]:
+                bits[m][oi // 32] |= np.uint32(1 << (oi % 32))
+                if staged:
+                    mask[j - lo] |= 1 << t
         for m in tile:
-            s["bits"][m] = offset_words(s, m, int(s["assign"][m]), lanes)
-        for oi in range(2 * s["delta"] + 1):
-            for jc, run in runs_of(s, tile, oi, s["assign"]):
-                assert 0 <= jc < C
-                acc = np.append(s["rows"][run].sum(0), len(run))
-                for v in rng.permutation(V + 1):
-                    if acc[v]:
-                        s["sc"][jc, v] += acc[v]
+            s["bits"][m] = bits[m]
+        if not staged:
+            for m in tile:
+                for oi in range(K):
+                    if (int(bits[m][oi // 32]) >> (oi % 32)) & 1:
+                        add_row(s, asg[m] + oi - delta, s["rows"][m], 1, rng)
+            continue
+        for r in rng.permutation(span - 1 if drop_edge else span):
+            members = [tile[t] for t in range(len(tile))
+                       if (int(mask[r]) >> t) & 1]
+            if not members:
+                continue
+            sums = s["rows"][members].sum(0)
+            if s["itemsize"] <= 2:
+                assert np.abs(sums).max() < 2 ** 31
+            add_row(s, lo + r, sums, len(members), rng)
 
 
-def model_dist(s, grid, rng):
+def positives(s, m):
+    """Member m's positive offsets, in bit order."""
+    return [oi for oi in range(2 * s["delta"] + 1)
+            if (int(s["bits"][m, oi // 32]) >> (oi % 32)) & 1]
+
+
+def mean_row(s, jc):
+    """Center jc's floored mean, divided in float64 as mean_floor does, and
+    its sum."""
     V = s["rows"].shape[1]
-    chunk = CW_BYTES // s["itemsize"]
+    count = np.float64(max(int(s["sc"][jc, V]), 1))
+    cw = np.floor(s["sc"][jc, :V].astype(np.float64) / count).astype(
+        np.int64)
+    return cw, int(cw.sum())
+
+
+def model_dist(s, grid, rng, assign_span=False):
+    """pb_dist: the same tiles in any order; a tile's positives numbered
+    member by member (each member's count, then a scan); its span of
+    centers with a positive; staged where it holds at most the budget's
+    rows: each flagged center's floored mean and its sum once, into rows
+    that start as zeros, then a thread a positive in any order: d from its
+    center's staged mean, the least d of each center a minimum of bit
+    patterns, merged into best_d once a center; on the global path a
+    positive divides its center's mean itself and takes best_d's minimum
+    directly. With assign_span (a broken copy) the span is taken from the
+    members' assign alone, without their offsets."""
+    V = s["rows"].shape[1]
+    delta = s["delta"]
+    cap = stage_cap(s, grid)
     f8 = np.float64
-    for tile in tiles(s, grid, rng, "dist_tile"):
-        for oi in range(2 * s["delta"] + 1):
-            for jc, run in runs_of(s, tile, oi, s["assign"]):
-                count = f8(max(int(s["sc"][jc, V]), 1))
-                dl = np.zeros(len(run), np.int64)
-                cw_sum = 0
-                for c0 in range(0, V, chunk):
-                    c1 = min(V, c0 + chunk)
-                    cw = np.floor(s["sc"][jc, c0: c1].astype(f8)
-                                  / count).astype(np.int64)
-                    cw_sum += int(cw.sum())
-                    for i, m in enumerate(run):
-                        dl[i] += 2 * int(np.minimum(
-                            s["rows"][m, c0: c1], cw).sum())
-                least = np.iinfo(np.int64).max
-                for i, m in enumerate(run):
-                    frac = f8(dl[i]) / (f8(s["mag"][s["m_idx"][m]])
-                                        + f8(cw_sum))
-                    d = f8(10000.0) * (f8(1.0) - frac * frac)
-                    s["dstore"][m, oi] = d
-                    least = min(least, int(np.float64(d).view(np.int64)))
-                cur = int(s["best_d"][jc:jc + 1].view(np.int64)[0])
-                s["best_d"][jc:jc + 1] = np.asarray(
-                    [min(cur, least)], np.int64).view(np.float64)
+    big = np.iinfo(np.int64).max
+
+    def merge_least(jc, key):
+        cur = int(s["best_d"][jc:jc + 1].view(np.int64)[0])
+        s["best_d"][jc:jc + 1] = np.asarray([min(cur, key)], np.int64).view(
+            np.float64)
+
+    for tile in tiles(s, grid, rng):
+        pairs = [(m, oi) for m in tile for oi in positives(s, m)]
+        if assign_span:
+            jcs = [int(s["assign"][m]) for m, _ in pairs]
+        else:
+            jcs = [int(s["assign"][m]) + oi - delta for m, oi in pairs]
+        lo = min(jcs) if jcs else 0
+        span = max(jcs) - lo + 1 if jcs else 0
+        staged = span <= cap
+        s["paths"][2 if staged else 3] += 1
+        if staged:
+            means = np.zeros((max(cap, 1), V), np.int64)
+            totals = np.zeros(max(cap, 1))
+            least = np.full(max(cap, 1), big)
+            for m, oi in pairs:
+                r = int(s["assign"][m]) + oi - delta - lo
+                if 0 <= r < span:
+                    means[r], totals[r] = mean_row(s, lo + r)
+        for i in rng.permutation(len(pairs)):
+            m, oi = pairs[i]
+            jc = int(s["assign"][m]) + oi - delta
+            if staged:
+                r = jc - lo
+                cw, cw_sum = ((means[r], totals[r]) if 0 <= r < cap
+                              else (np.zeros(V, np.int64), 0.0))
+            else:
+                cw, cw_sum = mean_row(s, jc)
+            dl = 2 * int(np.minimum(s["rows"][m], cw).sum())
+            frac = f8(dl) / (f8(s["mag"][s["m_idx"][m]]) + f8(cw_sum))
+            d = f8(10000.0) * (f8(1.0) - frac * frac)
+            s["dstore"][m, oi] = d
+            key = int(np.float64(d).view(np.int64))
+            if staged and 0 <= r < cap:
+                least[r] = min(least[r], key)
+            else:
+                merge_least(jc, key)
+        if staged:
+            for r in rng.permutation(min(span, cap)):
+                if least[r] != big:
+                    merge_least(lo + r, int(least[r]))
 
 
 def model_pick(s, grid, rng, least=True):
@@ -374,7 +470,7 @@ def model_against_plain(be, members, assign, rows, delta, iterations, grid,
     """The model and the plain steps over `iterations` iterations from one
     State each; every value the next step reads compared after each step.
     -> facts of the run: merges, non-monotone assign, centers with no
-    positive, ties in d."""
+    positive, ties in d, and the model's tiles on each path (PB.PATHS)."""
     pb = be._phase_b_state(members, assign, rows, delta, iterations, mesh)
     s = numpy_state(pb)
     rng = np.random.default_rng(seed)
@@ -402,6 +498,7 @@ def model_against_plain(be, members, assign, rows, delta, iterations, grid,
                 facts["ties"] += d.shape[0] - np.unique(d).shape[0]
         facts["merges"] += int((pb.t_hist[it].numpy()
                                 != np.arange(rows.shape[0])).sum())
+    facts.update(zip(PB.PATHS, s["paths"].tolist()))
     return facts
 
 
@@ -432,11 +529,29 @@ def test_model_equals_plain_steps(cases, case, grid):
     --delta 5; the runs merge, and where species interleave (int8_close)
     a merge passes over a kept center and assign is no longer monotone."""
     be, members, assign, rows = cases[case]
-    facts = model_against_plain(
-        be, members, assign, rows, 5, 4,
-        {"own": OWN, "small": SMALL, "one_lane": ONE_LANE}[grid])
+    facts = model_against_plain(be, members, assign, rows, 5, 4,
+                                GRIDS[grid])
     assert facts["merges"]
     assert facts["non_monotone"] or case != "int8_close"
+    if grid == "one_lane":
+        assert facts["band_staged"] == 0 and facts["band_global"] > 0
+
+
+@pytest.mark.parametrize("delta,cap", [(1, 3), (2, 5), (3, 7)])
+def test_model_tiles_past_the_budget(cases, delta, cap):
+    """A budget of 2 delta + 1 center rows and one more (the kernels stage
+    up to 32): a tile whose members span more centers takes the global
+    path while the others stage, in the same step, also after merges make
+    assign non-monotone (--delta 2 and 3 where species interleave); both
+    paths of both kernels run, and the model stays equal to the plain
+    steps."""
+    be, members, assign, rows = cases["int8_close"]
+    facts = model_against_plain(be, members, assign, rows, delta, 4,
+                                dict(SMALL, cap=cap))
+    for path in PB.PATHS:
+        assert facts[path] > 0, path
+    assert facts["merges"]
+    assert facts["non_monotone"] or delta == 1
 
 
 @pytest.mark.parametrize("delta", [0, 1, 40])
@@ -488,29 +603,45 @@ def test_model_equals_plain_steps_with_one_center(cases):
     assert facts["merges"] == 0
 
 
-@pytest.mark.parametrize("which", ["pick", "merge"])
+# Broken copies of the model: (case, delta, the copy's step)
+BROKEN = {
+    # the least position turned into the greatest, on duplicated rows
+    "pick": ("int8_dup", 5, ("pick", lambda s, g, r: model_pick(
+        s, g, r, least=False))),
+    # the merge chains left after one hop, where species interleave
+    "merge": ("int8_close", 5, ("merge", lambda s, it, g, r: model_merge(
+        s, it, g, r, follow=False))),
+    # the band's accumulator one row short of the span: at --delta 0 the
+    # span's last row is the tile's last center, which has positives
+    "band_edge": ("int8", 0, ("band", lambda s, g, r: model_band(
+        s, g, r, drop_edge=True))),
+    # the dist's span from assign alone: positives at other offsets read
+    # means outside it
+    "dist_span": ("int8_close", 5, ("dist", lambda s, g, r: model_dist(
+        s, g, r, assign_span=True))),
+}
+
+
+@pytest.mark.parametrize("which", sorted(BROKEN))
 def test_a_broken_model_disagrees(cases, which):
-    """The model with the pick's least position turned into the greatest
-    (on the duplicated rows), or with the merge chains left after one hop
-    (where species interleave), differs from the plain steps, so the tests
-    above do see the tie rule and the chains."""
-    be, members, assign, rows = cases["int8_dup" if which == "pick"
-                                      else "int8_close"]
-    pb = be._phase_b_state(members, assign, rows, 5, 4)
+    """Each broken copy of the model (BROKEN) differs from the plain steps,
+    so the tests above do see the tie rule, the chains, the span's edge
+    rows and the offsets in the span."""
+    case, delta, (broken, fn) = BROKEN[which]
+    be, members, assign, rows = cases[case]
+    pb = be._phase_b_state(members, assign, rows, delta, 4)
     s = numpy_state(pb)
     rng = np.random.default_rng(0)
     step = PB.steps(True)
     differs = False
     for it in range(4):
         for name in PB.STEPS:
+            model = fn if name == broken else MODELS[name]
             if name == "merge":
-                model_merge(s, it, SMALL, rng, follow=which != "merge")
+                model(s, it, SMALL, rng)
                 step.merge(pb, it)
-            elif name == "pick":
-                model_pick(s, SMALL, rng, least=which != "pick")
-                step.pick(pb)
             else:
-                MODELS[name](s, SMALL, rng)
+                model(s, SMALL, rng)
                 getattr(step, name)(pb)
             if same_as(s, pb, COMPARED[name]) is not None:
                 differs = True
@@ -557,8 +688,10 @@ def test_state_refuses_what_the_kernels_do_not_take(cases):
 
 
 def test_source_constants_match_the_wrappers():
-    """csrc/phase_b.cu's tile, scratch slots, DBL_MIN and words of bits,
-    and the block size of the header it includes, are ops/phase_b.py's."""
+    """csrc/phase_b.cu's tile, its block, the stage's budget, the paths'
+    slots, the scratch slots, DBL_MIN and words of bits, and the block size
+    and piece of the header it includes, are ops/phase_b.py's; the stage's
+    pitch and rows at the rows' widths."""
     src = ""
     for path in (SOURCE, HEADER):
         with open(path) as f:
@@ -568,14 +701,26 @@ def test_source_constants_match_the_wrappers():
         return re.search(rf"\b{name} = ([^,;]+)[,;]", src).group(1).strip()
 
     assert int(const("kThreads")) == PB.THREADS
-    assert int(const("kTile")) == PB.TILE <= PB.THREADS
-    assert const("kDistTile") == "kThreads" and PB.DIST_TILE == PB.THREADS
+    assert int(const("kTile")) == PB.TILE == 32
+    assert int(const("kTileThreads")) == PB.TILE_THREADS
+    assert int(const("kStageBytes")) == PB.STAGE_BYTES
+    assert int(const("kSpanRows")) == PB.SPAN_ROWS
+    assert int(const("kChunkPieces")) == CHUNK_PIECES
+    assert [int(const(k)) for k in ("kBandStaged", "kBandGlobal",
+                                    "kDistStaged", "kDistGlobal")] == \
+        [PB.PATHS.index(p) for p in ("band_staged", "band_global",
+                                     "dist_staged", "dist_global")]
     assert int(const("kTicket")) == PB.TICKET
     assert int(const("kScratchHead")) == PB.SCRATCH_HEAD
-    assert int(const("kCwBytes")) == CW_BYTES
     assert int(const("kPieceBytes")) == PIECE_BYTES
     assert float(const("kDblMin")) == _DBL_MIN
-    assert src.count("(2 * delta + 1 + 31) / 32") == 3
+    assert src.count("(2 * delta + 1 + 31) / 32") == 1
     for delta in (0, 5, 15, 16, 40):
         assert PB.words(delta) == (2 * delta + 1 + 31) // 32
     assert PB.scratch_len(7) == PB.SCRATCH_HEAD + 3 * 7
+    # V = 256 counts of 1, 2, 4 and 8 bytes, 4 counts (k = 1), an odd slice
+    assert [PB.stage_pitch(n) for n in (256, 512, 1024, 2048, 4, 129)] == \
+        [272, 528, 1040, 0, 16, 144]
+    assert [PB.stage_cap(n) for n in (256, 512, 1024, 2048)] == \
+        [32, 32, 15, 0]
+    assert PB.stage_cap(256, 11) == 11 and PB.stage_cap(256, 100) == 32
