@@ -48,7 +48,9 @@ Phases (any failure exits non-zero before the last line):
      time and its plain step's from the same profile child; the tiles
      pb_band and pb_dist ran on their staged and global paths; pb_band
      beside one index_add_ of its positive rows, pb_pick beside one
-     scatter_reduce_ (amin) of its ties' pool positions;
+     scatter_reduce_ (amin) of its ties' pool positions; the same checks,
+     untimed, on the 15k centers each split in two adjacent centers
+     (split_centers), which must merge;
   4. run each path on the GPU with the launch counts set to 0 just before
      it, and check that it launched both kernels, kmer_hist exactly once:
      - k-mer mode: 15,000 synthetic reads of ~1 kb, --id 0.90, default
@@ -1335,13 +1337,37 @@ def phase_b_inputs(ps, bv, params) -> tuple:
     return DeviceBackend(ps, params), members, assign, rows
 
 
-def phase_b_device_ms(ps, bv, params, plain: bool) -> tuple:
+def split_centers(members, assign, rows) -> tuple:
+    """A Phase B input that merges, from Phase A's centers as
+    phase_b_inputs gives them (members grouped by center, in order): each
+    center with at least 2 members split into two adjacent centers, the
+    second's row the pool's middle member and the second half of the pool
+    assigned to it. Both halves are one species at ~94% identity, so most
+    pairs merge in the first iteration. -> (members, assign, center rows)."""
+    starts = np.flatnonzero(np.r_[True, assign[1:] != assign[:-1]])
+    ends = np.r_[starts[1:], assign.shape[0]]
+    new_assign = np.empty_like(assign)
+    new_rows = []
+    for s, e in zip(starts, ends):
+        new_rows.append(rows[assign[s]])
+        new_assign[s:e] = len(new_rows) - 1
+        if e - s >= 2:
+            new_rows.append(members[s + (e - s) // 2])
+            new_assign[s + (e - s) // 2:e] = len(new_rows) - 1
+    return members, new_assign, np.asarray(new_rows, np.int64)
+
+
+def phase_b_device_ms(ps, bv, params, plain: bool,
+                      split: bool = False) -> tuple:
     """(device ms a call of each step, device ms an iteration) of the
-    fused Phase B under torch.profiler, as phase_a_device_ms takes them."""
+    fused Phase B under torch.profiler, as phase_a_device_ms takes them
+    (with split, on split_centers' input)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     be, members, assign, rows = phase_b_inputs(ps, bv, params)
+    if split:
+        members, assign, rows = split_centers(members, assign, rows)
     torch.cuda.synchronize()
     with phase_b_steps(lambda n, f: ranged(n, f, "phase_b")), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1508,7 +1534,7 @@ def pick_yardstick(pb) -> float:
     for oi in range(2 * pb.delta + 1):
         m = torch.nonzero((bits[:, oi // 32] >> (oi % 32)) & 1).flatten()
         j = pb.assign[m] + oi - pb.delta
-        tie = pb.dstore[m, oi] == pb.best_d[j]
+        tie = pb.dstore[oi, m] == pb.best_d[j]
         ps.append(pb.goff + m[tie])
         js.append(j[tie])
     pos, j = torch.cat(ps), torch.cat(js)
@@ -1523,15 +1549,20 @@ def check_phase_b(dev) -> list:
     phase_b_loop (assign, centers, valid, t_hist) in turns (plain, kernels,
     kernels, plain) with walls, launches an iteration and the bound; each
     kernel's device time and its plain step's from check_phase_a's profile
-    child. Returns the four kernels' rows (at 15k, the main path's
-    shapes)."""
+    child. The same checks, untimed, on the 15k centers split in two
+    (split_centers), whose merges must happen. Returns the four kernels'
+    rows (at 15k, the main path's shapes)."""
     import torch
     from meshclust_tpu_torch import _ext
     rows_out = None
-    for n, path in sorted(INPUTS.items()):
+    cases = [(n, path, False) for n, path in sorted(INPUTS.items())]
+    cases.insert(1, (min(INPUTS), INPUTS[min(INPUTS)], True))
+    for n, path, split in cases:
         t0 = time.time()
         ps, bv, params = torch.load(path, weights_only=False)
         be, members, assign, rows = phase_b_inputs(ps, bv, params)
+        if split:
+            members, assign, rows = split_centers(members, assign, rows)
         err, per_launch, ops_s, paths = phase_b_lockstep(be, members, assign,
                                                          rows)
         runs = []
@@ -1544,27 +1575,41 @@ def check_phase_b(dev) -> list:
             torch.cuda.synchronize()
             runs.append((out, time.time() - t1,
                          {k: _ext.launches[k] for k in PHASE_B}))
+        label = f"{n} reads" + (", centers split" if split else "")
         for out, _, launched in runs:
             for a, b in zip(out, runs[0][0]):
                 if a.shape != b.shape or not np.array_equal(a, b):
-                    fail(f"Phase B at {n} reads: the kernels' loop differs "
+                    fail(f"Phase B at {label}: the kernels' loop differs "
                          f"from the plain steps' (assign, centers, valid or "
                          f"t_hist)")
         want = dict.fromkeys(PHASE_B, PB_ITERS)
         for i, (_, _, launched) in enumerate(runs):
             if launched != (want if i in (1, 2) else dict.fromkeys(PHASE_B,
                                                                    0)):
-                fail(f"Phase B at {n} reads launched {launched} (run {i})")
+                fail(f"Phase B at {label} launched {launched} (run {i})")
         if any(err.values()):
-            fail(f"Phase B at {n} reads: a kernel differs from its plain "
+            fail(f"Phase B at {label}: a kernel differs from its plain "
                  f"step ({err})")
+        merged = int((runs[1][0][3] != np.arange(rows.shape[0])).sum())
+        if split:
+            # the merging input: no timing, but its merges must happen
+            print(f"  Phase B at {label} (--delta {PB_DELTA}, {PB_ITERS} "
+                  f"iterations): {members.shape[0]} members, "
+                  f"{rows.shape[0]} centers, {merged} merge targets over "
+                  f"the iterations, {int(runs[1][0][2].sum())} kept; "
+                  f"assign, centers, valid and t_hist bit-equal to the "
+                  f"plain steps'; each kernel bit-equal to its plain step "
+                  f"over all iterations (took {time.time() - t0:.1f} s)",
+                  flush=True)
+            if merged == 0:
+                fail(f"Phase B at {label}: no center merged")
+            continue
         pb = be._phase_b_state(members, assign, rows, PB_DELTA, 0)
         from meshclust_tpu_torch.ops import phase_b as PB
         PB.band(pb)
         lib_ms = band_yardstick(pb)
         PB.dist(pb)
         pick_lib_ms = pick_yardstick(pb)
-        merged = int((runs[1][0][3] != np.arange(rows.shape[0])).sum())
         walls = [r[1] * 1e3 / PB_ITERS for r in runs]
         total = sum(per_launch.values())
         print(f"  Phase B at {n} reads (--delta {PB_DELTA}, {PB_ITERS} "

@@ -80,9 +80,9 @@ _SIGNATURES = {
     # dstore, best_d, span_cap, paths, stream
     "mc_pb_dist": [_P, _L, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I,
                    _P, _P],
-    # M, assign, delta, bits, dstore, best_d, best_pos, goff, sc, sc_len,
+    # M, assign, delta, bits, dstore, best_d, best_pos, goff, sc, C, V,
     # stream
-    "mc_pb_pick": [_I, _P, _I, _P, _P, _P, _P, _L, _P, _L, _P],
+    "mc_pb_pick": [_I, _P, _I, _P, _P, _P, _P, _L, _P, _I, _I, _P],
     # hist, hist stride, V, width, C, c_idx, c_valid, best_pos, m_all,
     # M_all, mag, sq, lenf, spec, n_spec, coef, n_coef, delta, t_row, remap,
     # scratch, stream

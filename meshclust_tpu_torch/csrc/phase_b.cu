@@ -19,10 +19,11 @@
 //   pb_dist   for each positive (m, o): cw = floor(sums / max(count, 1)) of
 //             its center, dist = 2 * sum min(h, cw), frac = dist / (mag +
 //             sum cw), d = 10000 * (1 - frac * frac) (two roundings, no
-//             FMA), d kept in dstore [M, 2 delta + 1], and the least d of
-//             each center (best_d);
+//             FMA), d kept in dstore [2 delta + 1, M] (offset-major),
+//             and the least d of each center (best_d);
 //   pb_pick   for each positive whose d is its center's least: the least
-//             pool position (best_pos); and sc zeroed for the next band;
+//             pool position (best_pos); and the rows of sc that pb_band
+//             touched zeroed for the next band;
 //   pb_merge  the move (a center takes its best member), then for each
 //             center i the first max of f1 over its candidates i + 1 ..
 //             i + delta (a: the candidate, b: center i), strictly above
@@ -41,8 +42,9 @@
 // 64-bit atomicMin on them is exact; best_pos is an int64 atomicMin; every
 // float64 operation is an explicit round-to-nearest intrinsic in the plain
 // steps' order (nvcc contracts a * b + c into an FMA by default); the merge
-// chains' ends are a fixpoint, which the plain steps' ceil(log2 C) jumps
-// also reach.
+// chains' ends are each chain followed to the center whose target is
+// itself, which the plain steps' ceil(log2 C) jumps also reach; the kept
+// centers' new slots are an exclusive scan of integer counts.
 //
 // Bound: bytes, and for pb_band the integer operations of man and dot as
 // much. An iteration must read the members' rows twice (the band's
@@ -60,8 +62,11 @@
 // positives in the tile are a 32-bit mask, so the tile adds a center's
 // rows once, an atomic a column, whatever the offsets. A tile whose span
 // of centers does not fit the stage (after merges assign is not monotone)
-// reads the centers through L1 in the same kernel. pb_merge does the
-// merge's C-sized steps in its last block, with no host round trip.
+// reads the centers through L1 in the same kernel. pb_merge stages a
+// tile's slots (moves, rows) once, scans the kept centers across its
+// blocks by a single-pass look-back and compacts them in place; its last
+// block follows only the chains that leave a block, with no host round
+// trip.
 #include "common.cuh"
 
 namespace {
@@ -94,10 +99,12 @@ constexpr int kBandStaged = 0, kBandGlobal = 1, kDistStaged = 2,
 constexpr int kChunkPieces = 32;
 // The columns of a center's sums a lane of pb_dist loads before it divides.
 constexpr int kMeanLoads = 8;
-// Slots of pb_merge's scratch (ops/phase_b.py: scratch_len): its ticket,
-// then c_new (the moved centers), T (the chains' ends) and NP (the kept
-// centers' new slots), C int64 each.
-constexpr int kTicket = 0, kScratchHead = 1;
+// Slots of pb_merge's scratch (ops/phase_b.py: scratch_len): the last
+// block's ticket, the tiles' ticket and the count of listed chains, then
+// NP (the kept centers' new slots), the list of merged centers whose chain
+// leaves their tile, and a look-back descriptor a tile, C int64 each; all
+// zero between launches but NP and the list.
+constexpr int kTicket = 0, kTiles = 1, kMerged = 2, kScratchHead = 3;
 // DBL_MIN, the floor of the merge's best f1 (Trainer.cpp:132-135).
 constexpr double kDblMin = 2.2250738585072014e-308;
 
@@ -134,49 +141,6 @@ __device__ void stage_model(double* model, const int* spec_g, int n_spec,
   int* spec = reinterpret_cast<int*>(model + n_coef);
   for (int i = threadIdx.x; i < n_coef; i += blockDim.x) model[i] = coef_g[i];
   for (int i = threadIdx.x; i < n_spec; i += blockDim.x) spec[i] = spec_g[i];
-}
-
-// man and dot of row a against row b over the group of `lanes` lanes (in
-// every lane of the group): nv pieces of VEC bytes. Short rows (nv <=
-// lanes) pass b's piece, which the caller holds in a register; long rows
-// (lanes = 32) read both rows' pieces. (pb_merge.)
-template <typename T, int VEC>
-__device__ __forceinline__ void pair_sums(const char* a_row,
-                                          const char* b_row,
-                                          const Piece<VEC>& b_piece, bool ok,
-                                          int nv, int sub, int lanes, i64& man,
-                                          i64& dot) {
-  typedef typename Acc<T>::type A;
-  if (nv <= lanes) {
-    Piece<VEC> a = {};
-    if (ok && sub < nv) a = load_center<VEC>(a_row + sub * VEC);
-    A m = 0, d = 0;
-    add_piece<T, VEC>(a, b_piece, m, d);
-    man = group_sum(m, lanes);
-    dot = group_sum(d, lanes);
-    return;
-  }
-  i64 m64 = 0, d64 = 0;
-  for (int p = sub; p < nv; p += 32) {
-    Piece<VEC> a = {}, b = {};
-    if (ok) {
-      a = load_center<VEC>(a_row + static_cast<i64>(p) * VEC);
-      b = load_center<VEC>(b_row + static_cast<i64>(p) * VEC);
-    }
-    A m = 0, d = 0;
-    add_piece<T, VEC>(a, b, m, d);
-    m64 += m;
-    d64 += d;
-  }
-  man = group_sum(m64, 32);
-  dot = group_sum(d64, 32);
-}
-
-// The lanes a row's pieces take: a power of two, at least nv up to 32.
-__device__ __forceinline__ int row_lanes(int nv) {
-  int lanes = 1;
-  while (lanes < nv && lanes < 32) lanes <<= 1;
-  return lanes;
 }
 
 // ---------------------------------------------------------------------------
@@ -635,9 +599,11 @@ pb_band_kernel(const char* __restrict__ rows, i64 pitch,
 // rows' dtype (as common.cuh:tile_dist does) and sums cw; then a thread a
 // positive pair (member and offset from the pair's number: the scan, then
 // the member's bits) takes 2 sum min(h, cw) from shared memory (byte SIMD
-// for int8), d = 10000 (1 - frac^2) in the plain chain, d into dstore and
-// into its center's least in shared memory (a 64-bit atomicMin on the
-// bits of non-negative doubles); then one atomicMin a center into best_d.
+// for int8), d = 10000 (1 - frac^2) in the plain chain, d into dstore
+// (offset-major, [2 delta + 1, M]: pb_pick's warps read a row's doubles
+// side by side) and into its center's least in shared memory (a 64-bit
+// atomicMin on the bits of non-negative doubles); then one atomicMin a
+// center into best_d.
 // On the global path a positive divides its center's mean column by column
 // itself and takes best_d's atomicMin directly.
 template <typename T, int VEC>
@@ -655,7 +621,6 @@ pb_dist_kernel(const char* __restrict__ rows, i64 pitch, int V, int length,
   __shared__ int first[kTile + 1];    // member t's pairs: first[t] .. [t + 1]
   __shared__ int span_lo, span_hi;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = 2 * delta + 1;
   const i64 Vp = static_cast<i64>(V) + 1;
   const TileSmem L = tile_smem(0, spitch, cap, false);
   char* mrow = smem + L.mrow;
@@ -815,7 +780,7 @@ pb_dist_kernel(const char* __restrict__ rows, i64 pitch, int V, int length,
                                   __dadd_rn(mmag[t], cw_total));
     const double d =
         __dmul_rn(10000.0, __dsub_rn(1.0, __dmul_rn(frac, frac)));
-    dstore[m * K + oi] = d;
+    dstore[oi * static_cast<i64>(M) + m] = d;
     const u64 key = static_cast<u64>(__double_as_longlong(d));
     if (staged)
       atomicMin(least + (jc - lo), key);
@@ -838,29 +803,60 @@ pb_dist_kernel(const char* __restrict__ rows, i64 pitch, int V, int length,
 // pb_pick
 // ---------------------------------------------------------------------------
 
-// A thread a member: each positive whose d equals its center's least puts
-// the member's pool position into best_pos[center] (int64 atomicMin). The
-// grid also zeroes sc (sc_len int64) for the next band.
+// Two kinds of blocks in one launch, interleaved (zero, tie, zero, tie, ...
+// while both last). A zero block clears sc for the next band, a warp a
+// row: only the rows pb_band touched (count sc[c, V] > 0; every row it
+// added into holds a count, so the others are zero throughout); lane 0
+// reads the count before any lane stores, then 16-byte stores (a row is 8
+// (V + 1) bytes, so every other row starts 8 bytes past a 16-byte
+// boundary: its head word, and a tail word where one is left, are stored
+// alone). A tie block takes a member a thread: each positive whose d
+// (dstore, offset-major: a warp's members at one offset read adjacent
+// doubles) equals its center's least puts the member's pool position into
+// best_pos[center] (int64 atomicMin). The stores do not wait behind the
+// ties' dependent loads and atomics.
 __global__ void __launch_bounds__(kThreads)
 pb_pick_kernel(int M, const i64* __restrict__ assign, int delta, int W,
                const unsigned* __restrict__ bits,
                const double* __restrict__ dstore,
                const double* __restrict__ best_d, i64* __restrict__ best_pos,
-               i64 goff, i64* __restrict__ sc, i64 sc_len) {
-  const i64 gid = blockIdx.x * static_cast<i64>(kThreads) + threadIdx.x;
-  const i64 stride = static_cast<i64>(gridDim.x) * kThreads;
-  for (i64 e = gid; e < sc_len; e += stride) sc[e] = 0;
-  if (gid >= M) return;
-  const int K = 2 * delta + 1;
-  const i64 a = assign[gid];
+               i64 goff, i64* __restrict__ sc, int C, int V, int zero_blocks,
+               int tie_blocks) {
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const int both = zero_blocks < tie_blocks ? zero_blocks : tie_blocks;
+  const bool zero = b < 2 * both ? (b & 1) == 0 : zero_blocks > tie_blocks;
+  const int idx = b < 2 * both ? b >> 1 : b - both;
+  if (zero) {
+    const int lane = tid & 31;
+    const i64 Vp = static_cast<i64>(V) + 1;
+    for (i64 c = static_cast<i64>(idx) * kWarps + (tid >> 5); c < C;
+         c += static_cast<i64>(zero_blocks) * kWarps) {
+      i64* row = sc + c * Vp;
+      i64 count = 0;
+      if (lane == 0) count = row[V];
+      if (__shfl_sync(0xffffffffu, count, 0) == 0) continue;
+      const int head = static_cast<int>((reinterpret_cast<u64>(row) >> 3) & 1);
+      const i64 pairs = (Vp - head) >> 1;
+      if (lane == 0) {
+        if (head) row[0] = 0;
+        if ((Vp - head) & 1) row[Vp - 1] = 0;
+      }
+      longlong2* body = reinterpret_cast<longlong2*>(row + head);
+      for (i64 p = lane; p < pairs; p += 32) body[p] = make_longlong2(0, 0);
+    }
+    return;
+  }
+  const i64 m = static_cast<i64>(idx) * kThreads + tid;
+  if (m >= M) return;
+  const i64 a = assign[m];
   for (int w = 0; w < W; ++w) {
-    unsigned word = bits[gid * W + w];
+    unsigned word = bits[m * W + w];
     while (word) {
       const int oi = 32 * w + __ffs(word) - 1;
       word &= word - 1;
       const i64 jc = a + oi - delta;
-      if (dstore[gid * K + oi] == best_d[jc])
-        atomicMin(reinterpret_cast<long long*>(best_pos + jc), goff + gid);
+      if (dstore[oi * static_cast<i64>(M) + m] == best_d[jc])
+        atomicMin(reinterpret_cast<long long*>(best_pos + jc), goff + m);
     }
   }
 }
@@ -869,29 +865,140 @@ pb_pick_kernel(int M, const i64* __restrict__ assign, int delta, int W,
 // pb_merge
 // ---------------------------------------------------------------------------
 
-// The center a slot holds after the move: its best member where it has one
-// and is valid.
-__device__ __forceinline__ i64 moved(i64 j, const i64* best_pos,
-                                     const i64* m_all, i64 M_all,
-                                     const i64* c_idx,
-                                     const uint8_t* c_valid) {
-  const i64 bp = best_pos[j];
-  return bp < M_all && c_valid[j] ? m_all[bp] : c_idx[j];
+// A tile's look-back descriptor (pb_merge's scratch, one a tile): its kept
+// centers (bits 0-30) and its valid ones (bits 31-61), counted over the
+// tile alone (kAggregate) or over it and every tile before it
+// (kInclusive); 0 until the tile publishes.
+constexpr u64 kAggregate = 1ull << 62, kInclusive = 2ull << 62;
+constexpr u64 kFlags = 3ull << 62, kCountMask = (1ull << 31) - 1;
+// pb_merge's group of lanes a center (a power of two): the lanes split a
+// row's pieces and take the candidates' classifiers in turn, so a block of
+// kThreads takes kWarps * 32 / lanes centers. The launch takes
+// kMergeLanesLarge (one classifier round up to delta 16) where its grid
+// of tiles fits on the card at once, else kMergeLanesSmall (4 times the
+// centers a tile: a quarter of the tiles to wait for).
+constexpr int kMergeLanesSmall = 4;
+constexpr int kMergeLanesLarge = 16;
+// The slots past its own that a tile stages for its candidates (further
+// offsets read their slot from device memory).
+constexpr int kMergeAhead = 64;
+
+// Byte offsets of pb_merge's dynamic shared memory, laid out by the host
+// (its size) and the kernel alike: the classifier's arrays, then per
+// staged slot (the tile's own and up to kMergeAhead after them) the moved
+// center, its mag, sq and length, per own slot its target t and new slot
+// NP, and the staged slots' valid flags.
+struct MergeSmem {
+  i64 cm, mag, sq, len, t, np, valid, bytes;
+};
+
+__host__ __device__ inline MergeSmem merge_smem(i64 model, int per,
+                                                int slots) {
+  MergeSmem s;
+  s.cm = round16(model);
+  s.mag = s.cm + 8 * static_cast<i64>(slots);
+  s.sq = s.mag + 8 * static_cast<i64>(slots);
+  s.len = s.sq + 8 * static_cast<i64>(slots);
+  s.t = s.len + 8 * static_cast<i64>(slots);
+  s.np = s.t + 8 * static_cast<i64>(per);
+  s.valid = s.np + 8 * static_cast<i64>(per);
+  s.bytes = s.valid + slots;
+  return s;
 }
 
-// A group of `lanes` lanes a center i: the moved center's piece in a
-// register, the candidates i + 1 .. i + delta as pb_band walks its offsets
-// (a lane classifies each), then the group takes the first max of f1 over
-// the offsets in order (strict >, from DBL_MIN), and writes t = the target
-// (i when none, or when i is not valid) into t_row and the moved center
-// into c_new. The last block (ticket) then follows each t to its chain's
-// end (T, in place until nothing changes), scans the kept centers (valid,
-// t = i) into their new slots (NP), writes remap = NP[T], moves the kept
-// centers to their slots, zeroes the slots past them and sets c_valid to
-// the dense prefix.
-template <typename T, int VEC>
+// man and dot of a candidate's row a against the center's row b, both in
+// device memory (through L1: a tile's centers meet each row at several
+// offsets), over the group of LANES lanes (in every lane of the group), a
+// lane every LANES-th piece of VEC bytes; Acc<T> sums over kChunkPieces
+// pieces of a lane, 64 bits across them.
+template <typename T, int VEC, int LANES>
+__device__ __forceinline__ void merge_sums(const char* a, const char* b,
+                                           int length, int sub, i64& man,
+                                           i64& dot) {
+  typedef typename Acc<T>::type A;
+  constexpr int kStep = LANES * kChunkPieces;
+  man = 0;
+  dot = 0;
+  const int n = length / VEC;
+  for (int p0 = sub; p0 < n; p0 += kStep) {
+    const int p1 = n < p0 + kStep ? n : p0 + kStep;
+    A m = 0, d = 0;
+    for (int p = p0; p < p1; p += LANES)
+      add_piece<T, VEC>(load_center<VEC>(a + static_cast<i64>(p) * VEC),
+                        load_center<VEC>(b + static_cast<i64>(p) * VEC), m, d);
+    man += m;
+    dot += d;
+  }
+  man = group_sum(man, LANES);
+  dot = group_sum(dot, LANES);
+}
+
+// The sum of the values (the flags cleared) of the descriptors of the
+// tiles before `tile`, by decoupled look-back: the block reads kThreads
+// descriptors at once, back to the nearest inclusive one (before tile 0:
+// an inclusive 0), and reads them again while one between is unpublished.
+// Every thread calls it and gets the sum.
+__device__ u64 look_back(const u64* desc, i64 tile) {
+  __shared__ int first;
+  __shared__ u64 found;
+  const int tid = threadIdx.x;
+  u64 excl = 0;
+  for (i64 hi = tile - 1; hi >= 0;) {
+    const i64 q = hi - tid;
+    const u64 d = q >= 0 ? *reinterpret_cast<const volatile u64*>(desc + q)
+                         : kInclusive;
+    if (tid == 0) first = kThreads;
+    __syncthreads();
+    if ((d & kFlags) == kInclusive) atomicMin(&first, tid);
+    __syncthreads();
+    const int f = first;
+    if (!__syncthreads_and(tid > f || (d & kFlags) != 0)) continue;
+    const i64 part = block_reduce(
+        tid <= f ? static_cast<i64>(d & ~kFlags) : 0ll, Sum());
+    if (tid == 0) found = static_cast<u64>(part);
+    __syncthreads();
+    excl += found;
+    if (f < kThreads) break;
+    hi -= kThreads;
+  }
+  return excl;
+}
+
+// A block a tile of `per` consecutive centers (a group of LANES lanes a
+// center), numbered by a ticket in the order the
+// blocks start, so that a block waits only on blocks that started before
+// it.
+//   Phase 1. A thread a slot of the tile and of the `ahead` after it
+// stages the slot's moved center (its best member where it has one and is
+// valid) and valid flag, each load chain once a slot and all in parallel;
+// then the moved centers' mag, sq and length, all issued together. A
+// group takes a center i: for its candidates i + 1 .. i + delta, as
+// pb_band walks its offsets, man and dot over their rows in device memory
+// (the lanes split the pieces); the lanes
+// classify the candidates in turn (a: the candidate, b: center i), each
+// keeping its first max of f1 (strict >, from DBL_MIN), and the group
+// takes the greatest, the least offset on a tie: the first max over the
+// offsets in order. t = the target (i when none, or when i is not valid).
+//   Phase 2. The tile's kept centers (valid, t = i) and valid ones,
+// scanned; the tile publishes its counts, then, once the look-back gives
+// its prefix, its inclusive counts.
+//   Phase 3. NP[k], each kept center's new slot; remap = NP[T], T the end
+// of k's chain, where the chain ends inside the tile (followed in shared
+// memory); the merged centers whose chain leaves the tile, listed in the
+// scratch; t into t_row; the kept centers moved to their slots in place.
+//   In place is safe: NP[k] <= k, so a block writes slots of its own tile
+// or of earlier ones, which only blocks that started no later read (their
+// own slots and the `ahead` after them); each publishes its counts after
+// its last read of c_idx, c_valid and best_pos (a fence, then a barrier),
+// and a block writes only once its look-back has seen every earlier tile
+// publish.
+//   The last block (ticket) follows the listed chains to their ends,
+// writes their remap = NP[T], and clears the slots from the new kept total
+// to the old (valid centers are a dense prefix of the slots, with c_idx 0
+// past it); on a pass with no merge it does no C-sized work.
+template <typename T, int VEC, int LANES>
 __global__ void __launch_bounds__(kThreads)
-pb_merge_kernel(const char* __restrict__ hist, i64 hpitch, int nv, int C,
+pb_merge_kernel(const char* __restrict__ hist, i64 hpitch, int length, int C,
                 i64* __restrict__ c_idx, uint8_t* __restrict__ c_valid,
                 const i64* __restrict__ best_pos,
                 const i64* __restrict__ m_all, i64 M_all,
@@ -899,97 +1006,179 @@ pb_merge_kernel(const char* __restrict__ hist, i64 hpitch, int nv, int C,
                 const double* __restrict__ lenf,
                 const int* __restrict__ spec_g, int n_spec,
                 const double* __restrict__ coef_g, int n_coef, int delta,
-                i64* __restrict__ t_row, i64* __restrict__ remap,
-                i64* __restrict__ scr) {
-  extern __shared__ double model[];
+                int ahead, i64* __restrict__ t_row,
+                i64* __restrict__ remap, i64* __restrict__ scr) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ i64 tile_s;
+  constexpr int per = kWarps * (32 / LANES);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  i64* c_new = scr + kScratchHead;
-  i64* Tc = c_new + C;
-  i64* NP = Tc + C;
+  const int sub = lane & (LANES - 1), grp = lane / LANES;
+  const int slots = per + ahead;
+  const MergeSmem L = merge_smem(
+      n_coef * static_cast<i64>(sizeof(double)) + n_spec * 4, per, slots);
+  double* model = reinterpret_cast<double*>(smem);
+  i64* cm = reinterpret_cast<i64*>(smem + L.cm);
+  double* smag = reinterpret_cast<double*>(smem + L.mag);
+  double* ssq = reinterpret_cast<double*>(smem + L.sq);
+  double* slen = reinterpret_cast<double*>(smem + L.len);
+  i64* st = reinterpret_cast<i64*>(smem + L.t);
+  i64* snp = reinterpret_cast<i64*>(smem + L.np);
+  uint8_t* sv = reinterpret_cast<uint8_t*>(smem + L.valid);
+  i64* NP = scr + kScratchHead;
+  i64* list = NP + C;
+  u64* desc = reinterpret_cast<u64*>(list + C);
+  if (tid == 0)
+    tile_s = static_cast<i64>(
+        atomicAdd(reinterpret_cast<u64*>(scr + kTiles), 1ull));
   stage_model(model, spec_g, n_spec, coef_g, n_coef);
   const double* coef = model;
   const int* spec = reinterpret_cast<const int*>(model + n_coef);
   __syncthreads();
-  const int lanes = row_lanes(nv);
-  const int sub = lane & (lanes - 1), grp = lane / lanes;
-  const int groups = 32 / lanes;
-  const i64 i = blockIdx.x * static_cast<i64>(kWarps * groups) +
-                warp * groups + grp;
+  const i64 tile = tile_s, base = tile * per;
+  const int n_slots =
+      C - base < slots ? static_cast<int>(C - base) : slots;
+  for (int r = tid; r < n_slots; r += kThreads) {
+    const i64 j = base + r;
+    const bool v = c_valid[j];
+    const i64 bp = best_pos[j], cj = c_idx[j];
+    cm[r] = bp < M_all && v ? m_all[bp] : cj;
+    sv[r] = v;
+  }
+  __syncthreads();
+  for (int r = tid; r < n_slots; r += kThreads) {
+    const i64 c = cm[r];
+    smag[r] = mag[c];
+    ssq[r] = sq[c];
+    slen[r] = lenf[c];
+  }
+  __syncthreads();
+
+  const int li = warp * (32 / LANES) + grp;
+  const i64 i = base + li;
   const bool have = i < C;
-  const bool vi = have && c_valid[i];
-  const i64 ci =
-      have ? moved(i, best_pos, m_all, M_all, c_idx, c_valid) : 0;
-  const char* b_row = hist + ci * hpitch;
-  Piece<VEC> b = {};
-  if (nv <= lanes && have && sub < nv) b = load_center<VEC>(b_row + sub * VEC);
-  const double mag_b = mag[ci], sq_b = sq[ci], len_b = lenf[ci];
+  const bool vi = have && sv[li];
+  const char* b_row = hist + (have ? cm[li] : 0) * hpitch;
+  const double mag_b = have ? smag[li] : 0.0, sq_b = have ? ssq[li] : 0.0,
+               len_b = have ? slen[li] : 0.0;
   double best_f1 = kDblMin;
-  i64 best_t = i;
-  i64 my_man = 0, my_dot = 0, my_a = -1;
-  for (int oi = 0; oi < delta; ++oi) {
-    const i64 j = i + oi + 1;
-    const bool ok = vi && j < C && c_valid[j];
-    const i64 cj = ok ? moved(j, best_pos, m_all, M_all, c_idx, c_valid) : 0;
-    i64 man, dot;
-    pair_sums<T, VEC>(hist + cj * hpitch, b_row, b, ok, nv, sub, lanes, man,
-                      dot);
-    const int at = oi & (lanes - 1);
-    if (sub == at) {
-      my_man = man;
-      my_dot = dot;
-      my_a = ok ? cj : -1;
+  int best_o = delta;
+  for (int o0 = 0; o0 < delta; o0 += LANES) {
+    // the lanes' sums of LANES offsets; lane o - o0 keeps offset o's
+    i64 my_man = 0, my_dot = 0, my_c = -1;
+    int my_r = -1;
+    for (int u = 0; u < LANES && o0 + u < delta; ++u) {
+      const i64 j = i + o0 + u + 1;
+      const int r = static_cast<int>(j - base);
+      i64 c = 0;
+      bool ok = vi && j < C;
+      if (ok && r < slots) {
+        c = cm[r];
+        ok = sv[r] != 0;
+      } else if (ok) {
+        const bool v = c_valid[j];
+        const i64 bp = best_pos[j];
+        c = bp < M_all && v ? m_all[bp] : c_idx[j];
+        ok = v;
+      }
+      i64 man, dot;
+      merge_sums<T, VEC, LANES>(hist + c * hpitch, b_row, ok ? length : 0,
+                                sub, man, dot);
+      if (sub == u && ok) {
+        my_man = man;
+        my_dot = dot;
+        my_c = c;
+        my_r = r < slots ? r : -1;
+      }
     }
-    if (at != lanes - 1 && oi != delta - 1) continue;
-    bool pos = false;
-    double f1 = 0.0;
-    if (sub <= at && my_a >= 0)
-      pos = classify(spec, coef, static_cast<double>(my_man),
-                     static_cast<double>(my_dot), mag[my_a], mag_b, sq[my_a],
-                     sq_b, lenf[my_a], len_b, &f1);
-    for (int l = 0; l < lanes; ++l) {
-      const int src = grp * lanes + l;
-      const int pl = __shfl_sync(0xffffffffu, static_cast<int>(pos), src);
-      const double fl = __shfl_sync(0xffffffffu, f1, src);
-      if (l <= at && pl && fl > best_f1) {
-        best_f1 = fl;
-        best_t = i + (oi - at + l) + 1;
+    if (my_c >= 0) {
+      double f1;
+      const bool pos = classify(
+          spec, coef, static_cast<double>(my_man), static_cast<double>(my_dot),
+          my_r >= 0 ? smag[my_r] : mag[my_c], mag_b,
+          my_r >= 0 ? ssq[my_r] : sq[my_c], sq_b,
+          my_r >= 0 ? slen[my_r] : lenf[my_c], len_b, &f1);
+      if (pos && f1 > best_f1) {
+        best_f1 = f1;
+        best_o = o0 + sub;
       }
     }
   }
-  if (have && sub == 0) {
-    t_row[i] = vi ? best_t : i;
-    c_new[i] = ci;
+#pragma unroll
+  for (int s = LANES >> 1; s; s >>= 1) {
+    const double f = __shfl_xor_sync(0xffffffffu, best_f1, s);
+    const int o = __shfl_xor_sync(0xffffffffu, best_o, s);
+    if (f > best_f1 || (f == best_f1 && o < best_o)) {
+      best_f1 = f;
+      best_o = o;
+    }
+  }
+  if (have && sub == 0) st[li] = vi && best_o < delta ? i + best_o + 1 : i;
+  __syncthreads();
+
+  // phase 2, a thread an own slot: kept counted in the scan's low 16 bits,
+  // valid in its high
+  const i64 k = base + tid;
+  const bool own = tid < per && k < C;
+  const bool kept = own && sv[tid] && st[tid] == k;
+  int total;
+  const int incl =
+      block_scan((own && sv[tid] ? 1 << 16 : 0) | (kept ? 1 : 0), &total);
+  const u64 agg = static_cast<u64>(total & 0xffff) |
+                  (static_cast<u64>(total >> 16) << 31);
+  __threadfence();                    // the last reads of c_idx, c_valid
+  __syncthreads();                    // and best_pos, before the counts
+  if (tid == 0 && tile > 0)
+    atomicExch(reinterpret_cast<u64*>(desc + tile), kAggregate | agg);
+  const u64 excl = look_back(desc, tile);
+  __threadfence();                    // the earlier tiles' counts seen
+  if (tid == 0)
+    atomicExch(reinterpret_cast<u64*>(desc + tile), kInclusive | (excl + agg));
+
+  // phase 3: NP of k (the kept centers up to k, less one) where k ends a
+  // chain: kept, or not valid (its own end, as the plain merge's remap)
+  const i64 np = static_cast<i64>(excl & kCountMask) + (incl & 0xffff) - 1;
+  if (kept) {
+    snp[tid] = np;
+    NP[k] = np;
+  }
+  __syncthreads();
+  if (own) {
+    i64 x = st[tid];
+    t_row[k] = x;
+    while (x < base + per && st[x - base] != x) x = st[x - base];
+    if (x == k)
+      remap[k] = np;
+    else if (x < base + per)
+      remap[k] = snp[x - base];
+    else
+      list[atomicAdd(reinterpret_cast<u64*>(scr + kMerged), 1ull)] = k;
+    if (kept) {
+      c_idx[np] = cm[tid];
+      c_valid[np] = 1;
+    }
   }
   if (!last_block(scr + kTicket, gridDim.x)) return;
 
-  for (int k = tid; k < C; k += kThreads) Tc[k] = __ldcg(t_row + k);
-  __syncthreads();
-  for (;;) {
-    int changed = 0;
-    for (int k = tid; k < C; k += kThreads) {
-      const i64 a = Tc[k], e = Tc[a];
-      if (e != a) {
-        Tc[k] = e;
-        changed = 1;
-      }
-    }
-    if (!__syncthreads_or(changed)) break;
+  const u64 all = static_cast<u64>(
+      __ldcg(reinterpret_cast<const i64*>(desc) + gridDim.x - 1));
+  const i64 kept_total = static_cast<i64>(all & kCountMask);
+  const i64 valid_total = static_cast<i64>((all >> 31) & kCountMask);
+  for (i64 s = kept_total + tid; s < valid_total; s += kThreads) {
+    c_idx[s] = 0;
+    c_valid[s] = 0;
   }
-  int kept_total = 0;
-  for (int k0 = 0; k0 < C; k0 += kThreads) {
-    const int k = k0 + tid;
-    const int kept = k < C && c_valid[k] && __ldcg(t_row + k) == k;
-    int total;
-    const int incl = block_scan(kept, &total);
-    if (k < C) NP[k] = kept_total + incl - 1;
-    kept_total += total;
+  const i64 n = __ldcg(scr + kMerged);
+  for (i64 q = tid; q < n; q += kThreads) {
+    const i64 km = __ldcg(list + q);
+    i64 x = __ldcg(t_row + km);
+    for (i64 y = __ldcg(t_row + x); y != x; y = __ldcg(t_row + x)) x = y;
+    remap[km] = __ldcg(NP + x);
   }
-  __syncthreads();
-  for (int k = tid; k < C; k += kThreads) {
-    remap[k] = NP[Tc[k]];
-    if (NP[k] != (k ? NP[k - 1] : -1)) c_idx[NP[k]] = __ldcg(c_new + k);
-    if (k >= kept_total) c_idx[k] = 0;
-    c_valid[k] = k < kept_total;
+  for (i64 q = tid; q < static_cast<i64>(gridDim.x); q += kThreads)
+    desc[q] = 0;
+  if (tid == 0) {
+    scr[kMerged] = 0;
+    scr[kTiles] = 0;
   }
 }
 
@@ -1147,16 +1336,67 @@ extern "C" int mc_pb_dist(const void* rows, long long stride, int V,
 extern "C" int mc_pb_pick(int M, const void* assign, int delta,
                           const void* bits, const void* dstore,
                           const void* best_d, void* best_pos, long long goff,
-                          void* sc, long long sc_len, void* stream) {
-  pb_pick_kernel<<<thread_blocks(M), kThreads, 0,
+                          void* sc, int C, int V, void* stream) {
+  // a warp a row of sc in the zero blocks, a thread a member in the others
+  const int zero_blocks = C > 0 ? (C + kWarps - 1) / kWarps : 0;
+  const int tie_blocks = thread_blocks(M);
+  pb_pick_kernel<<<zero_blocks + tie_blocks, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       M, static_cast<const i64*>(assign), delta, words(delta),
       static_cast<const unsigned*>(bits), static_cast<const double*>(dstore),
       static_cast<const double*>(best_d), static_cast<i64*>(best_pos), goff,
-      static_cast<i64*>(sc), sc_len);
+      static_cast<i64*>(sc), C, V, zero_blocks, tie_blocks);
   return cudaGetLastError();
 }
 
+// One launch of pb_merge at LANES lanes a center; its grid's tiles, and,
+// with fits, only whether the card holds them all at once (no launch).
+template <typename T, int VEC, int LANES>
+static int launch_merge_at(cudaStream_t s, const void* hist, i64 hpitch,
+                           i64 length, int C, void* c_idx, void* c_valid,
+                           const void* best_pos, const void* m_all,
+                           long long M_all, const void* mag, const void* sq,
+                           const void* lenf, const void* spec, int n_spec,
+                           const void* coef, int n_coef, int delta,
+                           void* t_row, void* remap, void* scratch,
+                           bool* fits) {
+  constexpr int per = kWarps * (32 / LANES);
+  const int ahead = delta < kMergeAhead ? delta : kMergeAhead;
+  const int slots = per + ahead;
+  const i64 bytes = merge_smem(model_bytes(n_spec, n_coef), per, slots).bytes;
+  const int tiles = (C + per - 1) / per;
+  if (fits != nullptr) {
+    // the card's resident blocks at these shared bytes, queried once
+    static i64 seen = -1;
+    static int resident = 0;
+    if (bytes != seen) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      allow_smem(pb_merge_kernel<T, VEC, LANES>, bytes);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, pb_merge_kernel<T, VEC, LANES>, kThreads, bytes);
+      seen = bytes;
+      resident = sms * per_sm;
+    }
+    *fits = tiles <= resident;
+    return cudaGetLastError();
+  }
+  allow_smem(pb_merge_kernel<T, VEC, LANES>, bytes);
+  pb_merge_kernel<T, VEC, LANES><<<tiles, kThreads, bytes, s>>>(
+      static_cast<const char*>(hist), hpitch, static_cast<int>(length), C,
+      static_cast<i64*>(c_idx), static_cast<uint8_t*>(c_valid),
+      static_cast<const i64*>(best_pos), static_cast<const i64*>(m_all),
+      M_all, static_cast<const double*>(mag), static_cast<const double*>(sq),
+      static_cast<const double*>(lenf), static_cast<const int*>(spec),
+      n_spec, static_cast<const double*>(coef), n_coef, delta, ahead,
+      static_cast<i64*>(t_row), static_cast<i64*>(remap),
+      static_cast<i64*>(scratch));
+  return cudaGetLastError();
+}
+
+// kMergeLanesLarge where its tiles all fit on the card at once, else
+// kMergeLanesSmall.
 template <typename T, int VEC>
 static int launch_merge(cudaStream_t s, const void* hist, i64 hpitch,
                         i64 length, int C, void* c_idx, void* c_valid,
@@ -1165,21 +1405,20 @@ static int launch_merge(cudaStream_t s, const void* hist, i64 hpitch,
                         const void* lenf, const void* spec, int n_spec,
                         const void* coef, int n_coef, int delta, void* t_row,
                         void* remap, void* scratch) {
-  const int nv = static_cast<int>(length / VEC);
-  int lanes = 1;
-  while (lanes < nv && lanes < 32) lanes <<= 1;
-  const int per_block = kWarps * (32 / lanes);
-  pb_merge_kernel<T, VEC><<<(C + per_block - 1) / per_block, kThreads,
-                            model_bytes(n_spec, n_coef), s>>>(
-      static_cast<const char*>(hist), hpitch, nv, C, static_cast<i64*>(c_idx),
-      static_cast<uint8_t*>(c_valid), static_cast<const i64*>(best_pos),
-      static_cast<const i64*>(m_all), M_all, static_cast<const double*>(mag),
-      static_cast<const double*>(sq), static_cast<const double*>(lenf),
-      static_cast<const int*>(spec), n_spec,
-      static_cast<const double*>(coef), n_coef, delta,
-      static_cast<i64*>(t_row), static_cast<i64*>(remap),
-      static_cast<i64*>(scratch));
-  return cudaGetLastError();
+  bool large = false;
+  const int err = launch_merge_at<T, VEC, kMergeLanesLarge>(
+      s, hist, hpitch, length, C, c_idx, c_valid, best_pos, m_all, M_all,
+      mag, sq, lenf, spec, n_spec, coef, n_coef, delta, t_row, remap,
+      scratch, &large);
+  if (err != cudaSuccess) return err;
+  return large ? launch_merge_at<T, VEC, kMergeLanesLarge>(
+                     s, hist, hpitch, length, C, c_idx, c_valid, best_pos,
+                     m_all, M_all, mag, sq, lenf, spec, n_spec, coef, n_coef,
+                     delta, t_row, remap, scratch, nullptr)
+               : launch_merge_at<T, VEC, kMergeLanesSmall>(
+                     s, hist, hpitch, length, C, c_idx, c_valid, best_pos,
+                     m_all, M_all, mag, sq, lenf, spec, n_spec, coef, n_coef,
+                     delta, t_row, remap, scratch, nullptr);
 }
 
 extern "C" int mc_pb_merge(const void* hist, long long hstride, int V,

@@ -12,10 +12,11 @@ _build_phaseb). An iteration is
                   member), a bit a positive, and the positive rows and
                   their count added into sc [C, V + 1] (int64);
   dist(pb)        for each positive: cw = floor(sums / max(count, 1)),
-                  distance_d to the mean (in dstore) and each center's
-                  least (best_d);
+                  distance_d to the mean (in dstore, offset-major) and
+                  each center's least (best_d);
   pick(pb)        each center's least pool position among its positives at
-                  that least d (best_pos); sc zeroed for the next band;
+                  that least d (best_pos); sc zeroed for the next band (the
+                  kernel clears the rows band touched, those with a count);
 and, in the fused loop,
   merge(pb, it)   the move, the merge (t_hist[it]), the chains' ends, the
                   compaction of the kept centers and remap.
@@ -53,10 +54,13 @@ STAGE_BYTES = 49152
 SPAN_ROWS = 32
 # The bits of a word of pb_band's positives (2 delta + 1 bits a member).
 WORD_BITS = 32
-# pb_merge's scratch: its ticket, then c_new, T and NP, C int64 each
-# (kTicket, kScratchHead).
+# pb_merge's scratch: the last block's ticket, the tiles' ticket and the
+# count of listed chains, then NP, the list and a look-back descriptor a
+# tile, C int64 each (kTicket, kTiles, kMerged, kScratchHead).
 TICKET = 0
-SCRATCH_HEAD = 1
+TILES = 1
+MERGED = 2
+SCRATCH_HEAD = 3
 # State.paths: the tiles pb_band and pb_dist ran on each path (kBandStaged,
 # kBandGlobal, kDistStaged, kDistGlobal).
 PATHS = ("band_staged", "band_global", "dist_staged", "dist_global")
@@ -115,9 +119,11 @@ class State:
     (ops/phase_a.Model). The centers: c_idx [C], c_valid [C] bool, remap
     [C] (identity at first) and t_hist [iterations, C]. Per iteration:
     assign [M], bits [M, words(delta)] int32, sc [C, V + 1] int64 (zero
-    between iterations), dstore [M, 2 delta + 1] float64 (d of the
-    positives), best_d [C] float64, best_pos [C] int64 and pb_merge's
-    scratch. The constructor checks what every kernel takes."""
+    between iterations), dstore [2 delta + 1, M] float64 (d of the
+    positives, offset-major: dstore[oi, m] is member m's at offset index
+    oi), best_d [C] float64, best_pos [C] int64 and pb_merge's scratch.
+    The valid centers are a dense prefix of c_idx, with c_idx 0 past it
+    (the merge keeps it so; pb_merge's last block relies on it). The constructor checks what every kernel takes."""
 
     def __init__(self, model: Model, hist, mag, sq, lenf, rows, m_idx,
                  m_valid: Optional[torch.Tensor], m_all, goff: int, assign,
@@ -171,7 +177,7 @@ class State:
         self.bits = torch.zeros((M, words(delta)), dtype=torch.int32,
                                 device=dev)
         self.sc = torch.zeros((C, V + 1), **i64)
-        self.dstore = torch.zeros((M, 2 * delta + 1), dtype=torch.float64,
+        self.dstore = torch.zeros((2 * delta + 1, M), dtype=torch.float64,
                                   device=dev)
         self.best_d = torch.empty(C, dtype=torch.float64, device=dev)
         self.best_pos = torch.empty(C, **i64)
@@ -257,7 +263,7 @@ def band_plain(pb: State) -> None:
 def dist(pb: State) -> None:
     """cw = floor(sums / max(count, 1)) (mean_floor); for each positive of
     member m at offset index oi, d = 10000 * (1 - frac^2), frac = 2 * sum
-    min(h_m, cw) / (mag_m + sum cw), into dstore[m, oi] (other entries as
+    min(h_m, cw) / (mag_m + sum cw), into dstore[oi, m] (other entries as
     they were), and best_d[jc] = the least d of jc's positives."""
     if pb.on_cpu:
         return dist_plain(pb)
@@ -288,7 +294,7 @@ def dist_plain(pb: State) -> None:
         frac = dist_.to(torch.float64) / (mag_m + cw_sum[jc])
         # two roundings, as mean_select: no FMA
         d = 10000.0 * (1.0 - frac * frac)
-        pb.dstore[:, oi] = torch.where(pos, d, pb.dstore[:, oi])
+        pb.dstore[oi] = torch.where(pos, d, pb.dstore[oi])
         pb.best_d.scatter_reduce_(0, jc, torch.where(pos, d, float("inf")),
                                   reduce="amin")
 
@@ -298,13 +304,15 @@ def dist_plain(pb: State) -> None:
 def pick(pb: State) -> None:
     """best_pos[jc] = the least pool position goff + m among jc's
     positives whose d is best_d[jc] (as it was: M_all for none); sc
-    zeroed."""
+    zeroed (the kernel clears only the rows with a count: band adds a
+    count to every row it touches)."""
     if pb.on_cpu:
         return pick_plain(pb)
+    C, Vp = pb.sc.shape
     _launched(_ext.lib().mc_pb_pick(
         pb.rows.shape[0], pb.assign.data_ptr(), pb.delta, pb.bits.data_ptr(),
         pb.dstore.data_ptr(), pb.best_d.data_ptr(), pb.best_pos.data_ptr(),
-        pb.goff, pb.sc.data_ptr(), pb.sc.numel(), _ext.stream_of(pb.hist)),
+        pb.goff, pb.sc.data_ptr(), C, Vp - 1, _ext.stream_of(pb.hist)),
         "pb_pick")
 
 
@@ -316,7 +324,7 @@ def pick_plain(pb: State) -> None:
     pool_pos = pb.goff + torch.arange(M, device=pb.assign.device)
     for oi, o in enumerate(range(-pb.delta, pb.delta + 1)):
         jc = (pb.assign + o).clamp(0, C - 1)
-        tie = (pb.dstore[:, oi] == pb.best_d[jc]) & _bit(pb, oi)
+        tie = (pb.dstore[oi] == pb.best_d[jc]) & _bit(pb, oi)
         pb.best_pos.scatter_reduce_(0, jc, torch.where(tie, pool_pos, M_all),
                                     reduce="amin")
     pb.sc.zero_()

@@ -67,7 +67,9 @@ Parts (default: throughput,busy):
               model, each Phase A kernel's device ms a launch under the
               profiler (first PROFILE_CENTERS centers), its launches in
               the run, its bound (chip_smoke.py:phase_a_traffic over the
-              same centers) and its loss, launches x (ms - bound); and one
+              same centers) and its loss, launches x (ms - bound), with
+              the mesh path's move (pa_member_dist, pa_mean_argmin)
+              launched on one rank's shapes over the same centers; and one
               whole Phase A with an iteration's host wall split into the
               wrappers' checks, the ctypes calls, the readback's wait and
               the rest. Up to 150k reads also: the busy share of a
@@ -108,28 +110,38 @@ Parts (default: throughput,busy):
               run's data), share and loss over a run, launches x (ms -
               bound); the tiles pb_band and pb_dist ran on each path;
               pb_band's yardstick (one index_add_ of its positive rows)
-              and pb_pick's (one scatter_reduce_ of its ties' positions).
-  pbvariants  pb_band and pb_dist of an earlier csrc/phase_b.cu (--parent
-              DIR holding it and its common.cuh, e.g. from `git show
-              HEAD~1:...`) beside this tree's, and probes of the earlier
-              pb_band that each remove one cost (@noclassify: the positives
-              read back from the last launch's bits in place of the
-              classifier; @noadds: no adds of a run's rows into sc;
-              @nolists: no lists of positives and no adds), built under
-              build/pbvariants/, at each read count of --sizes on Phase A's
-              centers of one run: each build's device ms a launch (CUDA
-              events around each launch, all queued behind a sleeping
-              kernel), in turns (the earlier one, this, the probes, then
-              back), and the bits each wrote equal to this tree's; also
-              this tree's pb_band probed the same way (@this-noclassify,
-              @this-nosums) and built with other constants (NAME=VALUE).
+              and pb_pick's (one scatter_reduce_ of its ties' positions);
+              then the same centers each split in two
+              (chip_smoke.split_centers, which merge): the loop against
+              the plain steps', each kernel's device ms, pb_merge's at
+              each iteration and its mean against the unsplit input's.
+  pbvariants  the four Phase B kernels of an earlier csrc/phase_b.cu
+              (--parent DIR holding it and its common.cuh, e.g. from `git
+              show HEAD~1:...`) beside this tree's, at each read count of
+              --sizes on Phase A's centers of one run: each build's device
+              ms a launch over iterations of band, dist, pick and merge on
+              one State (CUDA events around each launch, all queued behind
+              a sleeping kernel), in turns (the earlier one, this, this,
+              the earlier one), their outputs equal; then the earlier
+              pb_pick and pb_merge alone, repeated on a State after one
+              real iteration, beside probes built under build/pbvariants/
+              that each remove one cost and keep the outputs
+              (@pick-nozero: no zeroing of sc; @pick-nodstore: the ties
+              read back from the last launch's best_pos, no dstore read;
+              @merge-notail: no last-block tail; @merge-staged: phase 1's
+              moved centers read with one load from the last launch's
+              scratch, no chain); this tree's probes and constants
+              (PB_THIS_VARIANTS) are timed in the turns, and
+              @this-merge-stamps' clock64 stamps split pb_merge by phase
+              (merge_phases).
   walls       whole k-mer runs (--id 0.90) at each read count of --sizes
               against an earlier commit's tree (--parent-tree DIR, e.g.
               `git archive HEAD~1 | tar -x -C build/parent_tree`), in
-              turns (parent, this, this, parent), each a child process in
-              its tree's root that warms up on the 15k corpus first: wall,
-              phases, NMI against the planted species and CLSTR digest
-              (equal across the turns).
+              turns (parent, this, this, parent, twice), each a child
+              process in its tree's root that warms up on the 15k corpus
+              first: wall, phases, NMI against the planted species and
+              CLSTR digest (equal across the turns); then each tree's
+              least, median and greatest wall and phase.
   ranks       several ranks (parallel/dist), for each n of --ranks: n
               ranks (gloo where they share a card, NCCL where each has its
               own) time each collective at the 15k k-mer run's shapes (a
@@ -282,7 +294,9 @@ def phase_a_kernels(ps, bv, params, launches: dict,
     """Each Phase A kernel's device ms a launch under the profiler over the
     first PROFILE_CENTERS centers, its launches in a whole run, its bound
     (chip_smoke.py:phase_a_traffic over the same centers, unless given),
-    the share of it, and the run's loss: launches x (ms - bound)."""
+    the share of it, and the run's loss: launches x (ms - bound); then the
+    mesh path's two move kernels, each move of the same centers launched
+    as a rank of a mesh launches them (one rank's shapes: every slot)."""
     ms, dev_ms = smoke.phase_a_device_ms(ps, bv, params, False,
                                          smoke.PROFILE_CENTERS)
     per_launch, ops_s = (traffic or smoke.phase_a_traffic(
@@ -297,6 +311,19 @@ def phase_a_kernels(ps, bv, params, launches: dict,
               f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4g}, loss "
               f"{launches[k] * (ms[k] - b['bound_ms']) / 1e3:.4f} s",
               flush=True)
+    # the mesh path's move (pa_member_dist, pa_mean_argmin) on one rank's
+    # shapes: the same centers, each move as the two launches a rank of a
+    # mesh makes (no collective: one rank holds every slot)
+    ms, _ = smoke.phase_a_device_ms(ps, bv, params, False,
+                                    smoke.PROFILE_CENTERS, listed=True)
+    for k in ("pa_member_dist", "pa_mean_argmin"):
+        b = smoke.bound(per_launch[k], ops_s[k])
+        print(f"      {k} (the mesh path's move, launched on one rank's "
+              f"shapes): {ms[k]:.5f} ms a launch, {launches['pa_move']} "
+              f"launches a rank at any rank count, bound "
+              f"{b['bound_ms']:.6g} ms ({b['bound_by']}, "
+              f"{per_launch[k]:.0f} B a launch), share "
+              f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4g}", flush=True)
 
 
 def host_split(ps, bv, params, sim: float) -> None:
@@ -538,60 +565,157 @@ def phase_b_part(dev, n: int) -> None:
               f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4g}, loss "
               f"{it * (ms[k] - b['bound_ms']) / 1e3:.6f} s, max abs err "
               f"{err[k]}", flush=True)
+    # the merging input: the same centers, each split in two
+    members, assign, rows = smoke.split_centers(members, assign, rows)
+    outs = [be.phase_b_loop(members, assign, rows, smoke.PB_DELTA, it,
+                            plain=plain) for plain in (False, True)]
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    merged = int((outs[0][3] != np.arange(rows.shape[0])).sum())
+    split_ms, split_dev_ms = smoke.phase_b_device_ms(ps, bv, params, False,
+                                                     split=True)
+    each = merge_launch_ms(be, members, assign, rows)
+    print(f"    centers split in two (chip_smoke.split_centers): "
+          f"{rows.shape[0]} centers, {merged} merge targets over the "
+          f"iterations, {int(outs[0][2].sum())} kept; the kernels' loop "
+          f"equal to the plain steps' {same}; device ms an iteration "
+          f"{split_dev_ms:.5f}; ms a launch: "
+          + ", ".join(f"{k} {split_ms[k]:.5f}" for k in smoke.PHASE_B)
+          + "; pb_merge by iteration: "
+          + ", ".join(f"{x:.5f}" for x in each)
+          + f"; pb_merge's mean over the unsplit centers' "
+          f"{split_ms['pb_merge'] / ms['pb_merge']:.4f}", flush=True)
 
 
-# Probes of pb_band for --parts pbvariants: edits of the earlier
-# csrc/phase_b.cu (in --parent; the probes fit the pb_band that lists its
-# positives offset by offset) or of this tree's ("@this-")
-# that remove one cost each, run on a State whose bits a real band wrote
-# (@noclassify writes the same bits, the others the same bits and less of
-# sc).
+def merge_launch_ms(be, members, assign, rows) -> list:
+    """pb_merge's device ms at each iteration of one phase_b_loop, in
+    order, under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        be.phase_b_loop(members, assign, rows, smoke.PB_DELTA,
+                        smoke.PB_ITERS)
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "pb_merge_kernel" in e.name),
+                 key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in evs]
+
+
+# Probes of the earlier csrc/phase_b.cu (in --parent; they fit a pb_pick
+# that zeroes all of sc in a grid stride beside the ties and a pb_merge
+# whose last block does every C-sized step) for --parts pbvariants:
+# each removes one cost and keeps the bits of a launch repeated on one
+# State (after one real iteration: see pbvariants).
 PB_PROBES = {
-    # the positives read back from the bits in place of the classifier
-    # and its gathers of each center's mag, sq and length
-    "@noclassify": [(
-        "        pos = classify(spec, coef, static_cast<double>(my_man),\n"
-        "                       static_cast<double>(my_dot), mag[my_a], "
-        "mag_b,\n"
-        "                       sq[my_a], sq_b, lenf[my_a], len_b, &f1);",
-        "        const int o_ = oi - at + sub;\n"
-        "        pos = ((bits[m * W + (o_ >> 5)] >> (o_ & 31)) & 1u) !=\n"
-        "              (my_man == -1 && my_dot == 7 && f1 == 0.0);")],
-    # the lists of positives kept, no run's rows added into sc
-    "@noadds": [(
-        "    for (int r = 0; r < R; ++r) {\n"
-        "      const int p0 = runs[r], p1 = runs[r + 1];\n"
-        "      i64* out = sc + (asg[list[p0]] + oi - delta) * Vp;",
-        "    for (int r = 0; r < 0 * R; ++r) {\n"
-        "      const int p0 = runs[r], p1 = runs[r + 1];\n"
-        "      i64* out = sc + (asg[list[p0]] + oi - delta) * Vp;")],
-    # neither the lists nor the adds
-    "@nolists": [(
-        "  const i64 Vp = static_cast<i64>(V) + 1;\n"
-        "  for (int oi = 0; oi < K; ++oi) {\n"
-        "    const i64 m = m0 + tid;",
-        "  const i64 Vp = static_cast<i64>(V) + 1;\n"
-        "  for (int oi = 0; oi < 0 * K; ++oi) {\n"
-        "    const i64 m = m0 + tid;")],
-    # this tree's: the staged path's classifier read back from the bits
-    "@this-noclassify": [(
-        "          pos = classify_terms(spec, coef, flags, "
-        "static_cast<double>(man),\n"
-        "                               static_cast<double>(dot), ct[r], "
-        "mt[t], &f1);",
-        "          pos = ((bits[(m0 + t) * W + (oi >> 5)] >> (oi & 31)) & "
-        "1u) !=\n"
-        "                (man == -1 && dot == 7);")],
-    # this tree's: no staged adds of a center's rows into sc
-    "@this-nosums": [(
-        "    for (int i = tid; i < n_rows * chunks; i += kTileThreads) {",
-        "    for (int i = tid; i < 0 * n_rows * chunks; "
-        "i += kTileThreads) {")],
+    # pb_pick: no zeroing of sc (repeated, sc is already zero)
+    "@pick-nozero": [(
+        "  for (i64 e = gid; e < sc_len; e += stride) sc[e] = 0;",
+        "  for (i64 e = gid; e < 0 * sc_len; e += stride) sc[e] = 0;")],
+    # pb_pick: no read of dstore, the ties read back from the last launch's
+    # best_pos (its winners)
+    "@pick-nodstore": [(
+        "      if (dstore[gid * K + oi] == best_d[jc])",
+        "      if (best_pos[jc] == goff + gid)")],
+    # pb_merge: no tail (the last block returns at its ticket)
+    "@merge-notail": [(
+        "  if (!last_block(scr + kTicket, gridDim.x)) return;",
+        "  if (!last_block(scr + kTicket, gridDim.x) || C > 0) return;")],
+    # pb_merge: phase 1's moved centers read with one load each, from the
+    # last launch's c_new in the scratch, in place of the chain c_valid,
+    # best_pos, m_all (or c_idx)
+    "@merge-staged": [
+        ("  const i64 ci =\n"
+         "      have ? moved(i, best_pos, m_all, M_all, c_idx, c_valid) : 0;",
+         "  const i64 ci = have ? __ldcg(scr + kScratchHead + i) : 0;"),
+        ("    const i64 cj = ok ? moved(j, best_pos, m_all, M_all, c_idx, "
+         "c_valid) : 0;",
+         "    const i64 cj = ok ? __ldcg(scr + kScratchHead + j) : 0;")],
 }
-PB_VARIANTS = ("@noclassify", "@noadds", "@nolists", "@noclassify,@nolists",
-               "@this-noclassify", "@this-nosums",
-               "@this-noclassify,@this-nosums", "kBandBlocks=1",
-               "kDistBlocks=1")
+# Probes and constants of this tree's phase_b.cu ("@this-", NAME=VALUE),
+# timed over whole iterations (a probe's outputs may differ)
+PB_PROBES.update({
+    # pb_pick: the zero blocks read the counts and store nothing
+    "@this-pick-nostores": [(
+        "      if (__shfl_sync(0xffffffffu, count, 0) == 0) continue;",
+        "      if (__shfl_sync(0xffffffffu, count, 0) == 0 || C > 0) "
+        "continue;")],
+    # pb_pick: the tie blocks return at once
+    "@this-pick-noties": [(
+        "  if (m >= M) return;\n  const i64 a = assign[m];",
+        "  if (m >= M || M > 0) return;\n  const i64 a = assign[m];")],
+    # pb_merge: no classifier (no candidate positive)
+    "@this-merge-noclassify": [(
+        "    if (my_c >= 0) {\n      double f1;",
+        "    if (my_c >= 0 && C < 0) {\n      double f1;")],
+    # pb_merge at 3 blocks an SM (its registers capped at 85): the 313
+    # tiles of 20,000 split centers on the card at once
+    "@this-merge-3blocks": [(
+        "__global__ void __launch_bounds__(kThreads)\npb_merge_kernel(",
+        "__global__ void __launch_bounds__(kThreads, 3)\npb_merge_kernel(")],
+    # pb_merge with each block's clock64 at the ends of its phases (STAMPS),
+    # its globaltimer at entry and exit, and whether it ran the last block's
+    # tail, read back by mc_pb_merge_stamps (merge_stamps)
+    "@this-merge-stamps": [
+        ("template <typename T, int VEC, int LANES>\n"
+         "__global__ void __launch_bounds__(kThreads)\npb_merge_kernel(",
+         "constexpr int kStampBlocks = %d, kStamps = %d;\n"
+         "__device__ long long merge_stamps[kStampBlocks * kStamps];\n"
+         "__device__ __forceinline__ long long gtimer() {\n"
+         "  long long g;\n"
+         "  asm volatile(\"mov.u64 %%0, %%%%globaltimer;\" : \"=l\"(g));\n"
+         "  return g;\n}\n"
+         "#define STAMP(s, v) if (threadIdx.x == 0 && tile < kStampBlocks) "
+         "merge_stamps[tile * kStamps + (s)] = (v)\n"
+         "template <typename T, int VEC, int LANES>\n"
+         "__global__ void __launch_bounds__(kThreads)\npb_merge_kernel("
+         % (4096, 12)),
+        ("  const int sub = lane & (LANES - 1), grp = lane / LANES;\n",
+         "  const int sub = lane & (LANES - 1), grp = lane / LANES;\n"
+         "  const long long c0 = clock64(), g0 = gtimer();\n"),
+        ("  const i64 tile = tile_s, base = tile * per;\n",
+         "  const i64 tile = tile_s, base = tile * per;\n"
+         "  STAMP(0, c0); STAMP(9, g0); STAMP(1, clock64());\n"),
+        ("\n  const int li = warp * (32 / LANES) + grp;",
+         "\n  STAMP(2, clock64());\n  const int li = warp * (32 / LANES) + grp;"),
+        ("  // phase 2, a thread an own slot",
+         "  STAMP(3, clock64());\n  // phase 2, a thread an own slot"),
+        ("  if (tid == 0 && tile > 0)\n    atomicExch(",
+         "  STAMP(4, clock64());\n  if (tid == 0 && tile > 0)\n    atomicExch("),
+        ("  const u64 excl = look_back(desc, tile);\n",
+         "  const u64 excl = look_back(desc, tile);\n  STAMP(5, clock64());\n"),
+        ("  if (!last_block(scr + kTicket, gridDim.x)) return;",
+         "  STAMP(6, clock64());\n"
+         "  const bool last = last_block(scr + kTicket, gridDim.x);\n"
+         "  STAMP(7, clock64()); STAMP(11, last ? 1 : 0);\n"
+         "  if (!last) { STAMP(8, clock64()); STAMP(10, gtimer()); return; }"),
+        ("    scr[kTiles] = 0;\n  }\n}",
+         "    scr[kTiles] = 0;\n  }\n  __syncthreads();\n"
+         "  STAMP(8, clock64()); STAMP(10, gtimer());\n}"),
+        ("static int tiles(int n) {",
+         "extern \"C\" int mc_pb_merge_stamps(void* out) {\n"
+         "  void* p = nullptr;\n"
+         "  cudaGetSymbolAddress(&p, merge_stamps);\n"
+         "  cudaMemcpy(out, p, sizeof(merge_stamps), cudaMemcpyDeviceToHost);\n"
+         "  cudaMemset(p, 0, sizeof(merge_stamps));\n"
+         "  return cudaGetLastError();\n}\n\n"
+         "static int tiles(int n) {")],
+})
+# the blocks and slots of @this-merge-stamps' merge_stamps, and the phases
+# between its slots 0-8 (a block's thread 0 after the block's barrier)
+STAMP_BLOCKS, STAMP_SLOTS = 4096, 12
+STAMPS = ("the ticket and the model", "staging the slots",
+          "the rows and the classifier", "the scan", "the look-back",
+          "NP, remap and the compaction", "the last block's ticket",
+          "the tail")
+PB_VARIANTS = ("@pick-nozero", "@pick-nodstore", "@merge-notail",
+               "@merge-staged")
+PB_THIS_VARIANTS = ("@this-pick-nostores", "@this-pick-noties",
+                    "@this-merge-noclassify", "kMergeLanesLarge=4",
+                    "@this-merge-3blocks", "@this-merge-stamps")
 
 
 def pb_variant_source(parent_dir: str, spec: str) -> str:
@@ -599,7 +723,7 @@ def pb_variant_source(parent_dir: str, spec: str) -> str:
     NAME=VALUE constants, this tree's) and its common.cuh under
     build/pbvariants/ with the edits of spec applied; returns its path."""
     from meshclust_tpu_torch import _ext
-    src_dir = parent_dir if this_tree(spec) is False else _ext.CSRC
+    src_dir = _ext.CSRC if spec in PB_THIS_VARIANTS else parent_dir
     with open(os.path.join(src_dir, "phase_b.cu")) as f:
         src = f.read()
     for item in spec.split(","):
@@ -625,37 +749,27 @@ def pb_variant_source(parent_dir: str, spec: str) -> str:
     return out
 
 
-def this_tree(spec: str) -> bool:
-    """Whether a pbvariants build edits this tree's phase_b.cu."""
-    return spec == "this" or all(item.startswith("@this-") or "=" in item
-                                 for item in spec.split(","))
+# the parent's mc_pb_pick: sc's length in place of C and V
+PARENT_PICK_SIGNATURE = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + \
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
+                             ctypes.c_longlong, ctypes.c_void_p]
 
 
 class ParentPhaseB:
-    """A kernel library whose mc_pb_band and mc_pb_dist take no span_cap
-    and no paths (the earlier signature), called with this tree's
-    arguments."""
+    """A kernel library whose mc_pb_pick takes sc's length (the earlier
+    signature), called with this tree's arguments (C and V)."""
 
     def __init__(self, handle):
         self.handle = handle
-        for name in ("mc_pb_band", "mc_pb_dist"):
-            fn = getattr(handle, name)
-            fn.argtypes = _ext_signature(name)[:-3] + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        handle.mc_pb_pick.argtypes = PARENT_PICK_SIGNATURE
+        handle.mc_pb_pick.restype = ctypes.c_int
 
     def __getattr__(self, name):
         return getattr(self.handle, name)
 
-    def mc_pb_band(self, *a):
-        return self.handle.mc_pb_band(*a[:-3], a[-1])
-
-    def mc_pb_dist(self, *a):
-        return self.handle.mc_pb_dist(*a[:-3], a[-1])
-
-
-def _ext_signature(name: str) -> list:
-    from meshclust_tpu_torch import _ext
-    return list(_ext._SIGNATURES[name])
+    def mc_pb_pick(self, *a):
+        C, V = a[9], a[10]
+        return self.handle.mc_pb_pick(*a[:9], C * (V + 1), a[11])
 
 
 def kernel_ms(calls, reps: int) -> dict:
@@ -681,6 +795,11 @@ def kernel_ms(calls, reps: int) -> dict:
             for i, (name, _) in enumerate(calls)}
 
 
+def pb_outputs(pb) -> list:
+    return [x.clone() for x in (pb.best_pos, pb.c_idx, pb.c_valid,
+                                pb.remap, pb.t_hist[0])]
+
+
 def pbvariants(dev, parent_dir: str, sizes: list) -> None:
     """The pbvariants part (see the module docstring)."""
     import torch
@@ -690,52 +809,166 @@ def pbvariants(dev, parent_dir: str, sizes: list) -> None:
     nw = os.path.join(_ext.CSRC, "nw_align_long.cu")   # mc_error_string
     builds = {"parent": [parent_src, nw],
               "this": [os.path.join(_ext.CSRC, "phase_b.cu"), nw]}
-    for spec in PB_VARIANTS:
+    for spec in PB_VARIANTS + PB_THIS_VARIANTS:
         builds[spec] = [os.path.abspath(pb_variant_source(parent_dir, spec)),
                         nw]
     paths = build_all(builds)
     libs = {name: load_library(path) for name, path in paths.items()}
     for name in libs:
-        if not this_tree(name):
+        if name != "this" and name not in PB_THIS_VARIANTS:
             libs[name] = ParentPhaseB(libs[name])
-    turns = ["parent", "this", *PB_VARIANTS, "this", "parent"]
+    names = ("pb_band", "pb_dist", "pb_pick", "pb_merge")
+
+    def cycle(pb):
+        return [(k, fn) for k, fn in zip(names, (
+            lambda: PB.band(pb), lambda: PB.dist(pb),
+            lambda: PB.pick(pb), lambda: PB.merge(pb, 0)))]
+
+    def turns(state, order, reps):
+        """{build: least ms a launch of each kernel over its turns}."""
+        got, want = {}, None
+        for name in order:
+            pb = state()
+            with kernels_from(libs[name]):
+                ms = kernel_ms(cycle(pb), reps)
+            out = pb_outputs(pb)
+            want = want or out
+            same = all(torch.equal(a, b) for a, b in zip(out, want))
+            got.setdefault(name, []).append(ms)
+            print(f"    {name}: " + ", ".join(f"{k} {ms[k]:.5f}"
+                                               for k in names)
+                  + f"; best_pos, c_idx, c_valid, remap, t_hist equal "
+                  f"across the builds {same}", flush=True)
+            del pb
+        return {k: {m: min(x[m] for x in v) for m in names}
+                for k, v in got.items()}
+
     for n in sizes:
         ps, bv, params, be, members, assign, rows = phase_b_setup(dev, n)
-        pb = be._phase_b_state(members, assign, rows, smoke.PB_DELTA, 1)
-        PB.band(pb)
-        want = pb.bits.clone()
-        pos = int(((want.to(torch.int64) & 0xFFFFFFFF).unsqueeze(-1)
-                   >> torch.arange(32, device=want.device) & 1).sum())
         reps = 20 if n <= 150000 else 10
+
+        def state():
+            return be._phase_b_state(members, assign, rows, smoke.PB_DELTA, 1)
         print(f"  {n} reads: {members.shape[0]} members, {rows.shape[0]} "
-              f"centers, {pos} positive pairs; device ms a launch (CUDA "
-              f"events, launches queued behind a sleeping kernel) over "
-              f"{reps} launches of each, in turns:", flush=True)
-        got = {}
-        for name in turns:
-            with kernels_from(libs[name]):
-                ms = kernel_ms((("pb_band_kernel", lambda: PB.band(pb)),
-                                ("pb_dist_kernel", lambda: PB.dist(pb))),
-                               reps)
-                same = torch.equal(pb.bits, want)
-            got.setdefault(name, []).append(ms)
-            print(f"    {name}: pb_band {ms['pb_band_kernel']:.5f}, pb_dist "
-                  f"{ms['pb_dist_kernel']:.5f}; bits equal to this tree's "
-                  f"{same}", flush=True)
-        b = {k: min(m["pb_band_kernel"] for m in v) for k, v in got.items()}
-        print(f"  {n} reads, pb_band of the parent split by the probes (the "
-              f"least of each build's turns): whole {b['parent']:.5f} ms; "
-              f"classifier {b['parent'] - b['@noclassify']:.5f}; adds "
-              f"{b['parent'] - b['@noadds']:.5f}; lists "
-              f"{b['@noadds'] - b['@nolists']:.5f}; pair sums, staging and "
-              f"the rest {b['@noclassify,@nolists']:.5f}", flush=True)
-        print(f"  {n} reads, this tree's pb_band split the same way: whole "
-              f"{b['this']:.5f} ms; classifier "
-              f"{b['this'] - b['@this-noclassify']:.5f}; the staged adds "
-              f"{b['this'] - b['@this-nosums']:.5f}; pair sums, staging "
-              f"and the rest {b['@this-noclassify,@this-nosums']:.5f}",
+              f"centers; device ms a launch (CUDA events, launches queued "
+              f"behind a sleeping kernel) over {reps} iterations of the four "
+              f"kernels on one State, in turns:", flush=True)
+        c = turns(state, ("parent", "this", *PB_THIS_VARIANTS, "this",
+                          "parent"), reps)
+        t = c["this"]
+        print(f"  {n} reads, this tree's pb_pick split by its probes (the "
+              f"least of each build's turns): whole {t['pb_pick']:.5f} ms; "
+              f"the zero blocks' stores "
+              f"{t['pb_pick'] - c['@this-pick-nostores']['pb_pick']:.5f}; "
+              f"the ties {t['pb_pick'] - c['@this-pick-noties']['pb_pick']:.5f}"
+              f"; pb_merge: whole {t['pb_merge']:.5f} ms; the classifier "
+              f"{t['pb_merge'] - c['@this-merge-noclassify']['pb_merge']:.5f}"
+              f"; the stamps' own cost "
+              f"{c['@this-merge-stamps']['pb_merge'] - t['pb_merge']:.5f}",
               flush=True)
-        del pb
+        merge_phases(libs["@this-merge-stamps"], state, cycle, reps)
+        split = smoke.split_centers(members, assign, rows)
+
+        def split_state():
+            return be._phase_b_state(*split, smoke.PB_DELTA, 1)
+        print(f"  {n} reads, the centers split in two "
+              f"(chip_smoke.split_centers): {split[2].shape[0]} centers, "
+              f"the first iteration merging; in turns:", flush=True)
+        c = turns(split_state, ("parent", "this", "@this-merge-3blocks",
+                                "this", "parent"), reps)
+        print(f"  {n} reads, split: pb_merge this {c['this']['pb_merge']:.5f}"
+              f" ms, at 3 blocks an SM "
+              f"{c['@this-merge-3blocks']['pb_merge']:.5f}, the parent's "
+              f"{c['parent']['pb_merge']:.5f}", flush=True)
+        merge_phases(libs["@this-merge-stamps"], split_state, cycle, reps)
+        # the parent's pick and merge alone, repeated on a State after one
+        # real iteration, and its probes
+        alone, want = {}, None
+        for name in ("parent", *PB_VARIANTS, "parent"):
+            pb = state()
+            with kernels_from(libs["parent"]):
+                for _, fn in cycle(pb):
+                    fn()
+            with kernels_from(libs[name]):
+                ms = kernel_ms(cycle(pb)[2:], reps)
+            out = pb_outputs(pb)
+            want = want or out
+            same = all(torch.equal(a, b) for a, b in zip(out, want))
+            alone.setdefault(name, []).append(ms)
+            print(f"    alone, {name}: pb_pick {ms['pb_pick']:.5f}, "
+                  f"pb_merge {ms['pb_merge']:.5f}; outputs equal {same}",
+                  flush=True)
+            del pb
+        b = {k: {m: min(x[m] for x in v) for m in ("pb_pick", "pb_merge")}
+             for k, v in alone.items()}
+        p = b["parent"]
+        print(f"  {n} reads, the parent's pb_pick alone split by the probes "
+              f"(the least of each build's turns): whole "
+              f"{p['pb_pick']:.5f} ms; zeroing sc "
+              f"{p['pb_pick'] - b['@pick-nozero']['pb_pick']:.5f}; reading "
+              f"dstore {p['pb_pick'] - b['@pick-nodstore']['pb_pick']:.5f}; "
+              f"pb_merge alone: whole {p['pb_merge']:.5f} ms; the tail "
+              f"{p['pb_merge'] - b['@merge-notail']['pb_merge']:.5f}; the "
+              f"moves' load chains in phase 1 "
+              f"{p['pb_merge'] - b['@merge-staged']['pb_merge']:.5f}",
+              flush=True)
+
+
+def merge_phases(lib, state, cycle, reps: int) -> None:
+    """pb_merge's time split by its phases: @this-merge-stamps' build run
+    reps iterations on one State, each launch's stamps read back; each
+    phase's cycles (the mean over the blocks, the median over the
+    launches, and the first launch's), the last block's timeline, and the
+    span from the first block's entry to the last one's exit (globaltimer)
+    beside the launch's device time (CUDA events, queued behind a sleeping
+    kernel)."""
+    import torch
+    lib.mc_pb_merge_stamps.argtypes = [ctypes.c_void_p]
+    lib.mc_pb_merge_stamps.restype = ctypes.c_int
+    buf = np.zeros(STAMP_BLOCKS * STAMP_SLOTS, dtype=np.int64)
+    pb = state()
+    mean, last, spans, event_ms, tiles = [], [], [], [], []
+    with kernels_from(lib):
+        for _ in range(reps):
+            calls = cycle(pb)
+            for _, fn in calls[:3]:
+                fn()
+            torch.cuda.synchronize()
+            lib.mc_pb_merge_stamps(buf.ctypes.data)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda._sleep(20_000_000)   # the launch queued, not waited
+            ev[0].record()
+            calls[3][1]()
+            ev[1].record()
+            torch.cuda.synchronize()
+            lib.mc_pb_merge_stamps(buf.ctypes.data)
+            st = buf.reshape(STAMP_BLOCKS, STAMP_SLOTS)
+            st = st[st[:, 0] != 0]
+            d = np.diff(st[:, :9], axis=1).astype(np.float64)
+            is_last = st[:, 11] == 1
+            mean.append(np.append(d[:, :7].mean(axis=0), np.nan))
+            last.append(d[is_last][0])
+            spans.append((st[:, 10].max() - st[:, 9].min()) / 1e3)
+            event_ms.append(ev[0].elapsed_time(ev[1]))
+            tiles.append(st.shape[0])
+    del pb
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True).stdout.split()
+    mhz = float(clock[0]) if clock else float("nan")
+    for label, k in (("the median launch", None), ("the first launch", 0)):
+        m, x = ((np.median(mean, axis=0), np.median(last, axis=0))
+                if k is None else (mean[k], last[k]))
+        sp = np.median(spans) if k is None else spans[k]
+        ev = np.median(event_ms) if k is None else event_ms[k]
+        print(f"    pb_merge by phase (@this-merge-stamps, {label} of "
+              f"{reps}, {tiles[0]} blocks; cycles, the blocks' mean / the "
+              f"last block, and the last block's us at the SM clock "
+              f"{mhz:.0f} MHz read after): "
+              + "; ".join(f"{name} {a:.0f} / {b:.0f} ({b / mhz:.3f} us)"
+                          for name, a, b in zip(STAMPS, m, x))
+              + f"; the blocks' span (globaltimer) {sp:.3f} us against the "
+              f"launch's {ev * 1e3:.3f} us (events)", flush=True)
 
 
 # A whole k-mer run in a tree's root (the walls part): warm up on the 15k
@@ -773,8 +1006,8 @@ def walls(parent_tree: str, sizes: list) -> None:
     warm = smoke.bench_corpus()
     for n in sizes:
         fasta = smoke.bench_corpus(n=n)
-        got = []
-        for who in ("parent", "this", "this", "parent"):
+        got, order = [], ("parent", "this", "this", "parent") * 2
+        for who in order:
             out = os.path.join(smoke.WORK, f"walls_{who}_{n}.clstr")
             child = subprocess.run(
                 [sys.executable, "-c", WALL_CHILD, warm, fasta, out],
@@ -794,6 +1027,15 @@ def walls(parent_tree: str, sizes: list) -> None:
                   f"CLSTR sha256 {r['digest']}", flush=True)
         print(f"  {n} reads: CLSTR equal across the turns "
               f"{len({r['digest'] for r in got}) == 1}", flush=True)
+        for who in ("parent", "this"):
+            runs = [r for r, w in zip(got, order) if w == who]
+            cols = {"wall": [r["wall"] for r in runs]}
+            for k in ("read", "featurize", "train", "accumulate", "phase_b"):
+                cols[k] = [r["phases"].get(k, 0.0) for r in runs]
+            print(f"  {n} reads, {who}, {len(runs)} runs (least / median / "
+                  f"greatest s): " + "; ".join(
+                      f"{k} {min(v):.4f} / {np.median(v):.4f} / "
+                      f"{max(v):.4f}" for k, v in cols.items()), flush=True)
 
 
 @contextlib.contextmanager
@@ -1235,7 +1477,8 @@ def phase_a_compare(dev, parent_dir: str, sizes: list) -> None:
     from meshclust_tpu_torch.core.bvec import BVec
     from meshclust_tpu_torch.core.runner import run
     others = [os.path.join(_ext.CSRC, f) for f in ("kmer_hist.cu",
-                                                     "nw_align_long.cu")]
+                                                     "nw_align_long.cu",
+                                                     "phase_b.cu")]
     paths = build_all({"parent": others + [os.path.abspath(os.path.join(
         parent_dir, "phase_a.cu"))], "this": _ext.sources()})
     libs = {name: load_library(path) for name, path in paths.items()}
@@ -1671,7 +1914,7 @@ def main() -> int:
                       f"plain steps", flush=True)
                 phase_b_part(dev, n)
             if "pbvariants" in parts:
-                print(f"pb_band and pb_dist at {n} reads against "
+                print(f"Phase B's kernels at {n} reads against "
                       f"{args.parent}/phase_b.cu and its probes", flush=True)
                 pbvariants(dev, args.parent, [n])
     if "walls" in parts:

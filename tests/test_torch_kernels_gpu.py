@@ -948,3 +948,129 @@ def test_phase_b_loop_on_the_card_equals_plain_and_cpu(cuda, dtype):
     np.testing.assert_array_equal(
         be.update_banded(members, assign, rows, 5),
         host.update_banded(members, assign, rows, 5))
+
+
+def _merge_states(cuda, C, delta, seed=0):
+    """Two States (for the kernel and the plain step) of C centers over the
+    species corpus's points, drawn in point order (so neighbours share a
+    species and merge, in chains), best_pos a member for half the centers
+    and none for the rest, the last tenth of the slots not valid (c_idx 0
+    there, as after a merge)."""
+    be, members, assign, _ = _phase_b_case("int8", cuda)
+    rng = np.random.default_rng(seed)
+    rows = np.sort(rng.integers(0, be.hist_dev.shape[0], size=C))
+    M_all = members.shape[0]
+    pos = rng.integers(0, M_all, size=C)
+    pos[rng.random(C) < 0.5] = M_all
+    valid = C - C // 10
+    out = []
+    for _ in range(2):
+        pb = be._phase_b_state(members, np.minimum(assign, C - 1), rows,
+                               delta, 2)
+        pb.best_pos.copy_(torch.from_numpy(pos))
+        pb.c_valid[valid:] = False
+        pb.c_idx[valid:] = 0
+        out.append(pb)
+    return out
+
+
+# (centers, --delta): the look-back across hundreds of blocks, one
+# center, the nearest and the farthest candidates (past 64, the slots a
+# block stages, candidates are read from device memory), few centers (a
+# group of 16 lanes a center)
+MERGE_CASES = {"C12000_delta5": (12000, 5), "C1_delta5": (1, 5),
+               "C12000_delta1": (12000, 1), "C12000_delta40": (12000, 40),
+               "C12000_delta70": (12000, 70), "C3000_delta5": (3000, 5)}
+
+
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+def test_pb_merge_equals_plain_with_merges(cuda, case):
+    """pb_merge against merge_plain, twice on the same States (the second
+    pass after the first's compaction, with the scratch as the first left
+    it): t_hist, c_idx, c_valid and remap bit-equal; merges and chains
+    across blocks where C > 1."""
+    from meshclust_tpu_torch.ops import phase_b as PB
+    C, delta = MERGE_CASES[case]
+    a, b = _merge_states(cuda, C, delta)
+    for it in range(2):
+        PB.merge(a, it)
+        PB.merge_plain(b, it)
+        for name in ("c_idx", "c_valid", "remap"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), (it, name)
+        assert torch.equal(a.t_hist[it], b.t_hist[it]), it
+        assert int(a.scratch[PB.TICKET]) == int(a.scratch[PB.TILES]) == \
+            int(a.scratch[PB.MERGED]) == 0
+    merged = int((b.t_hist[0] != torch.arange(C, device=cuda)).sum())
+    assert merged > C // 10 or C == 1
+    if C > 1:
+        assert int(b.c_valid.sum()) < C - C // 10
+
+
+def test_pb_pick_ties_across_ranks_blocks(cuda):
+    """pb_pick on two ranks' blocks of a pool that holds every member twice
+    (once in each block, so every d ties with its copy in the other block;
+    the second block's positions from goff > 0): each rank's best_pos and
+    sc bit-equal to pick_plain's, band, dist and the collectives done as
+    _band_argmin does them, and the minimum across the ranks equal too."""
+    import types
+    from meshclust_tpu_torch.ops import phase_b as PB
+    be, members, assign, rows = _phase_b_case("int8", cuda)
+    members2 = np.concatenate([members, members])
+    assign2 = np.concatenate([assign, assign])
+    got = {}
+    for plain in (True, False):
+        step = PB.steps(plain)
+        ranks = [be._phase_b_state(members2, assign2, rows, 5, 1,
+                                   types.SimpleNamespace(size=2, rank=r))
+                 for r in range(2)]
+        assert ranks[1].goff == members.shape[0]
+        for s in ranks:
+            step.band(s)
+        sc = ranks[0].sc + ranks[1].sc
+        for s in ranks:
+            s.sc.copy_(sc)
+            step.dist(s)
+        best_d = torch.minimum(ranks[0].best_d, ranks[1].best_d)
+        for s in ranks:
+            s.best_d.copy_(best_d)
+            step.pick(s)
+            assert not s.sc.any()
+        got[plain] = [s.best_pos.clone() for s in ranks]
+    M_all = 2 * members.shape[0]
+    for r in range(2):
+        assert torch.equal(got[False][r], got[True][r]), r
+    both = (got[True][0] < M_all) & (got[True][1] < M_all)
+    assert int(both.sum()) > 0
+    assert torch.equal(torch.minimum(*got[False]), got[True][0])
+
+
+def test_phase_b_loop_split_150k_equals_plain(cuda):
+    """chip_smoke.py's merging input at 150k reads (Phase A's centers, each
+    split in two adjacent centers) through the whole phase_b_loop: the
+    kernels' assign, centers, valid and t_hist equal to plain=True, four
+    launches an iteration, and centers merge."""
+    import os
+    import chip_smoke as S
+    from meshclust_tpu_torch.config import ClusterConfig
+    from meshclust_tpu_torch.core.bvec import BVec
+    from meshclust_tpu_torch.core.runner import run
+    os.makedirs(S.WORK, exist_ok=True)
+    cfg = ClusterConfig(files=[S.bench_corpus(n=150000)],
+                        output=S.WORK + "/split_150k.clstr",
+                        similarity=0.90).finalize()
+    res = run(cfg, device=cuda)
+    ps = res["pointset"]
+    bv = BVec(ps.lengths.copy(), cfg.bin_size)
+    bv.bulk_insert(ps.lengths)
+    bv.insert_finalize()
+    be, members, assign, rows = S.phase_b_inputs(ps, bv,
+                                                 res["model"].params)
+    members, assign, rows = S.split_centers(members, assign, rows)
+    _ext.reset_launches()
+    got = be.phase_b_loop(members, assign, rows, 5, 15)
+    assert {k: v for k, v in _ext.launches.items() if v} == dict.fromkeys(
+        ("pb_band", "pb_dist", "pb_pick", "pb_merge"), 15)
+    want = be.phase_b_loop(members, assign, rows, 5, 15, plain=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (got[3] != np.arange(rows.shape[0])).sum() > rows.shape[0] // 4

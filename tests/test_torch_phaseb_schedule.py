@@ -22,13 +22,22 @@ and its reductions:
             positive, d in float64 (IEEE, no FMA), each center's least d a
             minimum of bit patterns merged into best_d once a tile; on the
             global path a positive divides the mean itself;
-  pb_pick   a thread a member, its positives in bit order (__ffs), the
-            least pool position among the ties; sc zeroed in a grid stride;
-  pb_merge  a group a center over its candidates in chunks of `lanes`, the
-            first max of f1 taken lane by lane in order; the last block's
-            chains followed in place (threads in a random order) until
-            nothing changes, the kept centers scanned in chunks of the
-            block with a carry, remap and the compaction.
+  pb_pick   zero blocks (a warp a row of sc: the count read first, a row
+            with one cleared in a head word, 16-byte pairs and a tail word)
+            and tie blocks (a thread a member, its positives in bit order
+            (__ffs), d from the offset-major dstore, the least pool
+            position among the ties), interleaved in any order;
+  pb_merge  blocks of a few centers numbered in the order they start, their
+            steps interleaved at random or latest first: each stages its
+            slots' moves, takes a center's first max of f1 over its
+            candidates (a group of `lanes` lanes splits each row and
+            classifies the offsets in turn, then keeps the greatest f1,
+            the least offset on a tie), publishes its counts of kept and valid centers, takes its
+            prefix by look-back once every earlier block has published,
+            then writes NP, remap where the chain ends in its tile, the
+            list of chains that leave it, and its kept centers into their
+            slots in place; the last block follows the listed chains,
+            clears the slots from the new kept total to the old.
 The model is held equal, step by step and iteration by iteration, to the
 plain steps (ops/phase_b.py, the port's Phase B torch ops), on species
 corpora whose intercept splits species into several centers (Phase A's
@@ -37,11 +46,14 @@ int16 and int32, --delta 0, 5 and 40 (three words of bits), a rank's
 padded block of the pool, C = 1, rows duplicated so that distances tie
 inside a tile and across tiles, and centers with no positive; at the
 kernels' own tile and budget, at small ones where tiles' spans pass the
-budget (both paths in one step), and with no budget (every tile global).
-Copies of the model with the pick's tie rule turned around, the merge
-chains left after one hop, the band's accumulator one row short of the
-span, or the dist's span taken from assign without the offsets, must
-disagree. The wrappers on CPU tensors are the plain steps, and
+budget (both paths in one step), and with no budget (every tile global);
+the merge also with no center moved (every moved center read from c_idx)
+and its blocks latest first. Copies of the model with the pick's tie rule
+turned around, the pick clearing a row's count before reading it, the
+listed chains left after one hop, a merge block publishing its counts
+before its last read of c_idx (run latest first), the band's accumulator
+one row short of the span, or the dist's span taken from assign without
+the offsets, must disagree. The wrappers on CPU tensors are the plain steps, and
 csrc/phase_b.cu's constants are ops/phase_b.py's. Tolerance: exact
 equality.
 """
@@ -67,17 +79,21 @@ SOURCE = os.path.join(os.path.dirname(PB.__file__), "..", "csrc",
 HEADER = os.path.join(os.path.dirname(SOURCE), "common.cuh")
 # counts 1-12 scaled into each storage dtype of the rows
 SCALES = {"int8": 1, "int16": 1000, "int32": 5000}
-# pb_band's and pb_dist's tiles, lanes (None: the kernel's, from the rows'
-# pieces), pb_merge's block
 # pb_band's and pb_dist's tile and budget of staged center rows (None:
-# the kernels', PB.stage_cap of the rows' bytes), pb_merge's lanes (None:
-# the kernel's, from the rows' pieces) and block
-OWN = dict(tile=PB.TILE, cap=None, lanes=None, threads=PB.THREADS)
-SMALL = dict(tile=8, cap=12, lanes=4, threads=8)
-ONE_LANE = dict(tile=5, cap=0, lanes=1, threads=4)
+# the kernels', PB.stage_cap of the rows' bytes), pb_merge's lanes a
+# center (None: the kernel's, lanes_of), its centers a block (None: the
+# kernel's, kWarps groups of lanes) and the slots it stages past them
+# (None: the kernel's, min(delta, kMergeAhead))
+OWN = dict(tile=PB.TILE, cap=None, lanes=None, centers=None, ahead=None)
+SMALL = dict(tile=8, cap=12, lanes=4, centers=3, ahead=2)
+ONE_LANE = dict(tile=5, cap=0, lanes=1, centers=1, ahead=0)
 GRIDS = {"own": OWN, "small": SMALL, "one_lane": ONE_LANE}
 CHUNK_PIECES = 32                     # phase_b.cu: kChunkPieces
 PIECE_BYTES = 16                      # common.cuh: kPieceBytes
+MERGE_AHEAD = 64                      # phase_b.cu: kMergeAhead
+# phase_b.cu: kMergeLanesSmall, kMergeLanesLarge (the launch takes the
+# large where its tiles all fit on the card at once: the tests' centers)
+MERGE_LANES_SMALL, MERGE_LANES_LARGE = 4, 16
 
 
 def species_case(dtype, device, n_species=8, per=24, seed=3, dup=0,
@@ -147,19 +163,14 @@ def numpy_state(pb):
     s["delta"], s["goff"] = pb.delta, pb.goff
     s["m_valid"] = (None if pb.m_valid is None else pb.m_valid.numpy())
     s["paths"] = np.zeros(len(PB.PATHS), np.int64)
+    s["np"] = np.zeros(pb.c_idx.shape[0], np.int64)   # pb_merge's NP
     return s
 
 
 def lanes_of(s, grid):
-    """The lanes of a row's group: the kernel's (a power of two, at least
-    the row's 16-byte pieces, up to 32), or the grid's."""
-    if grid["lanes"] is not None:
-        return grid["lanes"]
-    nv = -(-s["rows"].shape[1] * s["itemsize"] // PIECE_BYTES)
-    lanes = 1
-    while lanes < nv and lanes < 32:
-        lanes <<= 1
-    return lanes
+    """pb_merge's lanes a center: the kernel's at the tests' few centers
+    (kMergeLanesLarge), or the grid's (SMALL's are kMergeLanesSmall)."""
+    return MERGE_LANES_LARGE if grid["lanes"] is None else grid["lanes"]
 
 
 def classify(s, man, dot, a, b):
@@ -357,7 +368,7 @@ def model_dist(s, grid, rng, assign_span=False):
             dl = 2 * int(np.minimum(s["rows"][m], cw).sum())
             frac = f8(dl) / (f8(s["mag"][s["m_idx"][m]]) + f8(cw_sum))
             d = f8(10000.0) * (f8(1.0) - frac * frac)
-            s["dstore"][m, oi] = d
+            s["dstore"][oi, m] = d
             key = int(np.float64(d).view(np.int64))
             if staged and 0 <= r < cap:
                 least[r] = min(least[r], key)
@@ -369,10 +380,49 @@ def model_dist(s, grid, rng, assign_span=False):
                     merge_least(lo + r, int(least[r]))
 
 
-def model_pick(s, grid, rng, least=True):
-    s["sc"][:] = 0
+def sc_stores(c, Vp):
+    """The word ranges of row c of sc [C, Vp] that a zero block's warp
+    stores (sc's base 16-byte aligned): the head word where the row starts
+    8 bytes past a 16-byte boundary, then 16-byte pairs, then a tail word
+    where one is left; checked to cover the row once."""
+    start = c * Vp
+    head = start & 1
+    pairs = (Vp - head) >> 1
+    out = ([(0, 1)] if head else []) + [(head + 2 * p, head + 2 * p + 2)
+                                        for p in range(pairs)]
+    if (Vp - head) & 1:
+        out.append((Vp - 1, Vp))
+    assert sorted(w for a, b in out for w in range(a, b)) == list(range(Vp))
+    assert all((start + a) % 2 == 0 for a, b in out if b - a == 2)
+    return out
+
+
+def model_pick(s, grid, rng, least=True, count_first=True):
+    """pb_pick: its zero blocks (a warp a row of sc) and tie blocks (a
+    thread a member) in any order, interleaved. A row's count is read
+    first; a row with a count is cleared by sc_stores' pieces in any order
+    (a row without one is zero throughout: checked). A member's positives
+    in bit order (__ffs), d read from the offset-major dstore, the least
+    pool position among the ties. Broken copies: with least False the
+    greatest position; with count_first False the count word cleared
+    before it is read."""
+    C, Vp = s["sc"].shape
     M = s["rows"].shape[0]
-    for m in rng.permutation(M):
+    assert not s["sc"][s["sc"][:, Vp - 1] == 0].any()
+    tasks = [(True, c) for c in range(C)] + [(False, m) for m in range(M)]
+    for i in rng.permutation(len(tasks)):
+        row, x = tasks[i]
+        if row:
+            stores = sc_stores(x, Vp)
+            if not count_first:
+                s["sc"][x, Vp - 1] = 0
+            if s["sc"][x, Vp - 1] == 0:
+                continue
+            for q in rng.permutation(len(stores)):
+                a, b = stores[q]
+                s["sc"][x, a:b] = 0
+            continue
+        m = x
         a = int(s["assign"][m])
         for w in range(s["bits"].shape[1]):
             word = int(s["bits"][m, w])
@@ -380,69 +430,163 @@ def model_pick(s, grid, rng, least=True):
                 oi = 32 * w + (word & -word).bit_length() - 1
                 word &= word - 1
                 jc = a + oi - s["delta"]
-                if s["dstore"][m, oi] == s["best_d"][jc]:
+                if s["dstore"][oi, m] == s["best_d"][jc]:
                     pos = s["goff"] + int(m)
                     cur = s["best_pos"][jc]
                     s["best_pos"][jc] = min(cur, pos) if least else (
                         pos if cur == s["m_all"].shape[0] else max(cur, pos))
 
 
-def model_merge(s, it, grid, rng, follow=True):
+def merge_tile(s, grid):
+    """The centers a block of pb_merge takes (a group of lanes_of lanes a
+    center, kWarps groups' worth), or the grid's; and the slots it stages
+    past them (min(delta, kMergeAhead), or the grid's)."""
+    per = grid.get("centers") or (PB.THREADS // 32) * (32 // lanes_of(s,
+                                                                    grid))
+    ahead = grid.get("ahead")
+    return per, min(s["delta"], MERGE_AHEAD if ahead is None else ahead)
+
+
+def merge_block(s, b, per, ahead, lanes, shared, rng, publish_first):
+    """Block b of pb_merge's model, a generator: each step yields True, or
+    False where the look-back waits. Phase 1 stages its slots (the move,
+    the valid flag) and takes t for its centers: the lanes split each
+    candidate's row (lane_sums) and classify the offsets in turn, each lane
+    keeping its first max of f1, then the group's butterfly keeps the
+    greatest, the least offset on a tie; phase 2 publishes its counts,
+    then its inclusive ones once the look-back has seen every earlier tile
+    publish (walking back to the nearest inclusive one); phase 3 writes NP,
+    t into t_row, remap where the chain ends inside the tile, the list, and
+    the kept centers into their slots in place. With publish_first (a broken copy)
+    the kept centers' moved center is read again for the compaction after
+    the counts are published."""
     C = s["c_idx"].shape[0]
     M_all = s["m_all"].shape[0]
-    lanes = lanes_of(s, grid)
     delta = s["delta"]
     c_valid, best_pos, c_idx = s["c_valid"], s["best_pos"], s["c_idx"]
+    desc, t_row = shared["desc"], shared["t_row"]
 
     def moved(j):
         bp = int(best_pos[j])
         return int(s["m_all"][bp]) if bp < M_all and c_valid[j] \
             else int(c_idx[j])
 
-    t_row = np.arange(C)
-    c_new = np.zeros(C, np.int64)
-    for i in rng.permutation(C):
-        vi, ci = bool(c_valid[i]), moved(i)
-        best_f1, best_t = _DBL_MIN, i
-        held = [None] * lanes
-        for oi in range(delta):
-            j = i + oi + 1
-            ok = vi and j < C and bool(c_valid[j])
-            cj = moved(j) if ok else -1
-            at = oi % lanes
-            held[at] = (lane_sums(s["hist"][cj], s["hist"][ci], lanes,
-                                  s["itemsize"]) if ok else (0, 0), cj)
-            if at != lanes - 1 and oi != delta - 1:
-                continue
-            got = [classify(s, *sums, a, ci) if a >= 0 else (False, 0.0)
-                   for sums, a in held[: at + 1]]
-            for lane, (pos, f1) in enumerate(got):
-                if pos and f1 > best_f1:
-                    best_f1, best_t = f1, i + (oi - at + lane) + 1
-        t_row[i] = best_t if vi else i
-        c_new[i] = ci
-    s["t_hist"][it] = t_row
-    T = t_row.copy()                       # the last block, in place
-    while follow:
-        changed = False
-        for k in rng.permutation(C):
-            a = T[k]
-            if T[a] != a:
-                T[k] = T[a]
-                changed = True
-        if not changed:
+    base = b * per
+    own = range(base, min(C, base + per))
+    staged = {j: (moved(j), bool(c_valid[j]))
+              for j in range(base, min(C, base + per + ahead))}
+
+    def slot(j):
+        return staged[j] if j in staged else (moved(j), bool(c_valid[j]))
+
+    t = {}
+    for i in rng.permutation(list(own)):
+        i = int(i)
+        ci, vi = staged[i]
+        best = [(_DBL_MIN, delta)] * lanes       # a lane's (f1, offset)
+        for o0 in range(0, delta, lanes):
+            for lane in range(min(lanes, delta - o0)):
+                oi = o0 + lane
+                j = i + oi + 1
+                cj, ok = slot(j) if vi and j < C else (-1, False)
+                if not ok:
+                    continue
+                sums = lane_sums(s["hist"][cj], s["hist"][ci], lanes,
+                                 s["itemsize"])
+                pos, f1 = classify(s, *sums, cj, ci)
+                if pos and f1 > best[lane][0]:
+                    best[lane] = (f1, oi)
+        # the group's butterfly: the greatest f1, the least offset on a tie
+        step = lanes >> 1
+        while step:
+            best = [max(best[q], best[q ^ step],
+                        key=lambda x: (x[0], -x[1])) for q in range(lanes)]
+            step >>= 1
+        t[i] = i + best[0][1] + 1 if vi and best[0][1] < delta else i
+    kept = [k for k in own if staged[k][1] and t[k] == k]
+    n_valid = sum(staged[k][1] for k in own)
+    yield True
+    desc[b] = ("aggregate", len(kept), n_valid)
+    yield True
+    while True:
+        ex_kept = ex_valid = 0
+        for p in range(b - 1, -2, -1):
+            d = ("inclusive", 0, 0) if p < 0 else desc[p]
+            if d is None:
+                break
+            ex_kept += d[1]
+            ex_valid += d[2]
+            if d[0] == "inclusive":
+                break
+        if d is not None:
             break
-    kept = c_valid & (t_row == np.arange(C))
-    NP = np.zeros(C, np.int64)
-    carry = 0
-    for k0 in range(0, C, grid["threads"]):
-        part = kept[k0: k0 + grid["threads"]].astype(np.int64)
-        NP[k0: k0 + part.shape[0]] = carry + np.cumsum(part) - 1
-        carry += int(part.sum())
-    s["remap"][:] = NP[T]
-    s["c_idx"][:] = 0
-    s["c_idx"][NP[kept]] = c_new[kept]
-    s["c_valid"][:] = np.arange(C) < carry
+        yield False
+    desc[b] = ("inclusive", ex_kept + len(kept), ex_valid + n_valid)
+    yield True
+    np_of = {k: ex_kept + n for n, k in enumerate(kept)}
+    for k in kept:
+        shared["NP"][k] = np_of[k]
+    for k in rng.permutation(list(own)):
+        k = int(k)
+        x = t[k]
+        t_row[k] = x
+        while x in t and t[x] != x:
+            x = t[x]
+        if x == k:
+            s["remap"][k] = ex_kept + sum(1 for q in kept if q <= k) - 1
+        elif x in t:
+            s["remap"][k] = np_of[x]
+        else:
+            shared["list"].append(k)
+        if k in np_of:
+            c_idx[np_of[k]] = moved(k) if publish_first else staged[k][0]
+            c_valid[np_of[k]] = True
+
+
+def model_merge(s, it, grid, rng, follow=True, publish_first=False,
+                late_first=False):
+    """pb_merge: blocks of merge_tile's centers numbered in the order they
+    start, their steps (merge_block) interleaved at random or, with
+    late_first, the latest block able to go on first (its compaction lands
+    before an earlier block's writes); then the last block: the listed
+    chains followed to their ends (with follow False, a broken copy, one
+    hop), remap = NP[T], the slots from the new kept total to the old
+    cleared. Checks what the last block relies on: the valid centers a
+    dense prefix, c_idx 0 past it. -> the chains listed."""
+    C = s["c_idx"].shape[0]
+    per, ahead = merge_tile(s, grid)
+    n_valid = int(s["c_valid"].sum())
+    assert s["c_valid"][:n_valid].all() and not s["c_idx"][n_valid:].any()
+    n_tiles = max(1, -(-C // per))
+    shared = dict(desc=[None] * n_tiles, t_row=np.arange(C), NP=s["np"],
+                  list=[])
+    blocks = [merge_block(s, b, per, ahead, lanes_of(s, grid), shared, rng,
+                          publish_first) for b in range(n_tiles)]
+    live = list(range(n_tiles))
+    while live:
+        order = sorted(live, reverse=True) if late_first else \
+            [live[int(i)] for i in rng.permutation(len(live))]
+        for b in order:
+            try:
+                moved_on = next(blocks[b])
+            except StopIteration:
+                live.remove(b)
+                break
+            if moved_on:
+                break
+    _, kept_total, valid_total = shared["desc"][-1]
+    assert valid_total == n_valid
+    s["c_idx"][kept_total:valid_total] = 0
+    s["c_valid"][kept_total:valid_total] = False
+    t_row = shared["t_row"]
+    for q in rng.permutation(len(shared["list"])):
+        k = shared["list"][int(q)]
+        x = t_row[k]
+        while follow and t_row[x] != x:
+            x = t_row[x]
+        s["remap"][k] = shared["NP"][x]
+    s["t_hist"][it] = t_row
+    return len(shared["list"])
 
 
 MODELS = {"band": model_band, "dist": model_dist, "pick": model_pick,
@@ -465,22 +609,35 @@ def same_as(s, pb, names):
     return None
 
 
+def no_winner(pb, s):
+    """Every center left without a best member before the merge (in the
+    State and the model's copy): each moved center is read from c_idx."""
+    pb.best_pos.fill_(pb.m_all.shape[0])
+    s["best_pos"][:] = pb.m_all.shape[0]
+
+
 def model_against_plain(be, members, assign, rows, delta, iterations, grid,
-                        seed=0, mesh=None):
+                        seed=0, mesh=None, late_first=False, before=None):
     """The model and the plain steps over `iterations` iterations from one
-    State each; every value the next step reads compared after each step.
-    -> facts of the run: merges, non-monotone assign, centers with no
-    positive, ties in d, and the model's tiles on each path (PB.PATHS)."""
+    State each; every value the next step reads compared after each step
+    (with late_first, the merge's blocks latest first; before(pb, s) run
+    on both before each merge). -> facts of the run: merges, non-monotone
+    assign, centers with no positive, ties in d, the merge's listed chains
+    and the model's tiles on each path (PB.PATHS)."""
     pb = be._phase_b_state(members, assign, rows, delta, iterations, mesh)
     s = numpy_state(pb)
     rng = np.random.default_rng(seed)
     step = PB.steps(True)
     V = pb.rows.shape[1]
-    facts = dict(merges=0, non_monotone=False, empty_centers=0, ties=0)
+    facts = dict(merges=0, non_monotone=False, empty_centers=0, ties=0,
+                 listed=0)
     for it in range(iterations):
         for name in PB.STEPS:
             if name == "merge":
-                MODELS[name](s, it, grid, rng)
+                if before is not None:
+                    before(pb, s)
+                facts["listed"] += model_merge(s, it, grid, rng,
+                                               late_first=late_first)
                 step.merge(pb, it)
                 assert np.array_equal(s["t_hist"][it], pb.t_hist[it].numpy())
             else:
@@ -494,7 +651,7 @@ def model_against_plain(be, members, assign, rows, delta, iterations, grid,
                 facts["non_monotone"] |= bool(
                     (np.diff(pb.assign.numpy()) < 0).any())
             if name == "dist":
-                d = pb.dstore.numpy()[_positives(pb)]
+                d = pb.dstore.numpy().T[_positives(pb)]
                 facts["ties"] += d.shape[0] - np.unique(d).shape[0]
         facts["merges"] += int((pb.t_hist[it].numpy()
                                 != np.arange(rows.shape[0])).sum())
@@ -603,31 +760,59 @@ def test_model_equals_plain_steps_with_one_center(cases):
     assert facts["merges"] == 0
 
 
-# Broken copies of the model: (case, delta, the copy's step)
+@pytest.mark.parametrize("grid", ["small", "one_lane"])
+@pytest.mark.parametrize("delta", [3, 5])
+def test_model_merge_in_place_latest_first(cases, delta, grid):
+    """The merge with no center moved (each moved center read from c_idx,
+    the slots the compaction overwrites) and its blocks latest first, so
+    that later blocks compact into earlier blocks' slots before those
+    blocks write: equal to the plain steps, with merges and with chains
+    that leave their block (all of them at a center a block)."""
+    be, members, assign, rows = cases["int8_close"]
+    facts = model_against_plain(be, members, assign, rows, delta, 3,
+                                GRIDS[grid], late_first=True,
+                                before=no_winner)
+    assert facts["merges"] and facts["listed"]
+
+
+# Broken copies of the model: (case, delta, the copy's step, a hook run on
+# both before each merge)
 BROKEN = {
     # the least position turned into the greatest, on duplicated rows
     "pick": ("int8_dup", 5, ("pick", lambda s, g, r: model_pick(
-        s, g, r, least=False))),
-    # the merge chains left after one hop, where species interleave
+        s, g, r, least=False)), None),
+    # a row's count cleared before it is read: the row is left as it was
+    "pick_count": ("int8", 5, ("pick", lambda s, g, r: model_pick(
+        s, g, r, count_first=False)), None),
+    # the listed chains left after one hop, where species interleave
     "merge": ("int8_close", 5, ("merge", lambda s, it, g, r: model_merge(
-        s, it, g, r, follow=False))),
+        s, it, g, r, follow=False)), None),
+    # a block's counts published before its last read of c_idx (the kept
+    # centers' moved center read again for the compaction), latest block
+    # first, no center moved: a later block's compaction lands first
+    "merge_publish": ("int8_close", 5, ("merge", lambda s, it, g, r:
+                                        model_merge(s, it, g, r,
+                                                    publish_first=True,
+                                                    late_first=True)),
+                      no_winner),
     # the band's accumulator one row short of the span: at --delta 0 the
     # span's last row is the tile's last center, which has positives
     "band_edge": ("int8", 0, ("band", lambda s, g, r: model_band(
-        s, g, r, drop_edge=True))),
+        s, g, r, drop_edge=True)), None),
     # the dist's span from assign alone: positives at other offsets read
     # means outside it
     "dist_span": ("int8_close", 5, ("dist", lambda s, g, r: model_dist(
-        s, g, r, assign_span=True))),
+        s, g, r, assign_span=True)), None),
 }
 
 
 @pytest.mark.parametrize("which", sorted(BROKEN))
 def test_a_broken_model_disagrees(cases, which):
     """Each broken copy of the model (BROKEN) differs from the plain steps,
-    so the tests above do see the tie rule, the chains, the span's edge
-    rows and the offsets in the span."""
-    case, delta, (broken, fn) = BROKEN[which]
+    so the tests above do see the tie rule, the pick's read of a row's
+    count, the chains, the merge's order of publishing and compacting, the
+    span's edge rows and the offsets in the span."""
+    case, delta, (broken, fn), before = BROKEN[which]
     be, members, assign, rows = cases[case]
     pb = be._phase_b_state(members, assign, rows, delta, 4)
     s = numpy_state(pb)
@@ -638,6 +823,8 @@ def test_a_broken_model_disagrees(cases, which):
         for name in PB.STEPS:
             model = fn if name == broken else MODELS[name]
             if name == "merge":
+                if before is not None:
+                    before(pb, s)
                 model(s, it, SMALL, rng)
                 step.merge(pb, it)
             else:
@@ -711,12 +898,19 @@ def test_source_constants_match_the_wrappers():
         [PB.PATHS.index(p) for p in ("band_staged", "band_global",
                                      "dist_staged", "dist_global")]
     assert int(const("kTicket")) == PB.TICKET
+    assert int(const("kTiles")) == PB.TILES
+    assert int(const("kMerged")) == PB.MERGED
     assert int(const("kScratchHead")) == PB.SCRATCH_HEAD
+    assert int(const("kMergeAhead")) == MERGE_AHEAD
+    assert int(const("kMergeLanesSmall")) == MERGE_LANES_SMALL == \
+        SMALL["lanes"]
+    assert int(const("kMergeLanesLarge")) == MERGE_LANES_LARGE
     assert int(const("kPieceBytes")) == PIECE_BYTES
     assert float(const("kDblMin")) == _DBL_MIN
     assert src.count("(2 * delta + 1 + 31) / 32") == 1
     for delta in (0, 5, 15, 16, 40):
         assert PB.words(delta) == (2 * delta + 1 + 31) // 32
+    # NP, the list and a descriptor a tile (at most C tiles)
     assert PB.scratch_len(7) == PB.SCRATCH_HEAD + 3 * 7
     # V = 256 counts of 1, 2, 4 and 8 bytes, 4 counts (k = 1), an odd slice
     assert [PB.stage_pitch(n) for n in (256, 512, 1024, 2048, 4, 129)] == \
