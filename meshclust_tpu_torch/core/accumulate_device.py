@@ -53,6 +53,7 @@ MESHCLUST_PHASEA_SHARD=0.
 from __future__ import annotations
 
 import os
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -168,6 +169,7 @@ class _Slots:
                                 dtype=torch.int64, device=dev)
         self.dist = torch.zeros(N + 1, dtype=torch.int64, device=dev)
         self.sumvec = None
+        self.wait_s = 0.0
 
     def window(self) -> None:
         """pa_window (or its plain step) for the center st[LAST]."""
@@ -207,8 +209,12 @@ class _Slots:
 
     def readback(self) -> list:
         """st[:LIVE + 1]: the iteration's one device-to-host read, which
-        waits for the steps before it."""
-        return self.st[: P.LIVE + 1].tolist()
+        waits for the steps before it; the host's wait is summed in
+        wait_s."""
+        t = time.perf_counter()
+        out = self.st[: P.LIVE + 1].tolist()
+        self.wait_s += time.perf_counter() - t
+        return out
 
     def move(self, c: int) -> None:
         """The center moves to c's member closest to the members' mean."""
@@ -235,9 +241,10 @@ def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
     CUDA kernels of ops/phase_a (default: on the CPU only; the kernels'
     wrappers take their plain versions for CPU tensors). state: a dict
     that receives the final slot state (owner, stamp, active, center_slot,
-    point: numpy, in slot order), for checks. Counters:
-    accum_iters (absorb iterations), accum_centers and accum_readbacks
-    (device-to-host reads)."""
+    point: numpy, in slot order), for checks. Span accum_loop: the
+    absorb/move loop. Counters: accum_iters (absorb iterations),
+    accum_centers, accum_readbacks (device-to-host reads) and accum_wait_s
+    (host seconds blocked in the iterations' readbacks)."""
     from meshclust_tpu_torch.core.meanshift import Center
     if mesh is not None and (
             ps.V % mesh.size
@@ -253,26 +260,27 @@ def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
     t = seed = iters = 0
     prog = Progress(N + 1, "Accumulation")
     s.active[:1].fill_(False)                    # pop() the first seed
-    while True:
-        c = len(center_slot)
-        s.begin(seed, c, t)
-        t += 1
-        n_members = 1
+    with perf.phase("accum_loop"):
         while True:
-            n_pos, best, last_h, live = s.absorb(c, t)
+            c = len(center_slot)
+            s.begin(seed, c, t)
             t += 1
-            iters += 1
-            if n_pos == 0:
+            n_members = 1
+            while True:
+                n_pos, best, last_h, live = s.absorb(c, t)
+                t += 1
+                iters += 1
+                if n_pos == 0:
+                    break
+                n_members += n_pos
+                s.move(c)
+            center_slot.append(last_h)
+            prog += n_members
+            # next seed: the window's best candidate (erased), else pop()
+            seed = best if best < N else live
+            if seed >= N or len(center_slot) >= cmax:
                 break
-            n_members += n_pos
-            s.move(c)
-        center_slot.append(last_h)
-        prog += n_members
-        # next seed: the window's best candidate (erased), else pop()
-        seed = best if best < N else live
-        if seed >= N or len(center_slot) >= cmax:
-            break
-        s.active[seed: seed + 1].fill_(False)
+            s.active[seed: seed + 1].fill_(False)
     prog.end()
     owner, stamp = torch.stack([s.owner, s.stamp]).cpu().numpy()
     n_centers = len(center_slot)
@@ -283,6 +291,7 @@ def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
     perf.add("accum_iters", float(iters))
     perf.add("accum_centers", float(n_centers))
     perf.add("accum_readbacks", float(iters + 2))
+    perf.add("accum_wait_s", s.wait_s)
 
     # group members by owner keeping (stamp, slot) insertion order
     order = np.lexsort((np.arange(N), stamp))   # (stamp, slot) order

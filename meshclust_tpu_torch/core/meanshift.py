@@ -291,10 +291,13 @@ class MeanShift:
                 log(f"Update x{self.iterations} done (fused device loop)")
                 return centers
             # replay mismatch: centers were restored — run the host path
-        prog = Progress(self.iterations, "Update")
-        for _ in range(self.iterations):
-            self.update_once(centers)
-            self.merge_once(centers)
-            prog += 1
-        prog.end()
+        with perf.phase("phase_b"):
+            prog = Progress(self.iterations, "Update")
+            for _ in range(self.iterations):
+                with perf.phase("phase_b_update"):
+                    self.update_once(centers)
+                with perf.phase("phase_b_merge"):
+                    self.merge_once(centers)
+                prog += 1
+            prog.end()
         return centers

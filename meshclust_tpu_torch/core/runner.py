@@ -15,8 +15,9 @@ cfg.checkpoint saves and resumes the trained classifier and the Phase-A
 centers (utils/checkpoint, the JAX package's format: a checkpoint written
 by either package loads in the other), and in align mode the Phase-A
 alignment memo that Phase B reads (utils/align_memo). MESHCLUST_TRACE=DIR
-writes a torch.profiler trace of the run (host and, on CUDA, the card's
-kernels) into DIR, one file a rank.
+writes a torch.profiler trace of the run (host ops, the utils/perf spans
+as "span:<name>" ranges and, on CUDA, the card's kernels) into DIR, one
+file a rank.
 
 Several ranks (parallel/dist; the CLI starts them, or a launcher does):
 run() joins the process group first and takes the rank's device. Every
@@ -58,15 +59,6 @@ def sort_files(files: List[str]) -> List[str]:
     return sorted(files, key=lambda p: os.path.basename(p))
 
 
-def perf_report() -> str:
-    """Phase times, work counters and measured rates from utils/perf.
-
-    The carried-over report's *_util_est lines are left out: they divide by
-    a TPU's peak rates, which say nothing about a GPU."""
-    return "\n".join(line for line in perf.format_report().splitlines()
-                     if "_util_est" not in line)
-
-
 def run(cfg: ClusterConfig,
         device: Optional[Union[str, torch.device]] = None) -> dict:
     """Cluster cfg.files into cfg.output on `device` (None: CUDA).
@@ -84,8 +76,8 @@ def run(cfg: ClusterConfig,
         trace_dir = os.environ.get("MESHCLUST_TRACE")
         if not trace_dir:
             return _run(cfg, dev)
-        # a Chrome/TensorBoard trace of host ops and the card's kernels;
-        # complements the phase times and counters of utils/perf.py
+        # a Chrome/TensorBoard trace of host ops and the card's kernels,
+        # with utils/perf.py's spans as ranges on the same clock
         from torch.profiler import (ProfilerActivity, profile,
                                     tensorboard_trace_handler)
         activities = [ProfilerActivity.CPU]
@@ -125,7 +117,8 @@ def _run(cfg: ClusterConfig, dev: torch.device) -> dict:
     if not seqs:
         raise FileDoesNotExistError("no sequences found")
 
-    k = cfg.kmer if cfg.kmer is not None else H.find_k(per_file)
+    with perf.phase("prepare"):
+        k = cfg.kmer if cfg.kmer is not None else H.find_k(per_file)
     k = max(1, k)
     log(f"Using k = {k}")
 
@@ -135,12 +128,13 @@ def _run(cfg: ClusterConfig, dev: torch.device) -> dict:
     bits = int(np.dtype(H.storage_dtype(ps.largest)).itemsize * 8)
     log(f"Using {bits} bit histograms")
 
-    aligner = DeviceAligner(ps.codes, dev, match=cfg.match,
-                            mismatch=cfg.mismatch, go=cfg.gap_open,
-                            gc=cfg.gap_continue)
-    trainer = Trainer(
-        ps, n_points=cfg.sample_size, cutoff=cfg.similarity,
-        max_pts_from_one=cfg.pivots, k=0 if cfg.align else k)
+    with perf.phase("prepare"):
+        aligner = DeviceAligner(ps.codes, dev, match=cfg.match,
+                                mismatch=cfg.mismatch, go=cfg.gap_open,
+                                gc=cfg.gap_continue)
+        trainer = Trainer(
+            ps, n_points=cfg.sample_size, cutoff=cfg.similarity,
+            max_pts_from_one=cfg.pivots, k=0 if cfg.align else k)
     if (cfg.match, cfg.mismatch, cfg.gap_open, cfg.gap_continue) \
             == (1, -1, 2, 1):
         trainer._dev_aligner = aligner   # share its staged codes
@@ -165,15 +159,16 @@ def _run(cfg: ClusterConfig, dev: torch.device) -> dict:
         # put the center SECOND (Trainer.cpp:88,:150,:341)
         return aligner.identities([(int(j), center) for j in idxs])
 
-    backend = C.make_backend(ps, model.params, align_fn=align_fn,
-                             exact=cfg.exact, mesh=mesh, aligner=aligner)
+    with perf.phase("prepare"):
+        backend = C.make_backend(ps, model.params, align_fn=align_fn,
+                                 exact=cfg.exact, mesh=mesh, aligner=aligner)
 
-    bv = BVec(ps.lengths.copy(), cfg.bin_size)
-    bv.bulk_insert(ps.lengths)
-    bv.insert_finalize()
+        bv = BVec(ps.lengths.copy(), cfg.bin_size)
+        bv.bulk_insert(ps.lengths)
+        bv.insert_finalize()
 
-    ms = MeanShift(ps, backend, sim=cfg.similarity, delta=cfg.delta,
-                   iterations=cfg.iterations)
+        ms = MeanShift(ps, backend, sim=cfg.similarity, delta=cfg.delta,
+                       iterations=cfg.iterations)
     resume = None
     on_acc = None
     if cfg.checkpoint:
@@ -202,7 +197,7 @@ def _run(cfg: ClusterConfig, dev: torch.device) -> dict:
             write_clstr(cfg.output, centers, ps.headers, ps.lengths)
         barrier()
     if os.environ.get("MESHCLUST_PERF", "0") == "1":
-        print(perf_report(), file=sys.stderr, flush=True)
+        print(perf.format_report(), file=sys.stderr, flush=True)
     return {
         "centers": centers,
         "pointset": ps,

@@ -33,6 +33,7 @@ from meshclust_tpu_torch.core import rng as crng
 from meshclust_tpu_torch.core.points import PointSet
 from meshclust_tpu_torch.ops import features as F
 from meshclust_tpu_torch.ops import glm
+from meshclust_tpu_torch.utils import perf
 from meshclust_tpu_torch.utils.log import log
 
 
@@ -156,167 +157,170 @@ class Trainer:
         n = ps.n
         num_iterations = math.ceil(self.n_points / self.max_pts_from_one) - 1
         num_iterations = max(1, num_iterations)
-        ref_chain = self._ref_order_chain(num_iterations)
-        if ref_chain is not None:
-            pivots, orders = ref_chain
-            log(f"Point pairs: {len(pivots)}")
-        else:
-            order = np.argsort(ps.lengths, kind="stable")
-            begin_pt = int(order[n // 2])
-            begin_orders = self._pivot_orders(
-                np.asarray([begin_pt], np.int64))
-            pivot_slots = [i * (n - 1) // num_iterations
-                           for i in range(num_iterations + 1)]
-            pivots = [int(x) for x in begin_orders.gather(
-                [0] * len(pivot_slots), pivot_slots)]
-            log(f"Point pairs: {len(pivots)}")
-            # per-pivot distance-sort orders (device-resident at scale)
-            orders = self._pivot_orders(np.asarray(pivots, np.int64))
+        with perf.phase("train_pivots"):
+            ref_chain = self._ref_order_chain(num_iterations)
+            if ref_chain is not None:
+                pivots, orders = ref_chain
+                log(f"Point pairs: {len(pivots)}")
+            else:
+                order = np.argsort(ps.lengths, kind="stable")
+                begin_pt = int(order[n // 2])
+                begin_orders = self._pivot_orders(
+                    np.asarray([begin_pt], np.int64))
+                pivot_slots = [i * (n - 1) // num_iterations
+                               for i in range(num_iterations + 1)]
+                pivots = [int(x) for x in begin_orders.gather(
+                    [0] * len(pivot_slots), pivot_slots)]
+                log(f"Point pairs: {len(pivots)}")
+                # per-pivot distance-sort orders (device-resident at scale)
+                orders = self._pivot_orders(np.asarray(pivots, np.int64))
 
         to_add_each = self.max_pts_from_one // 2
 
-        # batched binary search by TRUE alignment (ref Trainer.cpp:702-721):
-        # all pivots advance one probe per round.
-        offset0 = n // 4
-        pivot_pos = np.full(len(pivots), 2 * offset0, np.int64)
-        offsets = np.full(len(pivots), offset0, np.int64)
-        done = offsets <= 0
-        fused = (self.align_batch == self._default_align_batch
-                 and hasattr(orders, "orders_dev")
-                 and self._probe_aligner() is not None)
-        if fused:
-            # Speculative probe tree: the binary search's next DEPTH probe
-            # positions are fully determined by the current (pos, offset)
-            # state — (p, o) branches to (p-o, o//2) and (p+o, o//2) — so
-            # ONE well-packed aligner dispatch evaluates every position any
-            # of the next DEPTH rounds could visit (2^DEPTH - 1 per pivot),
-            # then the host walks the identical reference decisions
-            # (Trainer.cpp:702-721) through the precomputed identities.
-            # Bit-identical outcomes to probing one round at a time; the
-            # ~log2(N) sequential rounds of ~n_pivots pairs (which left the
-            # 128-lane grid kernel mostly idle) become ~log2(N)/DEPTH
-            # dispatches of full blocks.
-            import os as _os
-            from meshclust_tpu_torch.utils import perf as _perf
-            da = self._probe_aligner()
-            pivot_rows = np.asarray(pivots, np.int64)
-            depth = max(1, int(_os.environ.get("MESHCLUST_PROBE_DEPTH",
-                                               "4")))
-            while not done.all():
-                live_idx = np.flatnonzero(~done)
-                slot: Dict[Tuple[int, int], int] = {}
-                gi: List[int] = []
-                gj: List[int] = []
-                for i in live_idx:
-                    states = [(int(pivot_pos[i]), int(offsets[i]))]
-                    for _ in range(depth):
-                        nxt = []
-                        for (p, o) in states:
-                            if (i, p) not in slot:
-                                slot[(i, p)] = len(gi)
-                                gi.append(int(i))
-                                gj.append(p)
-                            if o <= 0:
+        with perf.phase("train_probe"):
+            # batched binary search by TRUE alignment (ref Trainer.cpp:702-721):
+            # all pivots advance one probe per round.
+            offset0 = n // 4
+            pivot_pos = np.full(len(pivots), 2 * offset0, np.int64)
+            offsets = np.full(len(pivots), offset0, np.int64)
+            done = offsets <= 0
+            fused = (self.align_batch == self._default_align_batch
+                     and hasattr(orders, "orders_dev")
+                     and self._probe_aligner() is not None)
+            if fused:
+                # Speculative probe tree: the binary search's next DEPTH probe
+                # positions are fully determined by the current (pos, offset)
+                # state — (p, o) branches to (p-o, o//2) and (p+o, o//2) — so
+                # ONE well-packed aligner dispatch evaluates every position any
+                # of the next DEPTH rounds could visit (2^DEPTH - 1 per pivot),
+                # then the host walks the identical reference decisions
+                # (Trainer.cpp:702-721) through the precomputed identities.
+                # Bit-identical outcomes to probing one round at a time; the
+                # ~log2(N) sequential rounds of ~n_pivots pairs (which left the
+                # 128-lane grid kernel mostly idle) become ~log2(N)/DEPTH
+                # dispatches of full blocks.
+                import os as _os
+                from meshclust_tpu_torch.utils import perf as _perf
+                da = self._probe_aligner()
+                pivot_rows = np.asarray(pivots, np.int64)
+                depth = max(1, int(_os.environ.get("MESHCLUST_PROBE_DEPTH",
+                                                   "4")))
+                while not done.all():
+                    live_idx = np.flatnonzero(~done)
+                    slot: Dict[Tuple[int, int], int] = {}
+                    gi: List[int] = []
+                    gj: List[int] = []
+                    for i in live_idx:
+                        states = [(int(pivot_pos[i]), int(offsets[i]))]
+                        for _ in range(depth):
+                            nxt = []
+                            for (p, o) in states:
+                                if (i, p) not in slot:
+                                    slot[(i, p)] = len(gi)
+                                    gi.append(int(i))
+                                    gj.append(p)
+                                if o <= 0:
+                                    continue
+                                nxt.append((p - o, o // 2))
+                                nxt.append((p + o, o // 2))
+                            states = nxt
+                    with _perf.phase("probe_gather"):
+                        probe_pts = orders.gather(gi, gj)
+                    ids_b = da.identities(
+                        [(int(pivot_rows[a]), int(q))
+                         for a, q in zip(gi, probe_pts)])
+                    for i in live_idx:
+                        for _ in range(depth):
+                            if done[i]:
+                                break
+                            algn = float(ids_b[slot[(int(i),
+                                                     int(pivot_pos[i]))]])
+                            if algn < self.cutoff:
+                                pivot_pos[i] -= offsets[i]
+                            elif algn > self.cutoff:
+                                pivot_pos[i] += offsets[i]
+                            else:
+                                done[i] = True
                                 continue
-                            nxt.append((p - o, o // 2))
-                            nxt.append((p + o, o // 2))
-                        states = nxt
-                with _perf.phase("probe_gather"):
-                    probe_pts = orders.gather(gi, gj)
-                ids_b = da.identities(
-                    [(int(pivot_rows[a]), int(q))
-                     for a, q in zip(gi, probe_pts)])
-                for i in live_idx:
-                    for _ in range(depth):
-                        if done[i]:
-                            break
-                        algn = float(ids_b[slot[(int(i),
-                                                 int(pivot_pos[i]))]])
-                        if algn < self.cutoff:
-                            pivot_pos[i] -= offsets[i]
-                        elif algn > self.cutoff:
-                            pivot_pos[i] += offsets[i]
-                        else:
-                            done[i] = True
-                            continue
-                        offsets[i] //= 2
-                        if offsets[i] <= 0:
-                            done[i] = True
-        while not done.all():
-            live = [i for i in range(len(pivots)) if not done[i]]
-            probe_pts = orders.gather(live, [int(pivot_pos[i]) for i in live])
-            probe_pairs = [(pivots[i], int(q))
-                           for i, q in zip(live, probe_pts)]
-            ids = self.align_batch(probe_pairs)
-            for i, algn in zip(live, ids):
-                if algn < self.cutoff:
-                    pivot_pos[i] -= offsets[i]
-                elif algn > self.cutoff:
-                    pivot_pos[i] += offsets[i]
-                else:
-                    done[i] = True
-                    continue
-                offsets[i] //= 2
-                if offsets[i] <= 0:
-                    done[i] = True
+                            offsets[i] //= 2
+                            if offsets[i] <= 0:
+                                done[i] = True
+            while not done.all():
+                live = [i for i in range(len(pivots)) if not done[i]]
+                probe_pts = orders.gather(live, [int(pivot_pos[i]) for i in live])
+                probe_pairs = [(pivots[i], int(q))
+                               for i, q in zip(live, probe_pts)]
+                ids = self.align_batch(probe_pairs)
+                for i, algn in zip(live, ids):
+                    if algn < self.cutoff:
+                        pivot_pos[i] -= offsets[i]
+                    elif algn > self.cutoff:
+                        pivot_pos[i] += offsets[i]
+                    else:
+                        done[i] = True
+                        continue
+                    offsets[i] //= 2
+                    if offsets[i] <= 0:
+                        done[i] = True
 
-        # pair selection around each pivot's boundary (Trainer.cpp:723-768):
-        # compute all gather positions first, fetch once, then assemble.
-        aerr = 0
-        gather_i: List[int] = []
-        gather_j: List[int] = []
-        per_pivot_counts: List[int] = []
-        incs: List[Tuple[float, float]] = []
-        for i in range(len(pivots)):
-            pivot = int(pivot_pos[i])
-            before_inc = pivot / to_add_each
-            after_inc = (n - pivot) / to_add_each
-            incs.append((before_inc, after_inc))
-            if before_inc < 1:
-                aerr = 1
-            elif after_inc < 1:
-                aerr = -1
-            cnt0 = 0
-            before_start = 0.0
-            for _ in range(to_add_each):
-                gather_i.append(i)
-                gather_j.append(int(_cxx_round(before_start)))
-                before_start += before_inc
-                cnt0 += 1
-            after_start = float(pivot)
-            cnt = 0
-            while cnt < to_add_each and _cxx_round(after_start) < n:
-                gather_i.append(i)
-                gather_j.append(int(_cxx_round(after_start)))
-                after_start += after_inc
-                cnt += 1
-                cnt0 += 1
-            per_pivot_counts.append(cnt0)
-        gathered = orders.gather(gather_i, gather_j)
+        with perf.phase("train_pairs"):
+            # pair selection around each pivot's boundary (Trainer.cpp:723-768):
+            # compute all gather positions first, fetch once, then assemble.
+            aerr = 0
+            gather_i: List[int] = []
+            gather_j: List[int] = []
+            per_pivot_counts: List[int] = []
+            incs: List[Tuple[float, float]] = []
+            for i in range(len(pivots)):
+                pivot = int(pivot_pos[i])
+                before_inc = pivot / to_add_each
+                after_inc = (n - pivot) / to_add_each
+                incs.append((before_inc, after_inc))
+                if before_inc < 1:
+                    aerr = 1
+                elif after_inc < 1:
+                    aerr = -1
+                cnt0 = 0
+                before_start = 0.0
+                for _ in range(to_add_each):
+                    gather_i.append(i)
+                    gather_j.append(int(_cxx_round(before_start)))
+                    before_start += before_inc
+                    cnt0 += 1
+                after_start = float(pivot)
+                cnt = 0
+                while cnt < to_add_each and _cxx_round(after_start) < n:
+                    gather_i.append(i)
+                    gather_j.append(int(_cxx_round(after_start)))
+                    after_start += after_inc
+                    cnt += 1
+                    cnt0 += 1
+                per_pivot_counts.append(cnt0)
+            gathered = orders.gather(gather_i, gather_j)
 
-        seen: Dict[Tuple[str, str], None] = {}
-        ordered_pairs: List[Tuple[int, int]] = []
-        keys: List[Tuple[str, str]] = []
-        off = 0
-        for i, p in enumerate(pivots):
-            buf: List[Tuple[int, int]] = []
-            for t in range(per_pivot_counts[i]):
-                q = int(gathered[off + t])
-                buf.append(self._ordered(p, q))
-            off += per_pivot_counts[i]
-            for pr in buf:
-                key = (self.ps.headers[pr[0]], self.ps.headers[pr[1]])
-                if key not in seen:
-                    seen[key] = None
-                    ordered_pairs.append(pr)
-                    keys.append(key)
-        if aerr < 0:
-            log("Warning: Alignment may be too small for sampling")
-        elif aerr > 0:
-            log("Warning: Alignment may be too large for sampling")
-        # std::set iteration order = sorted by (header_a, header_b)
-        order = sorted(range(len(ordered_pairs)), key=lambda t: keys[t])
-        return [ordered_pairs[t] for t in order]
+            seen: Dict[Tuple[str, str], None] = {}
+            ordered_pairs: List[Tuple[int, int]] = []
+            keys: List[Tuple[str, str]] = []
+            off = 0
+            for i, p in enumerate(pivots):
+                buf: List[Tuple[int, int]] = []
+                for t in range(per_pivot_counts[i]):
+                    q = int(gathered[off + t])
+                    buf.append(self._ordered(p, q))
+                off += per_pivot_counts[i]
+                for pr in buf:
+                    key = (self.ps.headers[pr[0]], self.ps.headers[pr[1]])
+                    if key not in seen:
+                        seen[key] = None
+                        ordered_pairs.append(pr)
+                        keys.append(key)
+            if aerr < 0:
+                log("Warning: Alignment may be too small for sampling")
+            elif aerr > 0:
+                log("Warning: Alignment may be too large for sampling")
+            # std::set iteration order = sorted by (header_a, header_b)
+            order = sorted(range(len(ordered_pairs)), key=lambda t: keys[t])
+            return [ordered_pairs[t] for t in order]
 
     def _ordered(self, p: int, q: int) -> Tuple[int, int]:
         """header-compare pair ordering (Trainer.cpp:746)."""
@@ -423,7 +427,8 @@ class Trainer:
 
         log("Splitting data")
         data = self.split()
-        bp, bn = self.get_labels(data)
+        with perf.phase("train_labels"):
+            bp, bn = self.get_labels(data)
         dump = os.environ.get("MESHCLUST_DEBUG_DUMP")
         if dump:
             for name, lst in (("pos", bp), ("neg", bn)):
@@ -447,42 +452,45 @@ class Trainer:
         weights = None
         min_no = max(1, len(menu) - 1)
         for num_features in range(min_no, len(menu) + 1):
-            for j in range(feature.size(), min(num_features, len(menu))):
-                feature.add_feature(menu[j][0], menu[j][1])
-            raw_pos = self.pair_raw(train_pos, feature.lookup)
-            feature.normalize_raw(raw_pos)
-            raw_neg = self.pair_raw(train_neg, feature.lookup)
-            feature.normalize_raw(raw_neg)
-            feature.finalize()
-            for i, fl in enumerate(feature.lookup):
-                log(f"bounds[{i}]: {feature.mins[i]} to {feature.maxs[i]}")
-            Xtr = self.feature_matrix(feature, train_pos + train_neg)
-            ytr = np.concatenate([np.ones(len(train_pos)),
-                                  -np.ones(len(train_neg))])
-            Xte = self.feature_matrix(feature, test_pos + test_neg)
-            yte = np.concatenate([np.ones(len(test_pos)),
-                                  -np.ones(len(test_neg))])
-            weights = glm.train(Xtr, ytr)
-            dump = os.environ.get("MESHCLUST_DEBUG_DUMP")
-            if dump:
-                # bit-exact (hex float) dump of the training matrix,
-                # labels, and fitted weights — parity triage vs the same
-                # dump patched into the reference (PARITY round 5)
-                with open(f"{dump}_feat{num_features}.txt", "w") as fdbg:
-                    fdbg.write(f"X {Xtr.shape[0]} {Xtr.shape[1]}\n")
-                    for r in range(Xtr.shape[0]):
-                        fdbg.write(" ".join(
-                            float(v).hex() for v in Xtr[r])
-                            + f" {float(ytr[r]).hex()}\n")
-                    fdbg.write("W\n")
-                    for v in weights:
-                        fdbg.write(f"{float(v).hex()}\n")
-            pte = np.where(glm.predict(Xte, weights) == 1, 1, -1)
-            acc, sens, spec = glm.accuracy(yte, pte)
-            log(f"Accuracy: {acc:.4g}% Sensitivity: {sens:.4g}% "
-                f"Specificity: {spec:.4g}%")
-            ptr = np.where(glm.predict(Xtr, weights) == 1, 1, -1)
-            glm.accuracy(ytr, ptr)
+            with perf.phase("train_features"):
+                for j in range(feature.size(), min(num_features, len(menu))):
+                    feature.add_feature(menu[j][0], menu[j][1])
+                raw_pos = self.pair_raw(train_pos, feature.lookup)
+                feature.normalize_raw(raw_pos)
+                raw_neg = self.pair_raw(train_neg, feature.lookup)
+                feature.normalize_raw(raw_neg)
+                feature.finalize()
+                for i, fl in enumerate(feature.lookup):
+                    log(f"bounds[{i}]: {feature.mins[i]} to {feature.maxs[i]}")
+                Xtr = self.feature_matrix(feature, train_pos + train_neg)
+                ytr = np.concatenate([np.ones(len(train_pos)),
+                                      -np.ones(len(train_neg))])
+                Xte = self.feature_matrix(feature, test_pos + test_neg)
+                yte = np.concatenate([np.ones(len(test_pos)),
+                                      -np.ones(len(test_neg))])
+            with perf.phase("train_glm"):
+                weights = glm.train(Xtr, ytr)
+            with perf.phase("train_features"):
+                dump = os.environ.get("MESHCLUST_DEBUG_DUMP")
+                if dump:
+                    # bit-exact (hex float) dump of the training matrix,
+                    # labels, and fitted weights — parity triage vs the same
+                    # dump patched into the reference (PARITY round 5)
+                    with open(f"{dump}_feat{num_features}.txt", "w") as fdbg:
+                        fdbg.write(f"X {Xtr.shape[0]} {Xtr.shape[1]}\n")
+                        for r in range(Xtr.shape[0]):
+                            fdbg.write(" ".join(
+                                float(v).hex() for v in Xtr[r])
+                                + f" {float(ytr[r]).hex()}\n")
+                        fdbg.write("W\n")
+                        for v in weights:
+                            fdbg.write(f"{float(v).hex()}\n")
+                pte = np.where(glm.predict(Xte, weights) == 1, 1, -1)
+                acc, sens, spec = glm.accuracy(yte, pte)
+                log(f"Accuracy: {acc:.4g}% Sensitivity: {sens:.4g}% "
+                    f"Specificity: {spec:.4g}%")
+                ptr = np.where(glm.predict(Xtr, weights) == 1, 1, -1)
+                glm.accuracy(ytr, ptr)
             if acc - prev_acc <= 1 and acc >= 90.0 and saved:
                 feature, weights = saved[-1]
                 log(f"feat size is {feature.size()}")

@@ -1,17 +1,19 @@
-"""Phase timing + throughput counters (SURVEY §5.1).
+"""Phase timing and work counters (SURVEY §5.1).
 
 The reference's only observability was Progress bars and cout phase lines;
 its validation was external timing tables (Tables/Real.csv).
-Here every pipeline phase is timed, and the two numeric hot paths export
-work counters so the bench can report:
-
-  - sequences/s        (the BASELINE.json headline)
-  - NW cells/s         (sum of l1*l2 over aligned pairs / align wall time)
-  - classify rows/s    (candidate rows pushed through the classifier)
-  - est. MFU           (achieved flops vs the chip's peak, rough)
+Here every pipeline phase is a span: its host wall, on the monotonic
+clock, summed by name over the process (or since reset()). While a
+torch.profiler is active (MESHCLUST_TRACE, a benchmark's traced window)
+each span is also a profiler range named "span:<name>", stamped on the
+clock of the trace's device activity, so the trace says what the host was
+doing while the card idled; with no profiler on, a span costs one flag
+test more. Counters sum work (NW cells and pairs, Phase A iterations,
+collectives), and the report gives the NW cells a second of the `align`
+span.
 
 Usage:
-    with perf.phase("training"):
+    with perf.phase("train"):
         ...
     perf.add("nw_cells", l1 @ l2)
     perf.report()   -> dict        perf.format_report() -> str
@@ -23,16 +25,13 @@ import time
 from collections import defaultdict
 from typing import Dict
 
+SPAN_PREFIX = "span:"
+
 _phase_s: Dict[str, float] = defaultdict(float)
 _phase_n: Dict[str, int] = defaultdict(int)
 _counters: Dict[str, float] = defaultdict(float)
-_t0 = time.time()
-
-# v5e (TPU v5 lite) per-chip peaks, for MFU estimates only:
-#   197 TFLOP/s bf16 MXU; ~0.8 TOP/s-ish VPU int32 (8x128 lanes, ~940 MHz,
-#   treated as 1 op/lane/cycle => conservative).
-PEAK_VPU_OPS = 0.96e12
-PEAK_MXU_FLOPS = 197e12 / 2  # f32 one-pass
+_t0 = time.perf_counter()
+_profiling = None       # torch.autograd._profiler_enabled, on first use
 
 
 def reset() -> None:
@@ -40,16 +39,31 @@ def reset() -> None:
     _phase_n.clear()
     _counters.clear()
     global _t0
-    _t0 = time.time()
+    _t0 = time.perf_counter()
+
+
+def profiler_on() -> bool:
+    """Whether a torch.profiler is recording (torch imported on first
+    call)."""
+    global _profiling
+    if _profiling is None:
+        import torch
+        _profiling = torch.autograd._profiler_enabled
+    return _profiling()
 
 
 @contextlib.contextmanager
 def phase(name: str):
-    t = time.time()
+    t = time.perf_counter()
     try:
-        yield
+        if profiler_on():
+            import torch
+            with torch.profiler.record_function(SPAN_PREFIX + name):
+                yield
+        else:
+            yield
     finally:
-        _phase_s[name] += time.time() - t
+        _phase_s[name] += time.perf_counter() - t
         _phase_n[name] += 1
 
 
@@ -66,7 +80,7 @@ def phases() -> Dict[str, float]:
 
 
 def report() -> dict:
-    out: dict = {"wall_s": time.time() - _t0,
+    out: dict = {"wall_s": time.perf_counter() - _t0,
                  "phases_s": dict(_phase_s),
                  "phase_calls": dict(_phase_n),
                  "counters": dict(_counters)}
@@ -74,29 +88,6 @@ def report() -> dict:
     cells = _counters.get("nw_cells", 0.0)
     if align_s > 0 and cells > 0:
         out["nw_cells_per_s"] = cells / align_s
-        # the wavefront kernel does ~30 int32 VPU ops per DP cell across the
-        # 6 carried lanes (3 maxes, selects, adds, packing)
-        out["nw_vpu_util_est"] = cells * 30 / align_s / PEAK_VPU_OPS
-    cls_s = _phase_s.get("cluster", 0.0)
-    rows = _counters.get("classify_rows", 0.0)
-    if cls_s > 0 and rows > 0:
-        out["classify_rows_per_s"] = rows / cls_s
-    # Phase-A roofline: achieved HBM streaming rate of the absorb sweeps
-    # vs the chip's ~819 GB/s (v5e). The sweep passes are u8 reads fused
-    # with f32 compute, so bytes/s IS the roofline axis.
-    acc_s = _phase_s.get("accumulate", 0.0)
-    sweep_b = _counters.get("accum_sweep_bytes", 0.0)
-    if acc_s > 0 and sweep_b > 0:
-        out["accum_gbps"] = sweep_b / acc_s / 1e9
-        out["accum_hbm_util_est"] = sweep_b / acc_s / 819e9
-        # the same sweeps as MXU work (~2 flops per streamed byte: the
-        # abs-diff/madd per u8 element) — reported so the roofline gap is
-        # visibly HBM, not MXU (verdict r4 #8)
-        out["accum_mxu_util_est"] = 2.0 * sweep_b / acc_s / PEAK_MXU_FLOPS
-    feat_s = _phase_s.get("feat_device", 0.0)
-    feat_f = _counters.get("feat_matmul_flops", 0.0)
-    if feat_s > 0 and feat_f > 0:
-        out["feat_mxu_util_est"] = feat_f / feat_s / PEAK_MXU_FLOPS
     return out
 
 
@@ -107,9 +98,6 @@ def format_report() -> str:
         lines.append(f"  phase {k:<14s} {v:8.2f}s  x{r['phase_calls'][k]}")
     for k, v in sorted(r["counters"].items()):
         lines.append(f"  counter {k:<18s} {v:.3g}")
-    for k in ("nw_cells_per_s", "nw_vpu_util_est", "classify_rows_per_s",
-              "accum_gbps", "accum_hbm_util_est", "accum_mxu_util_est",
-              "feat_mxu_util_est"):
-        if k in r:
-            lines.append(f"  {k}: {r[k]:.3g}")
+    if "nw_cells_per_s" in r:
+        lines.append(f"  nw_cells_per_s: {r['nw_cells_per_s']:.3g}")
     return "\n".join(lines)

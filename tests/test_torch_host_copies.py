@@ -2,15 +2,19 @@
 
 meshclust_tpu imports jax at package level, so the port (which runs where
 there is no jax) carries its own copies of the jax-free host modules. Each
-copy must equal its original once two things are normalised: the package
-name, and the upstream MeShClust source prefix that the originals spell as
-an absolute path in a few docstrings.
+copy must equal its original once three things are normalised: the package
+name, the upstream MeShClust source prefix that the originals spell as an
+absolute path in a few docstrings, and utils.perf spans, which the port
+opens where the JAX package has none: every `with perf.phase("..."):` (or
+`_perf.phase`) line holding that one item is removed from both sides and
+its body dedented.
 
 Functions and classes that the port's own modules carry over verbatim are
 held to their originals the same way, by source.
 """
 import inspect
 import os
+import re
 
 import pytest
 
@@ -20,7 +24,7 @@ UPSTREAM_PREFIX = "/" + "root/reference/"
 COPIED_FILES = [
     "config.py", "errors.py", "io/fasta.py", "io/clstr.py", "core/bvec.py",
     "core/rng.py", "core/meanshift.py", "ops/glm.py", "utils/log.py",
-    "utils/progress.py", "utils/perf.py", "native/__init__.py",
+    "utils/progress.py", "native/__init__.py",
     "native/fasta_parser.cpp", "native/refsort.cpp",
     "native/bvec_insert.cpp", "native/red_viterbi.cpp",
     "utils/checkpoint.py", "utils/metrics.py", "ops/align_extra.py",
@@ -57,13 +61,41 @@ def _read(pkg, rel):
         return f.read()
 
 
+SPAN = re.compile(r'^( *)with _?perf\.phase\("[A-Za-z0-9_.]+"\):$')
+
+
+def strip_spans(text):
+    """`text` without its span statements, each one's body dedented by the
+    indent it had under the statement (blank lines are kept as they are)."""
+    out = []
+    open_spans = []     # [the statement's indent, its body's shift or None]
+    for line in text.split("\n"):
+        if line.strip():
+            ind = len(line) - len(line.lstrip(" "))
+            if open_spans and open_spans[-1][1] is None:
+                open_spans[-1][1] = ind - open_spans[-1][0]
+                assert open_spans[-1][1] > 0, line
+            while open_spans and ind <= open_spans[-1][0]:
+                open_spans.pop()
+            shift = sum(b for _, b in open_spans)
+            m = SPAN.match(line)
+            if m:
+                open_spans.append([ind, None])
+                continue
+            line = line[shift:]
+        out.append(line)
+    return "\n".join(out)
+
+
 def _normalise(copy_text):
-    return copy_text.replace("meshclust_tpu_torch", "meshclust_tpu")
+    return strip_spans(copy_text.replace("meshclust_tpu_torch",
+                                         "meshclust_tpu"))
 
 
 @pytest.mark.parametrize("rel", COPIED_FILES)
 def test_copy_equals_original(rel):
-    original = _read("meshclust_tpu", rel).replace(UPSTREAM_PREFIX, "")
+    original = strip_spans(
+        _read("meshclust_tpu", rel).replace(UPSTREAM_PREFIX, ""))
     assert _normalise(_read("meshclust_tpu_torch", rel)) == original
 
 
@@ -127,5 +159,42 @@ def _source(module, qualname):
                          ids=[f"{m}.{q}" for m, _, q in COPIED_OBJECTS])
 def test_carried_object_equals_original(port_mod, orig_mod, qualname):
     got = _source(f"meshclust_tpu_torch.{port_mod}", qualname)
-    want = _source(f"meshclust_tpu.{orig_mod}", qualname)
+    want = strip_spans(_source(f"meshclust_tpu.{orig_mod}", qualname))
     assert _normalise(got) == want
+
+
+ORIGINAL = """def f(xs):
+    total = 0
+    for x in xs:
+        total += x  # the sum
+
+    return total
+"""
+
+
+@pytest.mark.parametrize("copy,equal", [
+    (ORIGINAL, True),
+    (ORIGINAL.replace("    for x in xs:\n        total += x",
+                      "    with perf.phase(\"sum\"):\n"
+                      "        for x in xs:\n            total += x"), True),
+    (ORIGINAL.replace("    for x in xs:\n        total += x",
+                      "    with perf.phase(\"sum\"):\n"
+                      "        with _perf.phase(\"inner\"):\n"
+                      "            for x in xs:\n"
+                      "                total += x"), True),
+    (ORIGINAL.replace("    for x in xs:\n        total += x",
+                      "    with perf.phase(\"sum\"):\n"
+                      "        for x in xs:\n            total -= x"), False),
+    (ORIGINAL.replace("    for x in xs:\n        total += x",
+                      "    with perf.phase(\"sum\"), open(\"f\"):\n"
+                      "        for x in xs:\n            total += x"), False),
+    (ORIGINAL.replace("    total = 0\n",
+                      "    with perf.phase(\"init\"):\n"
+                      "        total = 0\n"
+                      "        # a note\n"), False),
+], ids=["same", "span_removed", "nested_spans_removed",
+        "changed_in_span_body", "span_with_two_items", "line_added_in_span"])
+def test_span_normaliser(copy, equal):
+    """A span added around original lines passes; anything else that
+    differs, inside a span's body or in the statement itself, fails."""
+    assert (strip_spans(copy) == strip_spans(ORIGINAL)) is equal
