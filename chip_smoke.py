@@ -18,16 +18,18 @@ Phases (any failure exits non-zero before the last line):
      flushed L2, beside its other mode and the device featurization
      (launch + narrowing); the NW kernel also on pairs at its thread, warp
      and strip edges (from the constants ops/align_device.py exports),
-     lopsided pairs and one 40 kb x 40 kb pair; Phase A's six kernels
+     lopsided pairs and one 40 kb x 40 kb pair; Phase A's seven kernels
      (csrc/phase_a.cu) on the 15k-read and the 150k-read k-mer corpora's
      Phase A inputs (each from one run of the path): each kernel against
-     its plain step over the first 200 absorb iterations (pa_move, and
-     the mesh path's pa_member_dist and pa_mean_argmin on a copy of the
-     state at each move), then the whole phase's owner, stamp and center
-     slots against the plain path's, in turns (plain, kernels, kernels,
-     plain) with their walls and ms an iteration, each kernel's device
-     time and its plain step's under the profiler (a move through pa_move,
-     and through the mesh path's two kernels), launches an iteration, the
+     its plain step over the first 200 iterations of the chain (pa_window,
+     pa_sums, pa_absorb, pa_move, pa_next; the mesh path's pa_member_dist
+     and pa_mean_argmin on a copy of the state at each move), then the
+     whole phase's owner, stamp and center slots against the plain path's,
+     in turns (plain, kernels, kernels, plain) with their walls and ms an
+     iteration, each kernel's device time and its plain step's under the
+     profiler (a move through pa_move, and through the mesh path's two
+     kernels), the launches (the chain's five into a CUDA graph) and
+     replays, the
      bytes an iteration must move (pa_window's beside a count of every
      flag) and each move's members' first and last tile of owners;
      pa_member_dist and pa_move also on the largest center of the whole
@@ -56,8 +58,9 @@ Phases (any failure exits non-zero before the last line):
      - k-mer mode: 15,000 synthetic reads of ~1 kb, --id 0.90, default
        flags; the native host libraries must have loaded, the run must have
        clustered on the device (DeviceBackend, device Phase A through its
-       kernels, three an absorb iteration and one, pa_move, a move of the
-       center,
+       kernels, driven by the card: the chain's five kernels captured once
+       in a CUDA graph, every iteration the device's, one readback a
+       replay,
        the fused Phase B through its four kernels, each once an iteration,
        no plain step, with no replay fallback; its accumulate and
        phase_b seconds, absorb iterations and readbacks printed) and the
@@ -544,12 +547,15 @@ def check_nw_long(dev) -> dict:
 # phase 3: Phase A's kernels (csrc/phase_a.cu)
 # ---------------------------------------------------------------------------
 
-PHASE_A = ("pa_window", "pa_sums", "pa_absorb", "pa_move", "pa_member_dist",
-           "pa_mean_argmin")
+PHASE_A = ("pa_window", "pa_sums", "pa_absorb", "pa_move", "pa_next",
+           "pa_member_dist", "pa_mean_argmin")
+# The five of an iteration on one rank, in the order of its chain.
+PHASE_A_CHAIN = PHASE_A[:5]
 # The JAX code each Phase A kernel replaces
-# (meshclust_tpu/core/accumulate_device.py).
+# (meshclust_tpu/core/accumulate_device.py; pa_next: the body of its
+# lax.while_loop past the absorb and the move).
 PHASE_A_REPLACES = {"pa_window": 173, "pa_sums": 237, "pa_absorb": 237,
-                    "pa_move": 394, "pa_member_dist": 394,
+                    "pa_move": 394, "pa_next": 87, "pa_member_dist": 394,
                     "pa_mean_argmin": 394}
 # Float64 operations of the classifier on one slot with the default singles
 # (csrc/phase_a.cu:classify; a division or root counted as one), and one
@@ -571,12 +577,16 @@ DIST_ALU_OPS_PER_WORD = 5
 
 @contextlib.contextmanager
 def phase_a_steps(wrap):
-    """ops/phase_a.steps patched so that each step runs as wrap(name, fn)."""
+    """ops/phase_a.steps patched so that each step bound to args runs as
+    wrap(name, the bound step, args)."""
     import types
     from meshclust_tpu_torch.ops import phase_a as P
     steps = P.steps
+
+    def binder(name, bind):
+        return lambda *args: wrap(name, bind(*args), args)
     P.steps = lambda plain: types.SimpleNamespace(**{
-        name: wrap(name, getattr(steps(plain), name)) for name in P.STEPS})
+        name: binder(name, getattr(steps(plain), name)) for name in P.STEPS})
     try:
         yield
     finally:
@@ -584,18 +594,37 @@ def phase_a_steps(wrap):
 
 
 @contextlib.contextmanager
+def eager_chunks():
+    """accumulate_device on one rank with its chunks launched step by step
+    from the host, as on the plain path, in place of a CUDA graph's
+    replays: the same kernels on the same state, so that the host can
+    look between the steps."""
+    from meshclust_tpu_torch.core import accumulate_device as A
+    graph = A._Slots.graph
+    A._Slots.graph = lambda self: self.chunk
+    try:
+        yield
+    finally:
+        A._Slots.graph = graph
+
+
+@contextlib.contextmanager
 def listed_moves():
     """_Slots.move in the mesh path's two steps on one rank, without the
     all-reduce: pa_member_dist listing the members, then pa_mean_argmin over
-    the list (their plain steps on the plain path)."""
+    the list (their plain steps on the plain path), where the iteration
+    absorbed (read back from st: under eager_chunks only)."""
     from meshclust_tpu_torch.core import accumulate_device as A
+    from meshclust_tpu_torch.ops import phase_a as P
     move = A._Slots.move
 
     def two_steps(self, c):
-        self.step.member_dist(self.st, self.owner, c, self.h, self.sumvec,
-                              self.dist, self.part)
+        if int(self.st[P.DONE]) or not int(self.st[P.NPOS]):
+            return
+        self.step.member_dist(self.st, self.owner, self.h, self.sumvec,
+                              self.dist, self.part)()
         self.step.mean_argmin(self.st, self.dist, self.mag, self.owner,
-                              self.stamp, c, self.part)
+                              self.stamp, self.part)()
     A._Slots.move = two_steps
     try:
         yield
@@ -647,7 +676,18 @@ def phase_a_run(ps, bv, params, plain: bool, cmax: int = 0) -> dict:
     c = perf.counters()
     return {"wall": time.time() - t0, "iters": c["accum_iters"],
             "centers": c["accum_centers"], "state": state,
+            "replays": c["accum_replays"], "readbacks": c["accum_readbacks"],
             "launches": {k: _ext.launches[k] for k in PHASE_A}}
+
+
+def phase_a_launches() -> dict:
+    """The Phase A launches of one phase through the kernels on one rank:
+    each kernel of the chain once before the capture and CHUNK times into
+    it (the graph's replays launch no more), the mesh path's none."""
+    from meshclust_tpu_torch.core.accumulate_device import CHUNK
+    want = dict.fromkeys(PHASE_A, 0)
+    want.update(dict.fromkeys(PHASE_A_CHAIN, CHUNK + 1))
+    return want
 
 
 def window_bytes(act, table, last: int, live0: int, tail0: int) -> int:
@@ -724,13 +764,18 @@ def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
     calls = {k: 0 for k in PHASE_A}
     seen, tables = {}, {}
 
-    def wrap(name, fn):
-        def call(*a, **kw):
-            st = a[0]
+    def wrap(name, fn, a):
+        st = a[0]
+
+        def call():
+            calls[f"pa_{name}"] += 1
+            if int(st[P.DONE]):             # past the end: st[DONE] read
+                nbytes[f"pa_{name}"] += 8
+                return fn()
             if name == "window":
                 last, live0, tail0 = st[[P.LAST, P.LIVE, P.TAIL]].tolist()
-            out = fn(*a, **kw)
-            calls[f"pa_{name}"] += 1
+            npos, c = int(st[P.NPOS]), int(st[P.C])
+            out = fn()
             if name == "window":
                 active, ranges = a[1], a[2]
                 if ranges.data_ptr() not in tables:
@@ -757,8 +802,10 @@ def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
                 nbytes["pa_absorb"] += span + win * (8 * K + 24) \
                     + npos * (17 + V * width) + 16 * V
                 ops_s["pa_absorb"] += win * CLASSIFY_FP64_OPS / FP64_OPS_PER_S
+            elif name == "move" and not npos:
+                nbytes["pa_move"] += 16     # st[DONE] and st[NPOS] read
             elif name == "move":
-                members = torch.nonzero(a[1] == a[2]).flatten()
+                members = torch.nonzero(a[1] == c).flatten()
                 m = members.numel()
                 notes["members"] += m
                 for key, size in (("member warps", 32),
@@ -778,10 +825,20 @@ def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
                 nbytes["pa_mean_argmin"] += 28 * m
                 calls["pa_member_dist"] += 1
                 calls["pa_mean_argmin"] += 1
+            elif name == "next":
+                # st's eight slots read, ITERS and T written; where the
+                # center ends its slot, MEMBERS and C; where one begins, the
+                # seed's row read, sumvec written, its owner, stamp and
+                # active and st's LAST and COUNT
+                nbytes["pa_next"] += 80
+                if not npos:
+                    nbytes["pa_next"] += 24
+                    if int(st[P.C]) == c + 1 and not int(st[P.DONE]):
+                        nbytes["pa_next"] += V * width + 8 * V + 33
             return out
         return call
 
-    with phase_a_steps(wrap):
+    with phase_a_steps(wrap), eager_chunks():
         accumulate_device(ps, bv, params, 0.90, cmax_hint=cmax, plain=False)
     n = {k: max(1, calls[k]) for k in PHASE_A}
     of = {"pa_window (all flags)": n["pa_window"], "tiles": 1}
@@ -803,7 +860,9 @@ def phase_a_device_ms(ps, bv, params, plain: bool, cmax: int,
     cut at cmax centers under torch.profiler: on the kernel path each
     kernel's own time, on the plain path the device time of the step's
     range (its ops' kernels); with `listed`, a move as the mesh path's two
-    steps (listed_moves). A step that did not run gets 0."""
+    steps (listed_moves, over eager_chunks). A step that did not run gets
+    0. The kernel path's chunks are a CUDA graph's replays (but for
+    `listed`): the profiler reads its kernels from the device's events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -812,8 +871,9 @@ def phase_a_device_ms(ps, bv, params, plain: bool, cmax: int,
     from meshclust_tpu_torch.utils import perf
     perf.reset()
     torch.cuda.synchronize()
-    with phase_a_steps(ranged), (
-            listed_moves() if listed else contextlib.nullcontext()), profile(
+    with phase_a_steps(lambda name, fn, args: ranged(name, fn)), (
+            listed_moves() if listed else contextlib.nullcontext()), (
+            eager_chunks() if listed else contextlib.nullcontext()), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         accumulate_device(ps, bv, params, 0.90, cmax_hint=cmax, plain=plain)
         torch.cuda.synchronize()
@@ -840,12 +900,13 @@ def phase_a_device_ms(ps, bv, params, plain: bool, cmax: int,
 
 def phase_a_lockstep_errors(ps, bv, params, iters: int) -> dict:
     """Each Phase A kernel against its plain step on the same inputs, for
-    the first `iters` absorb iterations: both _Slots driven as
-    accumulate_device drives them, the max abs difference of every value
-    the next step reads (state buffer, owner, stamp, active, sumvec; sums
-    of the window's live slots; members' distances), per kernel; at each
-    move also the mesh path's pa_member_dist and pa_mean_argmin (on one
-    rank) on a copy of the kernels' state."""
+    the first `iters` iterations: both _Slots driven step by step as a
+    chunk drives them, the max abs difference of every value the next step
+    reads (state buffer with the loop's slots, owner, stamp, active,
+    sumvec, center slots; sums of the window's live slots; members'
+    distances), per kernel; at each move also the mesh path's
+    pa_member_dist and pa_mean_argmin (on one rank) on a copy of the
+    kernels' state."""
     import torch
     from meshclust_tpu_torch.core import accumulate_device as A
     from meshclust_tpu_torch.ops import phase_a as P
@@ -864,60 +925,50 @@ def phase_a_lockstep_errors(ps, bv, params, iters: int) -> dict:
 
     def state(name, *attrs):
         diff(name, (plain.st[: P.COUNT + 1], kern.st[: P.COUNT + 1]),
+             (plain.st[P.DONE: P.T + 1], kern.st[P.DONE: P.T + 1]),
              *((getattr(plain, x), getattr(kern, x)) for x in attrs))
 
     for sl in both:
         sl.active[:1] = False
-    c = t = seed = done = 0
-    while done < iters:
+        sl.begin(0, 0, 0)
+    done = 0
+    while done < iters and not int(kern.st[P.DONE]):
         for sl in both:
-            sl.begin(seed, c, t)
-        t += 1
-        while done < iters:
-            for sl in both:
-                sl.window()
-            state("pa_window")
-            for sl in both:
-                sl.step.sums(sl.st, sl.active, sl.h, sl.sums)
-            w0, w1 = kern.st[P.W0: P.W1 + 1].tolist()
-            live = torch.nonzero(kern.active[w0: w1 + 1]).flatten() + w0
-            diff("pa_sums", (plain.sums[:, live], kern.sums[:, live]))
-            for sl in both:
-                sl.step.absorb(sl.st, sl.sums, sl.model, sl.mag, sl.sq,
-                               sl.lenf, sl.owner, sl.stamp, sl.active, sl.h,
-                               sl.sumvec, c, t, sl.part)
-            state("pa_absorb", "owner", "stamp", "active", "sumvec")
-            n_pos, best, _, live_slot = kern.st[: P.LIVE + 1].tolist()
-            t += 1
-            done += 1
-            if n_pos == 0:
-                break
+            sl.window()
+        state("pa_window")
+        for sl in both:
+            sl.sweep()
+        w0, w1 = kern.st[P.W0: P.W1 + 1].tolist()
+        live = torch.nonzero(kern.active[w0: w1 + 1]).flatten() + w0
+        diff("pa_sums", (plain.sums[:, live], kern.sums[:, live]))
+        for sl in both:
+            sl.absorb_step()
+        state("pa_absorb", "owner", "stamp", "active", "sumvec")
+        moved = int(kern.st[P.NPOS]) > 0
+        done += 1
+        if moved:
             st2.copy_(kern.st)
-            P.member_dist(st2, kern.owner, c, kern.h, kern.sumvec, dist2,
-                          part2)
-            for sl in both:
-                sl.move(c)
-            members = torch.nonzero(kern.owner == c).flatten()
+            P.member_dist(st2, kern.owner, kern.h, kern.sumvec, dist2, part2)
+        for sl in both:
+            sl.move(None)
+        if moved:
+            members = torch.nonzero(kern.owner == kern.st[P.C]).flatten()
             for name, got in (("pa_move", kern.dist),
                               ("pa_member_dist", dist2)):
                 diff(name, (plain.dist[members], got[members]),
                      (plain.dist[N:], got[N:]))
-            P.mean_argmin(st2, dist2, kern.mag, kern.owner, kern.stamp, c,
+            P.mean_argmin(st2, dist2, kern.mag, kern.owner, kern.stamp,
                           part2)
-            state("pa_move")
             diff("pa_mean_argmin", (plain.st[P.LAST: P.LAST + 1],
                                     st2[P.LAST: P.LAST + 1]),
                  (st2[P.TICKET: P.LIST + 1], torch.zeros_like(
                      st2[P.TICKET: P.LIST + 1])))
-            diff("pa_move", (kern.st[P.TICKET: P.LIST + 1],
-                             torch.zeros_like(kern.st[P.TICKET:
-                                                      P.LIST + 1])))
-        c += 1
-        seed = best if best < N else live_slot
-        if seed >= N:
-            break
+        state("pa_move")
+        diff("pa_move", (kern.st[P.TICKET: P.LIST + 1],
+                         torch.zeros_like(kern.st[P.TICKET: P.LIST + 1])))
         for sl in both:
-            sl.active[seed] = False
+            sl.next_step()
+        state("pa_next", "owner", "stamp", "active", "sumvec", "center_slot")
     return err
 
 
@@ -1010,12 +1061,12 @@ def check_member_dist(ps, bv, params, owner, flush) -> dict:
     own = torch.as_tensor(owner).to(sl.h.device)
     members = torch.nonzero(own == c).flatten()
     st, _ = P.new_state(n, sl.h.device)
-    st[P.COUNT] = members.numel()
+    st[P.COUNT], st[P.C] = members.numel(), c
     sumvec = sl.h[members].to(torch.int64).sum(0)
     got = torch.full((n + 1,), -7, dtype=torch.int64, device=sl.h.device)
     want = torch.zeros_like(got)
-    P.member_dist(st, own, c, sl.h, sumvec, got)
-    P.member_dist_plain(st, own, c, sl.h, sumvec, want)
+    P.member_dist(st, own, sl.h, sumvec, got)
+    P.member_dist_plain(st, own, sl.h, sumvec, want)
     at = torch.cat([members, members.new_tensor([n])])
     rows32 = sl.h[members].to(torch.float32)
     cw32 = mean_floor(sumvec, st[P.COUNT]).to(torch.float32)
@@ -1024,7 +1075,7 @@ def check_member_dist(ps, bv, params, owner, flush) -> dict:
         return torch.cdist(rows32, cw32[None], p=1.0)[:, 0]
 
     def kernel():
-        P.member_dist(st, own, c, sl.h, sumvec, got)
+        P.member_dist(st, own, sl.h, sumvec, got)
     two_min = rows32.sum(1) + cw32.sum() - lib()
     return {"members": members.numel(),
             "max_abs_err": max_abs_err(got[at], want[at]),
@@ -1056,13 +1107,13 @@ def check_move(ps, bv, params, state, flush) -> dict:
     stamp = torch.as_tensor(state["stamp"]).to(dev)
     members = torch.nonzero(own == c).flatten()
     st, part = P.new_state(n, dev)
-    st[P.COUNT] = members.numel()
+    st[P.COUNT], st[P.C], st[P.NPOS] = members.numel(), c, 1
     sumvec = sl.h[members].to(torch.int64).sum(0)
     got = torch.full((n + 1,), -7, dtype=torch.int64, device=dev)
     want = torch.zeros_like(got)
     st_p = st.clone()
-    P.move(st, own, c, sl.h, sumvec, sl.mag, stamp, got, part)
-    P.move_plain(st_p, own, c, sl.h, sumvec, sl.mag, stamp, want, part)
+    P.move(st, own, sl.h, sumvec, sl.mag, stamp, got, part)
+    P.move_plain(st_p, own, sl.h, sumvec, sl.mag, stamp, want, part)
     at = torch.cat([members, members.new_tensor([n])])
     err = max(max_abs_err(got[at], want[at]),
               max_abs_err(st[: P.LIST + 1], st_p[: P.LIST + 1]))
@@ -1077,11 +1128,11 @@ def check_move(ps, bv, params, state, flush) -> dict:
         return torch.argmin(10000.0 * (1.0 - frac * frac))
 
     def kernel():
-        P.move(st, own, c, sl.h, sumvec, sl.mag, stamp, got, part)
+        P.move(st, own, sl.h, sumvec, sl.mag, stamp, got, part)
 
     def two():
-        P.member_dist(st, own, c, sl.h, sumvec, got, part)
-        P.mean_argmin(st, got, sl.mag, own, stamp, c, part)
+        P.member_dist(st, own, sl.h, sumvec, got, part)
+        P.mean_argmin(st, got, sl.mag, own, stamp, part)
     tile = 2 * P.THREADS * P.OWNER_LOADS
     return {"members": members.numel(), "max_abs_err": err,
             "tiles": (int(members[0]) // tile, int(members[-1]) // tile,
@@ -1157,6 +1208,7 @@ def check_phase_a(dev) -> list:
     beside the two launches and their yardsticks; and the bound. Returns
     the six kernels' rows (at 15k, the main path's shapes)."""
     import torch
+    from meshclust_tpu_torch.core import accumulate_device as A
     from meshclust_tpu_torch.ops import phase_a as P
     found = {}
     for n in (15000, 150000):
@@ -1176,9 +1228,7 @@ def check_phase_a(dev) -> list:
                  f"step ({err})")
         iters, centers = runs[1]["iters"], runs[1]["centers"]
         launched = runs[1]["launches"]
-        want = dict.fromkeys(PHASE_A[:3], iters)
-        want.update(pa_move=iters - centers, pa_member_dist=0,
-                    pa_mean_argmin=0)
+        want = phase_a_launches()
         if launched != want:
             fail(f"Phase A at {n} reads launched {launched}, not {want}")
         per_launch, ops_s, total_bytes, notes = phase_a_traffic(ps, bv,
@@ -1196,8 +1246,9 @@ def check_phase_a(dev) -> list:
               f"{runs[0]['wall']:.4f}, kernels {runs[1]['wall']:.4f}, "
               f"kernels {runs[2]['wall']:.4f}, plain {runs[3]['wall']:.4f}; "
               f"ms an iteration: kernels {k_it[0]:.4f}-{k_it[1]:.4f}, plain "
-              f"{p_it[0]:.4f}-{p_it[1]:.4f}; Phase A launches an iteration "
-              f"{sum(launched.values()) / iters:.4f} ({launched}); bound "
+              f"{p_it[0]:.4f}-{p_it[1]:.4f}; {runs[1]['replays']:.0f} "
+              f"replays of {len(PHASE_A_CHAIN)} x {A.CHUNK} launches, "
+              f"{runs[1]['readbacks']:.0f} readbacks; bound "
               f"{total_bytes / iters / HBM_BYTES_PER_S * 1e3:.5f} ms an "
               f"iteration ({total_bytes / iters:.0f} B at "
               f"{HBM_BYTES_PER_S:.3g} B/s) (took {time.time() - t0:.1f} s, "
@@ -1786,13 +1837,19 @@ def main_path(dev) -> dict:
     if fused != [True]:
         fail(f"the fused Phase B fell back to the host or did not run "
              f"(kept per call: {fused})")
-    iters, centers = counters["accum_iters"], counters["accum_centers"]
-    want = dict.fromkeys(PHASE_A[:3], iters)
-    want.update(pa_move=iters - centers, pa_member_dist=0, pa_mean_argmin=0)
+    want = phase_a_launches()
     if {k: launches[k] for k in PHASE_A} != want:
         fail(f"the k-mer run's Phase A kernels launched "
-             f"{ {k: launches[k] for k in PHASE_A} }, not {want} (three an "
-             f"absorb iteration, one more a move of the center)")
+             f"{ {k: launches[k] for k in PHASE_A} }, not {want} (the "
+             f"chain's five kernels once before the capture and once an "
+             f"iteration into it)")
+    if counters["accum_device_iters"] != counters["accum_iters"] or \
+            counters["accum_readbacks"] != counters["accum_replays"] + 1:
+        fail(f"the k-mer run's Phase A was not driven by the card: "
+             f"{counters['accum_device_iters']:.0f} of "
+             f"{counters['accum_iters']:.0f} iterations, "
+             f"{counters['accum_readbacks']:.0f} readbacks in "
+             f"{counters['accum_replays']:.0f} replays")
     if {k: launches[k] for k in PHASE_B} != dict.fromkeys(PHASE_B,
                                                            PB_ITERS):
         fail(f"the k-mer run's Phase B kernels launched "
@@ -1809,7 +1866,8 @@ def main_path(dev) -> dict:
           f"{phases.get('phase_b', 0.0):.4f} s, accum_iters "
           f"{counters['accum_iters']:.0f}, accum_centers "
           f"{counters['accum_centers']:.0f}, accum_readbacks "
-          f"{counters['accum_readbacks']:.0f}", flush=True)
+          f"{counters['accum_readbacks']:.0f}, accum_replays "
+          f"{counters['accum_replays']:.0f}", flush=True)
     check_nmi(out, NMI_MIN)
     exact_out = os.path.join(WORK, "smoke_15k_exact.clstr")
     res, _ = drive(dev, "k-mer path --id 0.90 --exact", bench_corpus(),
@@ -2363,8 +2421,8 @@ def ranks_path(kmer_launches: dict) -> dict:
                  f"{o['counters']['accum_iters']:.0f} absorb iterations")
         moves = o["counters"]["accum_iters"] - o["counters"]["accum_centers"]
         got = [o["launches"][k] for k in ("pa_member_dist", "pa_mean_argmin",
-                                          "pa_move")]
-        if got != [moves, moves, 0]:
+                                          "pa_move", "pa_next")]
+        if got != [moves, moves, 0, 0]:
             fail(f"rank {o['rank']} moved {moves:.0f} centers with "
                  f"pa_member_dist, pa_mean_argmin and pa_move launched {got} "
                  f"times (a move under the mesh: the first two once each)")

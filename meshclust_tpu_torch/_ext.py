@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches: Dict[str, int] = {"kmer_hist": 0, "nw_align_long": 0,
                              "pa_window": 0, "pa_sums": 0, "pa_absorb": 0,
                              "pa_member_dist": 0, "pa_mean_argmin": 0,
-                             "pa_move": 0, "pb_band": 0, "pb_dist": 0,
+                             "pa_move": 0, "pa_next": 0, "pb_band": 0, "pb_dist": 0,
                              "pb_pick": 0, "pb_merge": 0}
 
 _lock = threading.Lock()
@@ -57,18 +57,20 @@ _SIGNATURES = {
     # st, active, rows, row stride, V, width, n, with_dot, sums, stream
     "mc_pa_sums": [_P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
     # st, sums, with_dot, spec, n_spec, coef, n_coef, mag, sq, lenf, owner,
-    # stamp, active, rows, row stride, V, width, sumvec, n, c, t, part,
-    # stream
+    # stamp, active, rows, row stride, V, width, sumvec, n, part, stream
     "mc_pa_absorb": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                     _L, _I, _I, _P, _I, _L, _L, _P, _P],
-    # st, owner, c, rows, row stride, V, width, sumvec, n, dist, part (or
-    # null: no member list), stream
-    "mc_pa_member_dist": [_P, _P, _L, _P, _L, _I, _I, _P, _I, _P, _P, _P],
+                     _L, _I, _I, _P, _I, _P, _P],
+    # st, owner, rows, row stride, V, width, sumvec, n, dist, part (or null:
+    # no member list), stream
+    "mc_pa_member_dist": [_P, _P, _P, _L, _I, _I, _P, _I, _P, _P, _P],
     # st, dist, mag, stamp, n, part, stream
     "mc_pa_mean_argmin": [_P, _P, _P, _P, _I, _P, _P],
-    # st, owner, c, rows, row stride, V, width, sumvec, n, mag, stamp, dist,
+    # st, owner, rows, row stride, V, width, sumvec, n, mag, stamp, dist,
     # part, stream
-    "mc_pa_move": [_P, _P, _L, _P, _L, _I, _I, _P, _I, _P, _P, _P, _P, _P],
+    "mc_pa_move": [_P, _P, _P, _L, _I, _I, _P, _I, _P, _P, _P, _P, _P],
+    # st, active, owner, stamp, rows, row stride, V, width, sumvec,
+    # center_slot, n, cmax, stream
+    "mc_pa_next": [_P, _P, _P, _P, _P, _L, _I, _I, _P, _P, _I, _L, _P],
     # rows, row stride, hist, hist stride, V, width, m_idx, m_valid (or
     # null), M, assign, remap, c_idx, c_valid, C, mag, sq, lenf, spec,
     # n_spec, coef, n_coef, delta, bits, sc, best_d, best_pos, M_all,

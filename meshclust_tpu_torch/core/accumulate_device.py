@@ -14,21 +14,25 @@ one). Here the state lives on the device, over
   limits of its length. Dynamic: active (still in the bvec), owner (center
   id of an absorbed slot), stamp (absorb iteration).
 
-torch has no while_loop, so the host drives both loops. Each absorb
-iteration is three steps of ops/phase_a (pa_window, pa_sums, pa_absorb)
-followed by ONE readback of four scalars (positives absorbed, first-max
-candidate, current center slot, first live slot), and, when it absorbed,
-one more (pa_move) that moves the center. On a CUDA
-device the steps are hand-written kernels (csrc/phase_a.cu) that read only
-the live window's rows, in their storage dtype, and the members' rows; on
-the CPU, or with plain=True, they are their plain torch versions, which
-sweep all N slots masked to the window. The scalars live in one int64
-state buffer on the device and the state is set with fill_ (assigning a
-Python number copies it from the host), so nothing else syncs. The
-decisions are the float64 classifier of core/classify.py in the same op
-order, bit-equal to the host path. Ties take the first occurrence:
-candidates in slot order (the reference's iteration order), members in
-(stamp, slot) order (its member-list order).
+On one rank the loop's control is on the device too: an iteration is a
+fixed chain of five steps of ops/phase_a (pa_window, pa_sums, pa_absorb,
+pa_move, which moves the center only if the iteration absorbed, and
+pa_next, which ends a center, records its slot and seeds the next one, or
+sets the done flag), each a no-op once the flag is set. So the host runs
+CHUNK iterations at a time and reads back once a chunk: [done, iterations,
+centers, members] (the members of the centers recorded, for the progress
+bar). On a CUDA device the steps are hand-written kernels
+(csrc/phase_a.cu) that read only the live window's rows, in their storage
+dtype, and the members' rows, and a chunk is one replay of a CUDA graph
+captured once a phase; on the CPU, or with plain=True, they are their
+plain torch versions, which sweep all N slots masked to the window, run
+eagerly a chunk at a time. A phase runs at most CHUNK - 1 iterations past
+its end. The scalars live in one int64 state buffer on the device and the
+state is set with fill_ (assigning a Python number copies it from the
+host), so nothing else syncs. The decisions are the float64 classifier of
+core/classify.py in the same op order, bit-equal to the host path. Ties
+take the first occurrence: candidates in slot order (the reference's
+iteration order), members in (stamp, slot) order (its member-list order).
 
 Window bounds reproduce bvec::get_range (bvec.cpp:52-149, 246-278): the
 window's lengths (length * sim, length / sim) are computed on the host in
@@ -44,9 +48,12 @@ count of all V), and each reduction over V is one SUM across ranks of exact
 int64 partials: the Manhattan and dot sums of a sweep ([2, N]) and the
 mean's distance sums with the sum of the floored mean ([N + 1]). The
 mean's sums stay on the slice, so there the move is two steps around that
-SUM (pa_member_dist, pa_mean_argmin); the slot state is replicated and
-identical on every rank, so each rank reads back the same four scalars an
-iteration.
+SUM (pa_member_dist, pa_mean_argmin). The host drives that loop, an
+iteration at a time, and writes the center's id and the absorb's stamp
+into the state buffer; the slot state is replicated and identical on every
+rank, so each rank reads back the same four scalars an iteration
+(positives absorbed, first-max candidate, current center slot, first live
+slot).
 Phase A runs replicated when V is not a multiple of the ranks or
 MESHCLUST_PHASEA_SHARD=0.
 """
@@ -54,7 +61,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -111,15 +118,21 @@ def window_ranges(lens, sizes, lo, hi, front_bin, back_bin) -> np.ndarray:
     return np.stack(cols, axis=1).astype(np.int32)
 
 
+# Iterations a chunk on one rank: a replay of the graph, one readback.
+CHUNK = 32
+
+
 class _Slots:
-    """Phase A's state on the device, and its two steps: absorb (pa_window,
-    pa_sums, pa_absorb, one readback) and move (pa_move; under a mesh
-    pa_member_dist and pa_mean_argmin), through ops/phase_a's kernels or,
-    with `plain`, their plain versions (rows widened once per phase to
-    row_dtype)."""
+    """Phase A's state on the device, and its steps bound to it once
+    (ops/phase_a's binders: their checks made here, not at each launch)
+    through ops/phase_a's kernels or, with `plain`, their plain versions
+    (rows widened once per phase to row_dtype). One rank: iteration, its
+    five steps. Under a mesh: absorb (pa_window, pa_sums, the SUM,
+    pa_absorb, one readback) and move (pa_member_dist, the SUM,
+    pa_mean_argmin)."""
 
     def __init__(self, ps, bv, params: F.FeatureParams, sim: float,
-                 mesh=None, plain: bool = True):
+                 mesh=None, plain: bool = True, cmax: int = 0):
         self.mesh = mesh
         self.point = np.concatenate([np.asarray(b, np.int64)
                                      for b in bv.idx])
@@ -155,7 +168,7 @@ class _Slots:
         # [N, V] rows in slot order (this rank's [N, V/n] slice): widened
         # once per phase for the plain steps; the kernels widen in registers
         self.h = h.contiguous().to(rows) if plain else h
-        self.step = P.steps(plain)
+        self.step = step = P.steps(plain)
         f64 = {"dtype": torch.float64, "device": dev}
         self.mag = torch.as_tensor(ps.mag[self.point], **f64)
         self.sq = torch.as_tensor(ps.sq[self.point], **f64)
@@ -168,12 +181,25 @@ class _Slots:
         self.sums = torch.zeros((2 if self.model.with_dot else 1, N),
                                 dtype=torch.int64, device=dev)
         self.dist = torch.zeros(N + 1, dtype=torch.int64, device=dev)
-        self.sumvec = None
+        self.sumvec = torch.zeros(self.h.shape[1], dtype=torch.int64,
+                                  device=dev)
+        self.center_slot = torch.zeros(N + 1, dtype=torch.int64, device=dev)
         self.wait_s = 0.0
-
-    def window(self) -> None:
-        """pa_window (or its plain step) for the center st[LAST]."""
-        self.step.window(self.st, self.active, *self.window_in)
+        self.window = step.window(self.st, self.active, *self.window_in)
+        self.sweep = step.sums(self.st, self.active, self.h, self.sums)
+        # the move's one step (a mesh: its first, before the SUM)
+        self.move_step = step.move(
+            self.st, self.owner, self.h, self.sumvec, self.mag, self.stamp,
+            self.dist, self.part) if mesh is None else step.member_dist(
+            self.st, self.owner, self.h, self.sumvec, self.dist, self.part)
+        if mesh is None:
+            self.absorb_step = step.absorb(
+                self.st, self.sums, self.model, self.mag, self.sq, self.lenf,
+                self.owner, self.stamp, self.active, self.h, self.sumvec,
+                self.part)
+            self.next_step = step.next(self.st, self.active, self.owner,
+                                       self.stamp, self.h, self.sumvec,
+                                       self.center_slot, cmax or N + 1)
 
     def window_bounds(self, last):
         """(w0, w1) of the center at slot `last` (a tensor) on the live
@@ -183,50 +209,135 @@ class _Slots:
         return self.st[P.W0], self.st[P.W1]
 
     def begin(self, seed: int, c: int, t: int) -> None:
-        """Center c starts at slot seed: its only member, stamped t."""
+        """Center c starts at slot seed: its only member, stamped t; the
+        next absorb's stamp is t + 1."""
         self.owner[seed: seed + 1].fill_(c)
         self.stamp[seed: seed + 1].fill_(t)
         self.st[P.LAST: P.LAST + 1].fill_(seed)
         self.st[P.COUNT: P.COUNT + 1].fill_(1)
-        self.sumvec = self.h[seed].to(torch.int64, copy=True)
+        self.st[P.C: P.C + 1].fill_(c)
+        self.st[P.T: P.T + 1].fill_(t + 1)
+        self.sumvec.copy_(self.h[seed])
 
-    def absorb(self, c: int, t: int) -> list:
-        """Classify the live window against the center (a = the center, as
-        in HostBackend.classify) and absorb the positives into center c at
-        stamp t. -> [positives, the window's first max of f1 (N if
-        empty), the center's slot, the first live slot], the iteration's
-        one readback. (The first live slot is taken before the absorb: it
-        is read only when nothing was absorbed.)"""
-        st, step = self.st, self.step
+    def iteration(self) -> None:
+        """One rank: an iteration's five steps, with no host decision."""
         self.window()
-        step.sums(st, self.active, self.h, self.sums)
-        sums = self.sums if self.mesh is None else dist.psum(
-            self.sums, self.mesh, "accumulate")
-        step.absorb(st, sums, self.model, self.mag, self.sq, self.lenf,
-                    self.owner, self.stamp, self.active, self.h, self.sumvec,
-                    c, t, self.part)
-        return self.readback()
+        self.sweep()
+        self.absorb_step()
+        self.move(None)
+        self.next_step()
 
-    def readback(self) -> list:
-        """st[:LIVE + 1]: the iteration's one device-to-host read, which
-        waits for the steps before it; the host's wait is summed in
-        wait_s."""
+    def chunk(self) -> None:
+        """CHUNK iterations, launched as they come."""
+        for _ in range(CHUNK):
+            self.iteration()
+
+    def graph(self):
+        """chunk captured in a CUDA graph: -> its replay. Every buffer is
+        the phase's own, so the capture allocates nothing. Each kernel is
+        launched once before it, with the done flag set (each returns at
+        once), so that none is first loaded inside the capture."""
+        done = self.st[P.DONE: P.DONE + 1]
+        done.fill_(1)
+        self.iteration()
+        done.fill_(0)
+        g = torch.cuda.CUDAGraph()
+        main = torch.cuda.current_stream(self.st.device)
+        side = torch.cuda.Stream(self.st.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            g.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.chunk()
+            finally:
+                g.capture_end()
+        main.wait_stream(side)
+        return g.replay
+
+    def readback(self, a: int, b: int) -> list:
+        """st[a:b]: a device-to-host read, which waits for the steps before
+        it; the host's wait is summed in wait_s."""
         t = time.perf_counter()
-        out = self.st[: P.LIVE + 1].tolist()
+        out = self.st[a: b].tolist()
         self.wait_s += time.perf_counter() - t
         return out
 
-    def move(self, c: int) -> None:
-        """The center moves to c's member closest to the members' mean."""
+    def absorb(self, t: int) -> list:
+        """Under a mesh: classify the live window against the center (a =
+        the center, as in HostBackend.classify) and absorb the positives
+        into center st[C] at stamp t. -> [positives, the window's first max
+        of f1 (N if empty), the center's slot, the first live slot], the
+        iteration's one readback. (The first live slot is taken before the
+        absorb: it is read only when nothing was absorbed.)"""
+        st, step = self.st, self.step
+        st[P.T: P.T + 1].fill_(t)
+        self.window()
+        self.sweep()
+        sums = dist.psum(self.sums, self.mesh, "accumulate")
+        step.absorb(st, sums, self.model, self.mag, self.sq, self.lenf,
+                    self.owner, self.stamp, self.active, self.h, self.sumvec,
+                    self.part)()
+        return self.readback(0, P.LIVE + 1)
+
+    def move(self, c: Optional[int]) -> None:
+        """The center moves to its member closest to the members' mean.
+        One rank: pa_move, a no-op where the iteration absorbed nothing (c
+        is None: st[C] alone holds the center's id). Under a mesh, where
+        the iteration absorbed: pa_member_dist, the SUM, pa_mean_argmin (c,
+        the host's copy of st[C], which the steps read)."""
+        self.move_step()
         if self.mesh is None:
-            self.step.move(self.st, self.owner, c, self.h, self.sumvec,
-                           self.mag, self.stamp, self.dist, self.part)
             return
-        self.step.member_dist(self.st, self.owner, c, self.h, self.sumvec,
-                              self.dist, self.part)
         d = dist.psum(self.dist, self.mesh, "accumulate")
         self.step.mean_argmin(self.st, d, self.mag, self.owner, self.stamp,
-                              c, self.part)
+                              self.part)()
+
+
+def _device_loop(s: _Slots, graphed: bool, prog: Progress) -> tuple:
+    """One rank: the chain CHUNK iterations at a time, a CUDA graph's
+    replay where `graphed`, until the done flag. -> (iterations, centers,
+    chunks)."""
+    s.active[:1].fill_(False)                    # pop() the first seed
+    s.begin(0, 0, 0)
+    run = s.graph() if graphed else s.chunk
+    chunks = taken = 0
+    while True:
+        run()
+        chunks += 1
+        done, iters, centers, members = s.readback(P.DONE, P.MEMBERS + 1)
+        prog += members - taken
+        taken = members
+        if done:
+            return iters, centers, chunks
+
+
+def _mesh_loop(s: _Slots, cmax: int, prog: Progress) -> tuple:
+    """Under a mesh: the host drives both loops, an iteration at a time.
+    -> (iterations, centers)."""
+    N = s.N
+    n_centers = t = seed = iters = 0
+    s.active[:1].fill_(False)                    # pop() the first seed
+    while True:
+        c = n_centers
+        s.begin(seed, c, t)
+        t += 1
+        n_members = 1
+        while True:
+            n_pos, best, last_h, live = s.absorb(t)
+            t += 1
+            iters += 1
+            if n_pos == 0:
+                break
+            n_members += n_pos
+            s.move(c)
+        s.center_slot[c: c + 1].fill_(last_h)
+        n_centers += 1
+        prog += n_members
+        # next seed: the window's best candidate (erased), else pop()
+        seed = best if best < N else live
+        if seed >= N or n_centers >= cmax:
+            return iters, n_centers
+        s.active[seed: seed + 1].fill_(False)
 
 
 def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
@@ -243,8 +354,12 @@ def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
     that receives the final slot state (owner, stamp, active, center_slot,
     point: numpy, in slot order), for checks. Span accum_loop: the
     absorb/move loop. Counters: accum_iters (absorb iterations),
-    accum_centers, accum_readbacks (device-to-host reads) and accum_wait_s
-    (host seconds blocked in the iterations' readbacks)."""
+    accum_centers, accum_readbacks (device-to-host reads: one a chunk, or
+    under a mesh one an iteration, and one of the final state),
+    accum_wait_s (host seconds blocked in the loop's readbacks),
+    accum_replays (chunks on one rank: a graph's replays on the card) and
+    accum_device_iters (the iterations the device's control ran: all of
+    them on one rank, none under a mesh)."""
     from meshclust_tpu_torch.core.meanshift import Center
     if mesh is not None and (
             ps.V % mesh.size
@@ -252,46 +367,31 @@ def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
         mesh = None
     if sum(len(b) for b in bv.idx) == 0:
         return []
-    s = _Slots(ps, bv, params, sim, mesh,
-               ps.device.type == "cpu" if plain is None else plain)
+    plain = ps.device.type == "cpu" if plain is None else plain
+    s = _Slots(ps, bv, params, sim, mesh, plain, cmax_hint)
     N = s.N
-    cmax = cmax_hint or (N + 1)
-    center_slot: List[int] = []
-    t = seed = iters = 0
     prog = Progress(N + 1, "Accumulation")
-    s.active[:1].fill_(False)                    # pop() the first seed
     with perf.phase("accum_loop"):
-        while True:
-            c = len(center_slot)
-            s.begin(seed, c, t)
-            t += 1
-            n_members = 1
-            while True:
-                n_pos, best, last_h, live = s.absorb(c, t)
-                t += 1
-                iters += 1
-                if n_pos == 0:
-                    break
-                n_members += n_pos
-                s.move(c)
-            center_slot.append(last_h)
-            prog += n_members
-            # next seed: the window's best candidate (erased), else pop()
-            seed = best if best < N else live
-            if seed >= N or len(center_slot) >= cmax:
-                break
-            s.active[seed: seed + 1].fill_(False)
+        if mesh is None:
+            iters, n_centers, chunks = _device_loop(
+                s, s.st.device.type == "cuda" and not plain, prog)
+            device_iters = iters
+        else:
+            iters, n_centers = _mesh_loop(s, cmax_hint or N + 1, prog)
+            chunks = device_iters = 0
     prog.end()
-    owner, stamp = torch.stack([s.owner, s.stamp]).cpu().numpy()
-    n_centers = len(center_slot)
+    out = torch.cat([s.owner, s.stamp, s.center_slot[:n_centers]]).cpu()
+    owner, stamp = out[:N].numpy(), out[N: 2 * N].numpy()
+    center_slot = out[2 * N:].numpy()
     if state is not None:
         state.update(owner=owner, stamp=stamp, active=s.active.cpu().numpy(),
-                     center_slot=np.asarray(center_slot, np.int64),
-                     point=s.point)
+                     center_slot=center_slot, point=s.point)
     perf.add("accum_iters", float(iters))
     perf.add("accum_centers", float(n_centers))
-    perf.add("accum_readbacks", float(iters + 2))
+    perf.add("accum_readbacks", float((chunks or iters) + 1))
     perf.add("accum_wait_s", s.wait_s)
+    perf.add("accum_replays", float(chunks))
+    perf.add("accum_device_iters", float(device_iters))
 
     # group members by owner keeping (stamp, slot) insertion order
     order = np.lexsort((np.arange(N), stamp))   # (stamp, slot) order

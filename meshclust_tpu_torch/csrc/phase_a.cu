@@ -1,11 +1,13 @@
-// Phase A's absorb iteration for Hopper (sm_90a): six kernels over the live
-// window, with the slot state on the device.
+// Phase A's absorb iteration for Hopper (sm_90a): seven kernels over the live
+// window, with the slot state and the loop's control on the device.
 //
 // Replaces, as XLA and not Pallas, the absorb iteration of
 // meshclust_tpu/core/accumulate_device.py:87 build_accumulate: its
 // window_bounds (:173), classify_full (:237) and mean_argmin_full (:394),
-// which the JAX package runs inside one lax.while_loop. The port's host loop
-// (core/accumulate_device.py) launches, an absorb iteration:
+// which the JAX package runs inside one lax.while_loop. On one rank an
+// iteration is a fixed chain of five launches, with no host decision in it
+// (core/accumulate_device.py captures CHUNK iterations in a CUDA graph and
+// replays it until st[kDone] is set):
 //   pa_window       the live window [w0, w1] of the center (bvec::get_range,
 //                   every case of bvec::inner_index_of) and the first and
 //                   last live slots, as firsts and lasts of live flags in
@@ -13,17 +15,23 @@
 //   pa_sums         man = sum |a - b| and dot = sum a * b of the center's row
 //                   against each live row of the window (Scorer.sums), int64;
 //   pa_absorb       the float64 classifier on each live slot of the window
-//                   (Scorer.__call__), the absorb of the positives (owner,
-//                   stamp, active, n_pos, their rows added into sumvec) and
-//                   the first max of f1 (the next seed);
-// then the host reads back four scalars, and if the iteration absorbed, it
-// moves the center, on one rank in one launch:
-//   pa_move         mean_argmin_full (:394): cw = floor(sumvec / count),
-//                   2 * sum min(h, cw) of each member's row (owner == c) and
-//                   sum cw, and the member closest to the mean by
-//                   distance_d, ties to the least stamp, then the least
-//                   slot: the new center;
-// and under a mesh in two, around the all-reduce of the distances:
+//                   (Scorer.__call__), the absorb of the positives into the
+//                   center st[kC] at stamp st[kT] (owner, stamp, active,
+//                   n_pos, their rows added into sumvec) and the first max of
+//                   f1 (the next seed);
+//   pa_move         if the iteration absorbed: mean_argmin_full (:394): cw =
+//                   floor(sumvec / count), 2 * sum min(h, cw) of each
+//                   member's row (owner == c) and sum cw, and the member
+//                   closest to the mean by distance_d, ties to the least
+//                   stamp, then the least slot: the new center;
+//   pa_next         the host loop's decisions: if nothing was absorbed, the
+//                   center's slot recorded and the next center seeded (the
+//                   window's best candidate, else the first live slot), or
+//                   the phase done; the stamp and iteration counters.
+// Every one of them returns at once when st[kDone] is set, so iterations
+// past the phase's end change nothing. Under a mesh the host drives the loop
+// (an all-reduce sits between the kernels) and writes c and t into st; the
+// move is two launches around the all-reduce of the distances:
 //   pa_member_dist  pa_move's distances, and the members listed;
 //   pa_mean_argmin  pa_move's argmin over that list.
 // Under a mesh (parallel/dist) each rank's pa_sums and pa_member_dist write
@@ -31,9 +39,12 @@
 // before the next kernel.
 //
 // State: st, one int64 buffer (ops/phase_a.py names its slots): n_pos, best,
-// center slot, first live slot (the readback), w0, w1, the member count, the
-// last live slot, pa_absorb's ticket, pa_move's counter and the length of
-// pa_member_dist's list. Every reduction is exact and independent of the
+// center slot, first live slot, w0, w1, the member count, the last live
+// slot, pa_absorb's ticket, pa_move's counter, the length of
+// pa_member_dist's list, then the loop's: the done flag, the iterations,
+// the current center's id (the number of centers recorded before it), the
+// members of the recorded centers (the host reads these four back once a
+// replay) and the stamp of the next absorb. Every reduction is exact and independent of the
 // order in which blocks run: integer atomicAdd, or per-block partials that
 // the last block to finish (the one that draws the last ticket, or whose
 // members complete the count) combines under explicit tie rules. So every
@@ -57,7 +68,9 @@
 //                   written (8 B);
 //   pa_member_dist  pa_move's owners, rows and sumvec, the dist and the
 //                   list (4 B) of each member written;
-//   pa_mean_argmin  the list, dist, mag and stamp of each member.
+//   pa_mean_argmin  the list, dist, mag and stamp of each member;
+//   pa_next         st, and where a center begins, its seed's row (V x the
+//                   storage width), sumvec written and four slot writes.
 // So an iteration must read the window's live rows once in their storage
 // dtype (V bytes a row at the k-mer path's int8 counts) plus O(N) slot
 // arrays. At 150k reads of ~1 kb the window holds up to all the live rows,
@@ -103,6 +116,14 @@
 // combines the few partials. Under a mesh the distances must be summed
 // across ranks before the argmin, so pa_member_dist lists the members (one
 // atomic a busy block) and pa_mean_argmin is one block over that list.
+// With the iteration's kernels at ~0.02 ms, the host loop that read four
+// scalars back an iteration and chose the next launch from them cost ten
+// times that in Python, ctypes and the sync, with the card idle. pa_next
+// makes those choices on the card, so an iteration is a fixed chain of
+// launches whose arguments never change: the host replays it as a CUDA
+// graph, CHUNK iterations a replay, and reads back once a replay. Every
+// kernel's first read is st[kDone], so a replay's iterations past the
+// phase's end cost a launch each and change nothing.
 #include "common.cuh"
 
 namespace {
@@ -128,6 +149,9 @@ constexpr int kTileSlots = kThreads * 2 * kOwnerLoads;
 constexpr int kNPos = 0, kBest = 1, kLast = 2, kLive = 3, kW0 = 4, kW1 = 5,
               kCount = 6, kTail = 7;
 constexpr int kTicket = 8, kMove = 9, kList = 10;
+// The loop's slots (ops/phase_a.py: DONE ... T): pa_next's alone, but for
+// kC and kT, which pa_absorb, pa_move and pa_member_dist read.
+constexpr int kDone = 11, kIters = 12, kC = 13, kMembers = 14, kT = 15;
 // Columns of pa_window's table, a row a slot (ops/phase_a.py: RANGES).
 constexpr int kRanges = 8;
 constexpr int kFront = 0, kGe = 1, kFrontEnd = 2, kBack = 3, kEq = 4,
@@ -275,6 +299,7 @@ __global__ void __launch_bounds__(kWindowWarps * 32)
 pa_window_kernel(i64* __restrict__ st, const uint8_t* __restrict__ active,
                  const int* __restrict__ ranges, int n) {
   __shared__ i64 found[kWindowWarps];
+  if (st[kDone]) return;
   const int warp = threadIdx.x >> 5;
   const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(active) & 15);
   const i64 N = n;
@@ -327,6 +352,7 @@ pa_sums_kernel(const i64* __restrict__ st, const uint8_t* __restrict__ active,
                const char* __restrict__ rows, i64 pitch, int nv, int lanes,
                int n, int with_dot, i64* __restrict__ sums) {
   typedef typename Acc<T>::type A;
+  if (st[kDone]) return;
   const i64 w0 = st[kW0], w1 = st[kW1];
   const char* a_row = rows + st[kLast] * pitch;
   const int lane = threadIdx.x & 31;
@@ -422,7 +448,8 @@ __device__ __forceinline__ AbsorbPart shfl(AbsorbPart v, int o) {
           __shfl_xor_sync(0xffffffffu, v.nan, o)};
 }
 
-// A thread a live slot of [w0, w1], in block-wide tiles. The blocks that
+// A thread a live slot of [w0, w1], in block-wide tiles, absorbed into the
+// center st[kC] at stamp st[kT]. The blocks that
 // hold a slot of [w0, w1] (the first `busy`, known to every block from w0
 // and w1) do the work; the others return after reading them, and when no
 // block holds a slot, block 0 writes the empty window's result. A busy
@@ -442,11 +469,11 @@ pa_absorb_kernel(i64* __restrict__ st, const i64* __restrict__ sums,
                  const double* __restrict__ lenf, i64* __restrict__ owner,
                  i64* __restrict__ stamp, uint8_t* __restrict__ active,
                  const T* __restrict__ rows, i64 stride, int V,
-                 i64* __restrict__ sumvec, int n, i64 c, i64 t,
-                 i64* __restrict__ part) {
+                 i64* __restrict__ sumvec, int n, i64* __restrict__ part) {
   extern __shared__ double model[];
   __shared__ i64 pos_list[kThreads];
   __shared__ int n_list;
+  if (st[kDone]) return;
   const int tid = threadIdx.x;
   const double coef0 = tid < n_coef ? coef_g[tid] : 0.0;
   const int spec0 = tid < n_spec ? spec_g[tid] : 0;
@@ -469,7 +496,7 @@ pa_absorb_kernel(i64* __restrict__ st, const i64* __restrict__ sums,
   if (tid < n_spec) spec[tid] = spec0;
   for (int i = tid + kThreads; i < n_coef; i += kThreads) coef[i] = coef_g[i];
   for (int i = tid + kThreads; i < n_spec; i += kThreads) spec[i] = spec_g[i];
-  const i64 last = st[kLast];
+  const i64 last = st[kLast], c = st[kC], t = st[kT];
   const double mag_a = mag[last], sq_a = sq[last], len_a = lenf[last];
   for (i64 base = w0 + blockIdx.x * static_cast<i64>(kThreads); base <= w1;
        base += tiles) {
@@ -582,7 +609,8 @@ __device__ int tile_members(const i64* __restrict__ owner, i64 c, int n,
   return *n_list;
 }
 
-// A block a tile of owners (tile_members). A block with no member returns,
+// A block a tile of owners (tile_members) of the center c = st[kC]. A block
+// with no member returns,
 // but block 0, which writes dist[n] = sum cw; the others compute the floored
 // mean and their members' distances (tile_dist). Under a mesh (lst not
 // null) each busy block also appends its members' slots to the list lst
@@ -592,7 +620,7 @@ __device__ int tile_members(const i64* __restrict__ owner, i64 c, int n,
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 pa_member_dist_kernel(i64* __restrict__ st, const i64* __restrict__ owner,
-                      i64 c, const char* __restrict__ rows, i64 pitch, int V,
+                      const char* __restrict__ rows, i64 pitch, int V,
                       const i64* __restrict__ sumvec, int n,
                       i64* __restrict__ dist, int* __restrict__ lst) {
   __shared__ __align__(16) char cw_s[kCwBytes];
@@ -603,7 +631,7 @@ pa_member_dist_kernel(i64* __restrict__ st, const i64* __restrict__ owner,
   const int tid = threadIdx.x;
   const double count = static_cast<double>(st[kCount]);
   const i64 sv0 = tid < V ? sumvec[tid] : 0;
-  const int m = tile_members(owner, c, n, list, &n_list);
+  const int m = tile_members(owner, st[kC], n, list, &n_list);
   if (m == 0 && blockIdx.x != 0) return;
   if (m && lst) {
     if (tid == 0)
@@ -657,7 +685,9 @@ pa_mean_argmin_kernel(i64* __restrict__ st, const i64* __restrict__ dist,
   }
 }
 
-// The move on one rank, one launch: pa_member_dist's tiles, and in each busy
+// The move on one rank, one launch, of the center c = st[kC] in an iteration
+// that absorbed (it returns at once where st[kNPos] is 0, or st[kDone] set):
+// pa_member_dist's tiles, and in each busy
 // block the argmin of its own members. A block with no member returns after
 // the owners' scan (no atomic, no partial). A busy block draws its partial's
 // index at once (the high field of st[kMove]), loads its members' mag and
@@ -675,7 +705,7 @@ constexpr u64 kMoveMembers = (1ull << kMoveShift) - 1;
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-pa_move_kernel(i64* __restrict__ st, const i64* __restrict__ owner, i64 c,
+pa_move_kernel(i64* __restrict__ st, const i64* __restrict__ owner,
                const char* __restrict__ rows, i64 pitch, int V,
                const i64* __restrict__ sumvec, int n,
                const double* __restrict__ mag, const i64* __restrict__ stamp,
@@ -686,11 +716,12 @@ pa_move_kernel(i64* __restrict__ st, const i64* __restrict__ owner, i64 c,
   __shared__ int n_list;
   __shared__ i64 wsum[kWarps];
   __shared__ DBest wbest[kWarps];
+  if (st[kDone] || st[kNPos] == 0) return;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const i64 members = st[kCount];
   const double count = static_cast<double>(members);
   const i64 sv0 = tid < V ? sumvec[tid] : 0;
-  const int m = tile_members(owner, c, n, list, &n_list);
+  const int m = tile_members(owner, st[kC], n, list, &n_list);
   if (m == 0) return;
   u64 at = 0;
   if (tid == 0)
@@ -749,6 +780,60 @@ pa_move_kernel(i64* __restrict__ st, const i64* __restrict__ owner, i64 c,
   }
 }
 
+// ---------------------------------------------------------------------------
+// pa_next
+// ---------------------------------------------------------------------------
+
+// The end of an iteration, one block: what the host loop decided from its
+// readback. Every thread reads st; then thread 0 writes it. The absorb's
+// stamp is spent (st[kT] + 1) and the iteration counted. An iteration that
+// absorbed goes on with the same center. One that absorbed nothing ends the
+// center: its slot st[kLast] is recorded at center_slot[c], its members are
+// added to st[kMembers], and c + 1 is seeded from the window's best
+// candidate (st[kBest], erased from the live slots), else the first live
+// slot (st[kLive], taken before the absorb, which absorbed nothing). With
+// no seed, or c + 1 = cmax centers, the phase is done; else the seed is the
+// new center's one member at the next stamp and its row, widened, is
+// sumvec, which every thread writes a count at a time.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+pa_next_kernel(i64* __restrict__ st, uint8_t* __restrict__ active,
+               i64* __restrict__ owner, i64* __restrict__ stamp,
+               const T* __restrict__ rows, i64 stride, int V,
+               i64* __restrict__ sumvec, i64* __restrict__ center_slot,
+               int n, i64 cmax) {
+  if (st[kDone]) return;
+  const i64 N = n, c = st[kC], t = st[kT] + 1, best = st[kBest];
+  const bool ends = st[kNPos] == 0;
+  const i64 seed = best < N ? best : st[kLive];
+  const bool stop = ends && (seed >= N || c + 1 >= cmax);
+  const bool begins = ends && !stop;
+  if (begins)
+    for (int v = threadIdx.x; v < V; v += kThreads)
+      sumvec[v] = static_cast<i64>(rows[seed * stride + v]);
+  __syncthreads();                    // every thread has read st
+  if (threadIdx.x != 0) return;
+  st[kIters] += 1;
+  if (!ends) {
+    st[kT] = t;
+    return;
+  }
+  center_slot[c] = st[kLast];
+  st[kMembers] += st[kCount];
+  st[kC] = c + 1;
+  if (stop) {
+    st[kT] = t;
+    st[kDone] = 1;
+    return;
+  }
+  active[seed] = 0;
+  owner[seed] = c + 1;
+  stamp[seed] = t;
+  st[kLast] = seed;
+  st[kCount] = 1;
+  st[kT] = t + 1;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -803,8 +888,7 @@ static void launch_absorb(cudaStream_t s, size_t smem, void* st,
                           const void* mag, const void* sq, const void* lenf,
                           void* owner, void* stamp, void* active,
                           const void* rows, long long stride, int V,
-                          void* sumvec, int n, long long c, long long t,
-                          void* part) {
+                          void* sumvec, int n, void* part) {
   static const int resident = resident_blocks(pa_absorb_kernel<T>);
   const int blocks = resident < kBlocks ? resident : kBlocks;
   pa_absorb_kernel<T><<<blocks, kThreads, smem, s>>>(
@@ -813,8 +897,8 @@ static void launch_absorb(cudaStream_t s, size_t smem, void* st,
       n_coef, static_cast<const double*>(mag), static_cast<const double*>(sq),
       static_cast<const double*>(lenf), static_cast<i64*>(owner),
       static_cast<i64*>(stamp), static_cast<uint8_t*>(active),
-      static_cast<const T*>(rows), stride, V, static_cast<i64*>(sumvec), n, c,
-      t, static_cast<i64*>(part));
+      static_cast<const T*>(rows), stride, V, static_cast<i64*>(sumvec), n,
+      static_cast<i64*>(part));
 }
 
 extern "C" int mc_pa_absorb(void* st, const void* sums, int with_dot,
@@ -823,14 +907,13 @@ extern "C" int mc_pa_absorb(void* st, const void* sums, int with_dot,
                             const void* lenf, void* owner, void* stamp,
                             void* active, const void* rows, long long stride,
                             int V, int width, void* sumvec, int n,
-                            long long c, long long t, void* part,
-                            void* stream) {
+                            void* part, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = n_coef * sizeof(double) + n_spec * sizeof(int);
 #define MC_ABSORB(T)                                                         \
   launch_absorb<T>(s, smem, st, sums, with_dot, spec, n_spec, coef, n_coef, \
                    mag, sq, lenf, owner, stamp, active, rows, stride, V,     \
-                   sumvec, n, c, t, part)
+                   sumvec, n, part)
   switch (width) {
     case 1: MC_ABSORB(int8_t); break;
     case 2: MC_ABSORB(int16_t); break;
@@ -855,15 +938,15 @@ static int* part_list(void* part, int n) {
 }
 
 template <typename T, int VEC>
-static int launch_member_dist(cudaStream_t s, i64* st, const i64* own, i64 c,
+static int launch_member_dist(cudaStream_t s, i64* st, const i64* own,
                               const void* rows, i64 pitch, int V,
                               const i64* sv, int n, i64* out, int* lst) {
   pa_member_dist_kernel<T, VEC><<<owner_tiles(n), kThreads, 0, s>>>(
-      st, own, c, static_cast<const char*>(rows), pitch, V, sv, n, out, lst);
+      st, own, static_cast<const char*>(rows), pitch, V, sv, n, out, lst);
   return cudaGetLastError();
 }
 
-extern "C" int mc_pa_member_dist(void* st, const void* owner, long long c,
+extern "C" int mc_pa_member_dist(void* st, const void* owner,
                                  const void* rows, long long stride, int V,
                                  int width, const void* sumvec, int n,
                                  void* dist, void* part, void* stream) {
@@ -877,7 +960,7 @@ extern "C" int mc_pa_member_dist(void* st, const void* owner, long long c,
   const int vec = piece_bytes(rows, pitch, length, width);
 #define MC_DIST(T, VEC)                                                       \
   case VEC:                                                                   \
-    return launch_member_dist<T, VEC>(s, st_, own, c, rows, pitch, V, sv, n, \
+    return launch_member_dist<T, VEC>(s, st_, own, rows, pitch, V, sv, n, \
                                       out, lst)
   MC_ROW_CASES(MC_DIST);
 #undef MC_DIST
@@ -894,18 +977,18 @@ extern "C" int mc_pa_mean_argmin(void* st, const void* dist, const void* mag,
 }
 
 template <typename T, int VEC>
-static int launch_move(cudaStream_t s, i64* st, const i64* own, i64 c,
+static int launch_move(cudaStream_t s, i64* st, const i64* own,
                        const void* rows, i64 pitch, int V, const i64* sv,
                        int n, const double* mag, const i64* stamp, i64* dist,
                        i64* part) {
   pa_move_kernel<T, VEC><<<owner_tiles(n), kThreads, 0, s>>>(
-      st, own, c, static_cast<const char*>(rows), pitch, V, sv, n, mag, stamp,
+      st, own, static_cast<const char*>(rows), pitch, V, sv, n, mag, stamp,
       dist, part);
   return cudaGetLastError();
 }
 
-extern "C" int mc_pa_move(void* st, const void* owner, long long c,
-                          const void* rows, long long stride, int V, int width,
+extern "C" int mc_pa_move(void* st, const void* owner, const void* rows,
+                          long long stride, int V, int width,
                           const void* sumvec, int n, const void* mag,
                           const void* stamp, void* dist, void* part,
                           void* stream) {
@@ -921,9 +1004,31 @@ extern "C" int mc_pa_move(void* st, const void* owner, long long c,
   const int vec = piece_bytes(rows, pitch, length, width);
 #define MC_MOVE(T, VEC)                                                     \
   case VEC:                                                                 \
-    return launch_move<T, VEC>(s, st_, own, c, rows, pitch, V, sv, n, mag_, \
+    return launch_move<T, VEC>(s, st_, own, rows, pitch, V, sv, n, mag_, \
                                stamp_, out, part_)
   MC_ROW_CASES(MC_MOVE);
 #undef MC_MOVE
 }
 #undef MC_ROW_CASES
+
+extern "C" int mc_pa_next(void* st, void* active, void* owner, void* stamp,
+                          const void* rows, long long stride, int V, int width,
+                          void* sumvec, void* center_slot, int n,
+                          long long cmax, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MC_NEXT(T)                                                           \
+  pa_next_kernel<T><<<1, kThreads, 0, s>>>(                                  \
+      static_cast<i64*>(st), static_cast<uint8_t*>(active),                  \
+      static_cast<i64*>(owner), static_cast<i64*>(stamp),                    \
+      static_cast<const T*>(rows), stride, V, static_cast<i64*>(sumvec),     \
+      static_cast<i64*>(center_slot), n, cmax)
+  switch (width) {
+    case 1: MC_NEXT(int8_t); break;
+    case 2: MC_NEXT(int16_t); break;
+    case 4: MC_NEXT(int32_t); break;
+    case 8: MC_NEXT(int64_t); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_NEXT
+  return cudaGetLastError();
+}

@@ -1,21 +1,33 @@
-"""Phase A's absorb iteration: six CUDA kernels (csrc/phase_a.cu) and
+"""Phase A's absorb iteration: seven CUDA kernels (csrc/phase_a.cu) and
 their plain PyTorch versions.
 
 They take the place, on the card, of the torch ops of one absorb iteration
 of core/accumulate_device.py (the JAX package runs the iteration as XLA
 inside build_accumulate's lax.while_loop,
-meshclust_tpu/core/accumulate_device.py:87). An iteration is
+meshclust_tpu/core/accumulate_device.py:87). On one rank an iteration is a
+fixed chain of five steps, with no host decision in it:
 
   window(st, ...)       the live window [w0, w1] of the center st[LAST]
                         and the first and last live slots;
   sums(st, ...)         man and dot of the center's row against the rows
                         (the kernel: only the live rows of the window);
   absorb(st, ...)       the float64 classifier, the absorb of the positives
-                        (owner, stamp, active, sumvec, st[COUNT]), n_pos and
-                        the first max of f1;
-and, when it absorbed, the move of the center, on one rank in one launch:
-  move(st, ...)         member_dist, then mean_argmin;
-and under a mesh in two, around the all-reduce of the distances:
+                        into the center st[C] at stamp st[T] (owner, stamp,
+                        active, sumvec, st[COUNT]), n_pos and the first max
+                        of f1;
+  move(st, ...)         if it absorbed, the move of the center: member_dist,
+                        then mean_argmin, in one launch;
+  next(st, ...)         the loop's decisions: if it absorbed nothing, the
+                        center's slot recorded and the next center seeded,
+                        or the phase done (st[DONE]); the stamp and
+                        iteration counters.
+
+Each step does nothing once st[DONE] is set, so iterations past the phase's
+end change nothing and accumulate_device can run them in chunks (a CUDA
+graph of CHUNK iterations) and read back st[DONE: MEMBERS + 1] once a chunk.
+Under a mesh the host drives the loop (an all-reduce sits between the
+steps), writes st[C] and st[T], and moves in two steps around the
+all-reduce of the distances:
   member_dist(st, ...)  2 * sum min(h, floor(mean)) of the rows (the
                         kernel: of the members only, which it lists) and
                         sum floor(mean);
@@ -23,16 +35,18 @@ and under a mesh in two, around the all-reduce of the distances:
                         kernel: over member_dist's list).
 
 The scalars live in one int64 state buffer on the device (new_state), so
-nothing is read back between the steps; st[:LIVE + 1] is the iteration's
-readback [n_pos, best, center slot, first live slot]. A wrapper takes the
-plain version for tensors on the CPU and launches its kernel for tensors on
-a CUDA device; it never falls back. The plain versions compute over all N
-slots, as the port's Phase A did before these kernels; they agree with the
-kernels on every value the next step reads (the window's live slots, the
-members).
+nothing is read back between the steps. Each step has a binder
+(bind_window ...) that checks its arguments once and returns a callable
+that runs it: its plain version for tensors on the CPU, its kernel on the
+current stream for tensors on a CUDA device, never a fallback; the wrapper
+of the same name binds and runs at once. The plain versions compute over
+all N slots, as the port's Phase A did before these kernels; they agree
+with the kernels on every value the next step reads (the window's live
+slots, the members) and, like them, change no state once st[DONE] is set.
 """
 from __future__ import annotations
 
+import functools
 import types
 
 import numpy as np
@@ -46,9 +60,13 @@ from meshclust_tpu_torch.ops import features as F
 # TAIL, the last live slot, is pa_window's alone (its plain step leaves it);
 # TICKET, pa_absorb's ticket; MOVE, pa_move's partials drawn (the bits from
 # MOVE_SHIFT up) and members counted (the bits below); LIST, the length of
-# pa_member_dist's list.
+# pa_member_dist's list. The loop's: DONE, set when the phase has ended;
+# ITERS, the iterations run; C, the current center's id, which is also the
+# number of centers recorded before it; MEMBERS, the members of the recorded
+# centers; T, the stamp of the next absorb.
 NPOS, BEST, LAST, LIVE, W0, W1, COUNT, TAIL = range(8)
 TICKET, MOVE, LIST = range(8, 11)
+DONE, ITERS, C, MEMBERS, T = range(11, 16)
 MOVE_SHIFT = 40
 # 24: an earlier phase_a.cu (built beside this one by profile_port.py
 # --parts phase_a) uses slots up to 18 of the same buffer
@@ -191,6 +209,37 @@ def _launched(err: int, name: str) -> None:
     _ext.launches[name] += 1
 
 
+def _kernel(name: str, entry, on: torch.Tensor, *args):
+    """A callable that launches kernel `name` through the library's entry
+    point on args, on the current stream of on's device. args hold the
+    tensors' addresses: the caller keeps the tensors while it may run."""
+    def launch():
+        _launched(entry(*args, _ext.stream_of(on)), name)
+    return launch
+
+
+def _wrapper(bind):
+    """The wrapper of a binder: its checks, then one run."""
+    @functools.wraps(bind)
+    def run(*args):
+        bind(*args)()
+    run.__name__ = run.__qualname__ = bind.__name__[len("bind_"):]
+    return run
+
+
+def _go(st: torch.Tensor) -> torch.Tensor:
+    """True (a 0-dim tensor) until st[DONE] is set: a plain step's writes
+    are taken only then, as the kernels return at once after it."""
+    return st[DONE] == 0
+
+
+def _put(st, slots, values) -> None:
+    """st[slot] = value (0-dim tensors) until st[DONE] is set."""
+    go = _go(st)
+    for slot, value in zip(slots, values):
+        st[slot] = torch.where(go, value, st[slot])
+
+
 def _first(mask: torch.Tensor, slots: torch.Tensor, n: int) -> torch.Tensor:
     """The first slot of a mask, n if none (a masked min: ties never
     depend on argmax's choice)."""
@@ -203,7 +252,7 @@ def _last(mask: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
 
 # -- pa_window ----------------------------------------------------------------
 
-def window(st, active, ranges) -> None:
+def bind_window(st, active, ranges):
     """st[W0], st[W1]: the inclusive slot range of bvec::get_range(lo, hi)
     of the center at slot st[LAST] over the live slots; st[LIVE] and
     st[TAIL]: the first and last live slots (n and -1 if none), found on
@@ -219,10 +268,12 @@ def window(st, active, ranges) -> None:
         raise ValueError(f"ranges: need contiguous [{n}, {len(RANGES)}] "
                          f"int32, got {tuple(ranges.shape)} {ranges.dtype}")
     if _device(st, active, ranges).type == "cpu":
-        return window_table_plain(st, active, ranges)
-    _launched(_ext.lib().mc_pa_window(
-        st.data_ptr(), active.data_ptr(), ranges.data_ptr(), n,
-        _ext.stream_of(st)), "pa_window")
+        return functools.partial(window_table_plain, st, active, ranges)
+    return _kernel("pa_window", _ext.lib().mc_pa_window, st, st.data_ptr(),
+                   active.data_ptr(), ranges.data_ptr(), n)
+
+
+window = _wrapper(bind_window)
 
 
 def window_table_plain(st, active, ranges):
@@ -257,10 +308,7 @@ def window_table_plain(st, active, ranges):
     w1 = torch.where(c >= 0, c, torch.where(
         d < n, d, torch.where(e >= 0, e, torch.where(live_last >= 0, quirk,
                                                      -1))))
-    st[W0] = w0
-    st[W1] = w1
-    st[LIVE] = first_live
-    st[TAIL] = live_last
+    _put(st, (W0, W1, LIVE, TAIL), (w0, w1, first_live, live_last))
 
 
 def window_plain(st, active, bin_, len_, lo, hi, front_bin, back_bin):
@@ -295,14 +343,13 @@ def window_plain(st, active, bin_, len_, lo, hi, front_bin, back_bin):
         torch.where(s_eq_last >= 0, s_eq_last,
                     torch.where(s_gt < n, s_gt, s_last_b)),
         torch.where(live_last >= 0, first_of_last, -1))
-    st[W0] = w0
-    st[W1] = w1
-    st[LIVE] = first_live
+    _put(st, (W0, W1, LIVE), (w0.reshape(()), w1.reshape(()),
+                              first_live))
 
 
 # -- pa_sums ------------------------------------------------------------------
 
-def sums(st, active, rows, out) -> None:
+def bind_sums(st, active, rows, out):
     """out[0, s] = sum_v |h[c, v] - h[s, v]| and, when out has two rows,
     out[1, s] = sum_v h[c, v] * h[s, v] (int64), c = st[LAST], for every
     live slot s of [st[W0], st[W1]]; the kernel leaves the other slots as
@@ -316,11 +363,15 @@ def sums(st, active, rows, out) -> None:
             or not out.is_contiguous():
         raise ValueError(f"out: need contiguous [1 or 2, {n}] int64")
     if _device(st, active, rows, out).type == "cpu":
-        return sums_plain(st, active, rows.to(torch.int64), out)
-    _launched(_ext.lib().mc_pa_sums(
-        st.data_ptr(), active.data_ptr(), rows.data_ptr(), rows.stride(0),
-        rows.shape[1], width, n, int(out.shape[0] == 2), out.data_ptr(),
-        _ext.stream_of(st)), "pa_sums")
+        return functools.partial(sums_plain, st, active,
+                                 rows.to(torch.int64), out)
+    return _kernel("pa_sums", _ext.lib().mc_pa_sums, st, st.data_ptr(),
+                   active.data_ptr(), rows.data_ptr(), rows.stride(0),
+                   rows.shape[1], width, n, int(out.shape[0] == 2),
+                   out.data_ptr())
+
+
+sums = _wrapper(bind_sums)
 
 
 def sums_plain(st, active, rows, out):
@@ -334,12 +385,12 @@ def sums_plain(st, active, rows, out):
 
 # -- pa_absorb ----------------------------------------------------------------
 
-def absorb(st, sums_, model: Model, mag, sq, lenf, owner, stamp, active,
-           rows, sumvec, c: int, t: int, part) -> None:
+def bind_absorb(st, sums_, model: Model, mag, sq, lenf, owner, stamp, active,
+                rows, sumvec, part):
     """Classify every live slot of [st[W0], st[W1]] against the center
     st[LAST] (Scorer.__call__ on sums_, float64 mag, sq and lengths [n])
-    and absorb the positives: owner = c, stamp = t, active = False, their
-    rows added into sumvec [V] int64; st[NPOS] = their count, added to
+    and absorb the positives: owner = st[C], stamp = st[T], active = False,
+    their rows added into sumvec [V] int64; st[NPOS] = their count, added to
     st[COUNT]; st[BEST] = the first max of f1 over the window (least slot
     among equal f1), n if the window is empty."""
     n = active.shape[0]
@@ -357,44 +408,47 @@ def absorb(st, sums_, model: Model, mag, sq, lenf, owner, stamp, active,
     dev = _device(st, sums_, model.spec, model.coef, mag, sq, lenf, owner,
                   stamp, active, rows, sumvec, part)
     if dev.type == "cpu":
-        return absorb_plain(st, sums_, model, mag, sq, lenf, owner, stamp,
-                            active, rows, sumvec, c, t, part)
-    _launched(_ext.lib().mc_pa_absorb(
-        st.data_ptr(), sums_.data_ptr(), int(model.with_dot),
-        model.spec.data_ptr(), model.spec.shape[0], model.coef.data_ptr(),
-        model.coef.shape[0], mag.data_ptr(), sq.data_ptr(), lenf.data_ptr(),
-        owner.data_ptr(), stamp.data_ptr(), active.data_ptr(),
-        rows.data_ptr(), rows.stride(0), rows.shape[1], width,
-        sumvec.data_ptr(), n, c, t, part.data_ptr(), _ext.stream_of(st)),
-        "pa_absorb")
+        return functools.partial(absorb_plain, st, sums_, model, mag, sq,
+                                 lenf, owner, stamp, active, rows, sumvec,
+                                 part)
+    return _kernel("pa_absorb", _ext.lib().mc_pa_absorb, st, st.data_ptr(),
+                   sums_.data_ptr(), int(model.with_dot),
+                   model.spec.data_ptr(), model.spec.shape[0],
+                   model.coef.data_ptr(), model.coef.shape[0],
+                   mag.data_ptr(), sq.data_ptr(), lenf.data_ptr(),
+                   owner.data_ptr(), stamp.data_ptr(), active.data_ptr(),
+                   rows.data_ptr(), rows.stride(0), rows.shape[1], width,
+                   sumvec.data_ptr(), n, part.data_ptr())
+
+
+absorb = _wrapper(bind_absorb)
 
 
 def absorb_plain(st, sums_, model, mag, sq, lenf, owner, stamp, active,
-                 rows, sumvec, c, t, part):
+                 rows, sumvec, part):
     n = active.shape[0]
     slots = torch.arange(n, device=active.device)
     last = st[LAST: LAST + 1]
-    ok = active & (slots >= st[W0]) & (slots <= st[W1])
+    ok = active & (slots >= st[W0]) & (slots <= st[W1]) & _go(st)
     pos, f1 = model.scorer(sums_[0], sums_[1] if model.with_dot else None,
                            mag[last], mag, sq[last], sq, lenf[last], lenf)
     f1 = torch.where(ok, f1, float("-inf"))
     best = _first(ok & (f1 == f1.max()), slots, n)
     pos &= ok
-    owner.masked_fill_(pos, c)
-    stamp.masked_fill_(pos, t)
+    owner.copy_(torch.where(pos, st[C], owner))
+    stamp.copy_(torch.where(pos, st[T], stamp))
     active &= ~pos
     sumvec += torch.where(pos[:, None], rows, 0).sum(0, dtype=torch.int64)
     n_pos = pos.sum()
-    st[NPOS] = n_pos
-    st[BEST] = best
+    _put(st, (NPOS, BEST), (n_pos, best))
     st[COUNT: COUNT + 1] += n_pos
 
 
 # -- pa_member_dist -----------------------------------------------------------
 
-def member_dist(st, owner, c: int, rows, sumvec, out, part=None) -> None:
+def bind_member_dist(st, owner, rows, sumvec, out, part=None):
     """cw = floor(sumvec / st[COUNT]) (float64, as mean_floor); out[s] =
-    2 * sum_v min(h[s, v], cw[v]) for every member s (owner == c; the
+    2 * sum_v min(h[s, v], cw[v]) for every member s (owner == st[C]; the
     kernel leaves the other slots as they were) and out[n] = sum_v cw[v],
     int64. With part (new_state's), the kernel also lists the members there
     for mean_argmin."""
@@ -408,15 +462,19 @@ def member_dist(st, owner, c: int, rows, sumvec, out, part=None) -> None:
         _vec(part, torch.int64, part_len(n), "part")
     if _device(st, owner, rows, sumvec, out,
                *([] if part is None else [part])).type == "cpu":
-        return member_dist_plain(st, owner, c, rows, sumvec, out, part)
-    _launched(_ext.lib().mc_pa_member_dist(
-        st.data_ptr(), owner.data_ptr(), c, rows.data_ptr(), rows.stride(0),
-        rows.shape[1], width, sumvec.data_ptr(), n, out.data_ptr(),
-        None if part is None else part.data_ptr(), _ext.stream_of(st)),
-        "pa_member_dist")
+        return functools.partial(member_dist_plain, st, owner, rows, sumvec,
+                                 out, part)
+    return _kernel("pa_member_dist", _ext.lib().mc_pa_member_dist, st,
+                   st.data_ptr(), owner.data_ptr(), rows.data_ptr(),
+                   rows.stride(0), rows.shape[1], width, sumvec.data_ptr(),
+                   n, out.data_ptr(),
+                   None if part is None else part.data_ptr())
 
 
-def member_dist_plain(st, owner, c, rows, sumvec, out, part=None):
+member_dist = _wrapper(bind_member_dist)
+
+
+def member_dist_plain(st, owner, rows, sumvec, out, part=None):
     """Every slot. floor(mean) is at most the largest count, so it fits
     the rows' dtype."""
     cw = mean_floor(sumvec, st[COUNT])
@@ -427,9 +485,9 @@ def member_dist_plain(st, owner, c, rows, sumvec, out, part=None):
 
 # -- pa_mean_argmin -----------------------------------------------------------
 
-def mean_argmin(st, dist, mag, owner, stamp, c: int, part) -> None:
+def bind_mean_argmin(st, dist, mag, owner, stamp, part):
     """get_mean (ClusterFactory.cpp:382-425): st[LAST] = the member of
-    center c closest by distance_d to the members' mean, d = 10000 * (1 -
+    center st[C] closest by distance_d to the members' mean, d = 10000 * (1 -
     frac^2), frac = dist[s] / (mag[s] + dist[n]) (floor(h + mean) = h +
     floor(mean) for integer h); ties go to the least stamp, then the least
     slot (the reference's member-list order). The kernel reads the members
@@ -442,18 +500,22 @@ def mean_argmin(st, dist, mag, owner, stamp, c: int, part) -> None:
     _vec(stamp, torch.int64, n, "stamp")
     _vec(part, torch.int64, part_len(n), "part")
     if _device(st, dist, mag, owner, stamp, part).type == "cpu":
-        return mean_argmin_plain(st, dist, mag, owner, stamp, c, part)
-    _launched(_ext.lib().mc_pa_mean_argmin(
-        st.data_ptr(), dist.data_ptr(), mag.data_ptr(), stamp.data_ptr(), n,
-        part.data_ptr(), _ext.stream_of(st)), "pa_mean_argmin")
+        return functools.partial(mean_argmin_plain, st, dist, mag, owner,
+                                 stamp, part)
+    return _kernel("pa_mean_argmin", _ext.lib().mc_pa_mean_argmin, st,
+                   st.data_ptr(), dist.data_ptr(), mag.data_ptr(),
+                   stamp.data_ptr(), n, part.data_ptr())
 
 
-def mean_argmin_plain(st, dist, mag, owner, stamp, c, part):
+mean_argmin = _wrapper(bind_mean_argmin)
+
+
+def mean_argmin_plain(st, dist, mag, owner, stamp, part):
     n = owner.shape[0]
     slots = torch.arange(n, device=owner.device)
     frac = dist[:n].to(torch.float64) / (mag + dist[n].to(torch.float64))
     d = 10000.0 * (1.0 - frac * frac)      # two roundings, no FMA
-    mask = owner == c
+    mask = owner == st[C]
     d = torch.where(mask, d, float("inf"))
     cand = mask & (d == d.min())
     first_stamp = torch.where(cand, stamp,
@@ -463,10 +525,12 @@ def mean_argmin_plain(st, dist, mag, owner, stamp, c, part):
 
 # -- pa_move ------------------------------------------------------------------
 
-def move(st, owner, c: int, rows, sumvec, mag, stamp, dist, part) -> None:
+def bind_move(st, owner, rows, sumvec, mag, stamp, dist, part):
     """member_dist, then mean_argmin, in one launch (one rank): dist as
-    member_dist writes it, st[LAST] the new center. st[COUNT] must be the
-    number of members (owner == c), as accumulate_device keeps it."""
+    member_dist writes it, st[LAST] the new center; nothing where st[NPOS]
+    is 0 (the iteration absorbed nothing) or st[DONE] is set. st[COUNT]
+    must be the number of members (owner == st[C]), as accumulate_device
+    keeps it."""
     n = owner.shape[0]
     _state(st)
     _vec(owner, torch.int64, n, "owner")
@@ -478,24 +542,97 @@ def move(st, owner, c: int, rows, sumvec, mag, stamp, dist, part) -> None:
     _vec(part, torch.int64, part_len(n), "part")
     if _device(st, owner, rows, sumvec, mag, stamp, dist,
                part).type == "cpu":
-        return move_plain(st, owner, c, rows, sumvec, mag, stamp, dist, part)
-    _launched(_ext.lib().mc_pa_move(
-        st.data_ptr(), owner.data_ptr(), c, rows.data_ptr(), rows.stride(0),
-        rows.shape[1], width, sumvec.data_ptr(), n, mag.data_ptr(),
-        stamp.data_ptr(), dist.data_ptr(), part.data_ptr(),
-        _ext.stream_of(st)), "pa_move")
+        return functools.partial(move_plain, st, owner, rows, sumvec, mag,
+                                 stamp, dist, part)
+    return _kernel("pa_move", _ext.lib().mc_pa_move, st, st.data_ptr(),
+                   owner.data_ptr(), rows.data_ptr(), rows.stride(0),
+                   rows.shape[1], width, sumvec.data_ptr(), n,
+                   mag.data_ptr(), stamp.data_ptr(), dist.data_ptr(),
+                   part.data_ptr())
 
 
-def move_plain(st, owner, c, rows, sumvec, mag, stamp, dist, part):
-    member_dist_plain(st, owner, c, rows, sumvec, dist)
-    mean_argmin_plain(st, dist, mag, owner, stamp, c, part)
+move = _wrapper(bind_move)
 
 
-STEPS = ("window", "sums", "absorb", "member_dist", "mean_argmin", "move")
+def move_plain(st, owner, rows, sumvec, mag, stamp, dist, part):
+    """dist as member_dist_plain writes it (every slot, whether it moves
+    or not)."""
+    last = st[LAST].clone()
+    member_dist_plain(st, owner, rows, sumvec, dist)
+    mean_argmin_plain(st, dist, mag, owner, stamp, part)
+    st[LAST] = torch.where(_go(st) & (st[NPOS] != 0), st[LAST], last)
+
+
+# -- pa_next ------------------------------------------------------------------
+
+def bind_next(st, active, owner, stamp, rows, sumvec, center_slot,
+              cmax: int):
+    """The end of an iteration: st[T] + 1 spent by its absorb, st[ITERS]
+    counted. If it absorbed nothing (st[NPOS] == 0), center c = st[C] ends:
+    center_slot[c] = st[LAST], st[MEMBERS] += st[COUNT], st[C] = c + 1,
+    and the seed is st[BEST] if < n, else st[LIVE] (the first live slot).
+    With no seed (>= n) or c + 1 >= cmax, st[DONE] = 1; else the seed is
+    taken from the live slots as center c + 1's one member (owner, stamp
+    st[T], st[LAST], st[COUNT] = 1, sumvec = its row) and st[T] advances
+    once more. Nothing once st[DONE] is set. center_slot [n + 1] int64."""
+    n = active.shape[0]
+    _state(st)
+    _slot_arrays(n, active, owner=owner, stamp=stamp)
+    width = _rows(rows, n)
+    _vec(sumvec, torch.int64, rows.shape[1], "sumvec")
+    _vec(center_slot, torch.int64, n + 1, "center_slot")
+    if _device(st, active, owner, stamp, rows, sumvec,
+               center_slot).type == "cpu":
+        return functools.partial(next_plain, st, active, owner, stamp, rows,
+                                 sumvec, center_slot, cmax)
+    return _kernel("pa_next", _ext.lib().mc_pa_next, st, st.data_ptr(),
+                   active.data_ptr(), owner.data_ptr(), stamp.data_ptr(),
+                   rows.data_ptr(), rows.stride(0), rows.shape[1], width,
+                   sumvec.data_ptr(), center_slot.data_ptr(), n, cmax)
+
+
+next = _wrapper(bind_next)    # shadows the builtin here: pa_next
+
+
+def next_plain(st, active, owner, stamp, rows, sumvec, center_slot, cmax):
+    """With no read back: every decision is a mask, every write a where
+    (indices as one-element tensors)."""
+    n = active.shape[0]
+    old = st.clone()
+    go = old[DONE: DONE + 1] == 0
+    ends = go & (old[NPOS: NPOS + 1] == 0)
+    c = old[C: C + 1]
+    t = old[T: T + 1] + 1
+    seed = torch.where(old[BEST: BEST + 1] < n, old[BEST: BEST + 1],
+                       old[LIVE: LIVE + 1])
+    stop = ends & ((seed >= n) | (c + 1 >= cmax))
+    begins = ends & ~stop
+    at = seed.clamp(max=n - 1)
+    center_slot[c] = torch.where(ends, old[LAST: LAST + 1], center_slot[c])
+    active[at] = active[at] & ~begins
+    owner[at] = torch.where(begins, c + 1, owner[at])
+    stamp[at] = torch.where(begins, t, stamp[at])
+    sumvec.copy_(torch.where(begins, rows[at], sumvec)[0])
+    st[LAST: LAST + 1] = torch.where(begins, at, old[LAST: LAST + 1])
+    st[COUNT: COUNT + 1] = torch.where(begins, 1, old[COUNT: COUNT + 1])
+    st[MEMBERS: MEMBERS + 1] += torch.where(ends, old[COUNT: COUNT + 1], 0)
+    st[C: C + 1] = c + ends.to(torch.int64)
+    st[T: T + 1] = torch.where(go, t + begins.to(torch.int64), old[T: T + 1])
+    st[ITERS: ITERS + 1] += go.to(torch.int64)
+    st[DONE: DONE + 1] += stop.to(torch.int64)
+
+
+STEPS = ("window", "sums", "absorb", "member_dist", "mean_argmin", "move",
+         "next")
 
 
 def steps(plain: bool) -> types.SimpleNamespace:
-    """The steps: the wrappers, or (plain) their plain versions."""
+    """The steps' binders: each takes its step's arguments (those of the
+    wrapper of the same name) and returns a callable that runs the step:
+    the binders of the kernels (bind_window ...), or (plain) their plain
+    versions' on any device."""
+    def plain_binder(fn):
+        return lambda *args: functools.partial(fn, *args)
     return types.SimpleNamespace(**{
-        name: globals()[f"{name}_plain" if plain else name]
-        for name in STEPS})
+        name: plain_binder(globals()[f"{name}_plain"]) if plain
+        else globals()[f"bind_{name}"] for name in STEPS})

@@ -71,8 +71,8 @@ Parts (default: throughput,busy):
               the mesh path's move (pa_member_dist, pa_mean_argmin)
               launched on one rank's shapes over the same centers; and one
               whole Phase A with an iteration's host wall split into the
-              wrappers' checks, the ctypes calls, the readback's wait and
-              the rest. Up to 150k reads also: the busy share of a
+              set-up, the graph's capture, the replays' launches, the
+              readbacks' wait and the rest. Up to 150k reads also: the busy share of a
               profiled run; Phase A alone on that run's points and model
               through the kernels and through the plain steps, unprofiled
               in turns (plain, kernels, kernels, plain) and then each under
@@ -92,12 +92,10 @@ Parts (default: throughput,busy):
               kernel's device ms a launch, bound and share as in the
               cluster part, and the host split of an iteration; then the
               run end to end in turns (wall, accumulate, NMI) with its
-              CLSTR byte-equal across the turns. A parent whose pa_window
-              takes the per-slot arrays (bin, len, lo, hi, front_bin,
-              back_bin) in place of the table is called so
-              (parent_window); a parent with no pa_move moves a center in
-              its two launches, pa_member_dist and a pa_mean_argmin that
-              scans every owner (parent_move).
+              CLSTR byte-equal across the turns. The parent must have
+              pa_next (the loop's control on the card); an older one
+              takes the center and the stamp from a host loop that this
+              tree no longer runs, and the part stops.
   phase_b     the fused Phase B (csrc/phase_b.cu) at each read count of
               --sizes, on Phase A's centers of one run's points and model:
               phase_b_loop through the kernels and through the plain steps
@@ -289,14 +287,21 @@ def piece_line(label: str, wall: float, dev_s: float, launches: int,
             f"{dev_s * 1e3 / iters:.4f} ms an iteration")
 
 
-def phase_a_kernels(ps, bv, params, launches: dict,
+def phase_a_kernels(ps, bv, params, counters: dict,
                     traffic: tuple = None) -> None:
     """Each Phase A kernel's device ms a launch under the profiler over the
-    first PROFILE_CENTERS centers, its launches in a whole run, its bound
-    (chip_smoke.py:phase_a_traffic over the same centers, unless given),
-    the share of it, and the run's loss: launches x (ms - bound); then the
-    mesh path's two move kernels, each move of the same centers launched
-    as a rank of a mesh launches them (one rank's shapes: every slot)."""
+    first PROFILE_CENTERS centers, its launches on the card in a whole run
+    (counters: the run's; each kernel of the chain CHUNK a replay and once
+    before the capture), its bound (chip_smoke.py:phase_a_traffic over
+    the same centers, unless given), the share of it, and the run's loss:
+    launches x (ms - bound); then the mesh path's two move kernels, each
+    move of the same centers launched as a rank of a mesh launches them
+    (one rank's shapes: every slot)."""
+    from meshclust_tpu_torch.core.accumulate_device import CHUNK
+    launches = dict.fromkeys(smoke.PHASE_A, 0)
+    launches.update(dict.fromkeys(
+        smoke.PHASE_A_CHAIN, int(counters["accum_replays"]) * CHUNK + 1))
+    moves = int(counters["accum_iters"] - counters["accum_centers"])
     ms, dev_ms = smoke.phase_a_device_ms(ps, bv, params, False,
                                          smoke.PROFILE_CENTERS)
     per_launch, ops_s = (traffic or smoke.phase_a_traffic(
@@ -319,7 +324,7 @@ def phase_a_kernels(ps, bv, params, launches: dict,
     for k in ("pa_member_dist", "pa_mean_argmin"):
         b = smoke.bound(per_launch[k], ops_s[k])
         print(f"      {k} (the mesh path's move, launched on one rank's "
-              f"shapes): {ms[k]:.5f} ms a launch, {launches['pa_move']} "
+              f"shapes): {ms[k]:.5f} ms a launch, {moves} "
               f"launches a rank at any rank count, bound "
               f"{b['bound_ms']:.6g} ms ({b['bound_by']}, "
               f"{per_launch[k]:.0f} B a launch), share "
@@ -327,69 +332,53 @@ def phase_a_kernels(ps, bv, params, launches: dict,
 
 
 def host_split(ps, bv, params, sim: float) -> None:
-    """One whole Phase A through the kernels with its host wall split an
-    absorb iteration: the wrappers' checks (ops/phase_a.py _state, _vec,
-    _rows, _slot_arrays, _device), the ctypes calls into the kernel
-    library, the readback (st[:LIVE + 1].tolist(), which waits for the
-    device) and the rest (the wrappers' other Python, the host loop, the
-    per-center fills). Each piece on perf_counter, its outermost call
-    only; the instrumentation's own cost lands in the pieces."""
+    """One whole Phase A through the kernels with its host wall split, an
+    iteration: the set-up (_Slots: the buffers, the steps bound and their
+    checks made), the capture of the chunk's CUDA graph (the kernels
+    launched once before it included), the replays' launches, the readbacks
+    (st[DONE: MEMBERS + 1].tolist() once a replay, which waits for the
+    device) and the rest (the final read and the grouping of the members).
+    Each piece on perf_counter."""
     import torch
-    from meshclust_tpu_torch import _ext
     from meshclust_tpu_torch.core import accumulate_device as A
     from meshclust_tpu_torch.core.accumulate_device import accumulate_device
-    from meshclust_tpu_torch.ops import phase_a as P
     from meshclust_tpu_torch.utils import perf
-    spent = {"checks": 0.0, "ctypes": 0.0, "readback": 0.0}
-    depth = [0]
+    spent = {"set-up": 0.0, "capture": 0.0, "replays": 0.0, "readback": 0.0}
 
     def timed(key, fn):
         def call(*a, **kw):
-            if depth[0]:
-                return fn(*a, **kw)
-            depth[0] += 1
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
                 spent[key] += time.perf_counter() - t0
-                depth[0] -= 1
         return call
 
-    class TimedLib:
-        def __init__(self, handle):
-            self.handle = handle
-
-        def __getattr__(self, name):
-            return timed("ctypes", getattr(self.handle, name))
-
-    checks = ("_state", "_vec", "_rows", "_slot_arrays", "_device")
-    saved = {name: getattr(P, name) for name in checks}
-    readback = A._Slots.readback
-    for name in checks:
-        setattr(P, name, timed("checks", saved[name]))
-    A._Slots.readback = timed("readback", readback)
+    saved = {name: getattr(A._Slots, name)
+             for name in ("__init__", "graph", "readback")}
+    A._Slots.__init__ = timed("set-up", saved["__init__"])
+    A._Slots.graph = lambda self: timed("replays", timed(
+        "capture", saved["graph"])(self))
+    A._Slots.readback = timed("readback", saved["readback"])
     perf.reset()
     try:
-        with kernels_from(TimedLib(_ext.lib())):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            accumulate_device(ps, bv, params, sim, plain=False)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accumulate_device(ps, bv, params, sim, plain=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     finally:
-        for name in checks:
-            setattr(P, name, saved[name])
-        A._Slots.readback = readback
-    iters = perf.counters()["accum_iters"]
+        for name, fn in saved.items():
+            setattr(A._Slots, name, fn)
+    c = perf.counters()
+    iters = c["accum_iters"]
     rest = wall - sum(spent.values())
-    print(f"    host split of an absorb iteration ({iters:.0f} iterations, "
-          f"whole phase through the kernels): wall "
-          f"{wall * 1e3 / iters:.5f} ms = checks "
-          f"{spent['checks'] * 1e3 / iters:.5f} + ctypes calls "
-          f"{spent['ctypes'] * 1e3 / iters:.5f} + readback "
-          f"{spent['readback'] * 1e3 / iters:.5f} + rest "
-          f"{rest * 1e3 / iters:.5f}", flush=True)
+    print(f"    host split of an iteration ({iters:.0f} iterations in "
+          f"{c['accum_replays']:.0f} replays of {A.CHUNK}, whole phase "
+          f"through the kernels): wall {wall * 1e3 / iters:.5f} ms = "
+          + " + ".join(f"{k} {v * 1e3 / iters:.5f}"
+                       for k, v in spent.items())
+          + f" + rest {rest * 1e3 / iters:.5f}", flush=True)
 
 
 def cluster(dev, n: int, warm: bool, full: bool) -> None:
@@ -397,7 +386,6 @@ def cluster(dev, n: int, warm: bool, full: bool) -> None:
     --id 0.90 (see the cluster part in the module docstring); without
     `full` only the one run, its phases, counters and NMI."""
     import torch
-    from meshclust_tpu_torch import _ext
     from meshclust_tpu_torch.config import ClusterConfig
     from meshclust_tpu_torch.core.accumulate_device import accumulate_device
     from meshclust_tpu_torch.core.bvec import BVec
@@ -411,14 +399,12 @@ def cluster(dev, n: int, warm: bool, full: bool) -> None:
     if warm:
         run(cfg, device=dev)
     perf.reset()
-    _ext.reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
     res = run(cfg, device=dev)
     torch.cuda.synchronize()
     wall = time.time() - t0
     phases, counters = perf.phases(), perf.counters()
-    launches = dict(_ext.launches)
     ps = res["pointset"]
     with open(out, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
@@ -439,7 +425,7 @@ def cluster(dev, n: int, warm: bool, full: bool) -> None:
     bv.bulk_insert(ps.lengths)
     bv.insert_finalize()
     params = res["model"].params
-    phase_a_kernels(ps, bv, params, launches)
+    phase_a_kernels(ps, bv, params, counters)
     host_split(ps, bv, params, cfg.similarity)
     if not full:
         return
@@ -1344,64 +1330,12 @@ def absorb_windows_ms(ps, bv, params) -> dict:
             torch.cuda._sleep(ABSORB_SPIN_CYCLES)
             start.record()
             P.absorb(sl.st, sl.sums, sl.model, sl.mag, sl.sq, sl.lenf,
-                     sl.owner, sl.stamp, sl.active, sl.h, sl.sumvec, 1, 1,
-                     sl.part)
+                     sl.owner, sl.stamp, sl.active, sl.h, sl.sumvec, sl.part)
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         out[name] = float(np.median(times[1:]))
     return out
-
-
-# The C entry point of pa_window before its table (PR 8's csrc/phase_a.cu):
-# st, active, bin, len, lo, hi, front_bin, back_bin, n, stream
-PARENT_WINDOW_SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_int,
-                                                    ctypes.c_void_p]
-
-
-@contextlib.contextmanager
-def parent_window(handle):
-    """Phase A with handle's pa_window of PARENT_WINDOW_SIGNATURE: launched
-    on the slots' per-slot arrays in place of the table, with its eight
-    reductions' scratch, st[8:16], set as it expects at the start of a
-    phase (firsts at n, lasts at -1)."""
-    import torch
-    from meshclust_tpu_torch import _ext
-    from meshclust_tpu_torch.core import accumulate_device as A
-    from meshclust_tpu_torch.ops import phase_a as P
-    handle.mc_pa_window.argtypes = PARENT_WINDOW_SIGNATURE
-    init, window = A._Slots.__init__, P.window
-
-    def slots_init(self, *a, **kw):
-        init(self, *a, **kw)
-        if self.window_in[0] is self.ranges:        # the kernel path
-            self.window_in = (self.bin, self.len, self.lo, self.hi,
-                              self.front_bin, self.back_bin)
-            n = self.N
-            self.st[8:16] = torch.tensor([n, -1, n, -1, n, -1, -1, -1])
-
-    def parent(st, active, *arrays):
-        P._launched(_ext.lib().mc_pa_window(
-            st.data_ptr(), active.data_ptr(), *(t.data_ptr() for t in arrays),
-            active.shape[0], _ext.stream_of(st)), "pa_window")
-
-    A._Slots.__init__, P.window = slots_init, parent
-    try:
-        yield
-    finally:
-        A._Slots.__init__, P.window = init, window
-
-
-# The C entry points of a move in a csrc/phase_a.cu with no pa_move:
-# pa_member_dist (st, owner, c, rows, row stride, V, width, sumvec, n, dist,
-# stream) and pa_mean_argmin (st, dist, mag, owner, stamp, c, n, part,
-# stream), which scans every owner.
-PARENT_DIST_SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                         ctypes.c_void_p, ctypes.c_void_p]
-PARENT_ARGMIN_SIGNATURE = [ctypes.c_void_p] * 5 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def load_library(path: str) -> ctypes.CDLL:
@@ -1420,51 +1354,9 @@ def load_library(path: str) -> ctypes.CDLL:
 
 
 @contextlib.contextmanager
-def parent_move(handle):
-    """Phase A with handle's move of PARENT_DIST_SIGNATURE and
-    PARENT_ARGMIN_SIGNATURE: two launches a move, through _ext.lib() (the
-    handle, wrapped by host_split)."""
-    from meshclust_tpu_torch import _ext
-    from meshclust_tpu_torch.core import accumulate_device as A
-    from meshclust_tpu_torch.ops import phase_a as P
-    handle.mc_pa_member_dist.argtypes = PARENT_DIST_SIGNATURE
-    handle.mc_pa_mean_argmin.argtypes = PARENT_ARGMIN_SIGNATURE
-    for fn in (handle.mc_pa_member_dist, handle.mc_pa_mean_argmin):
-        fn.restype = ctypes.c_int
-    move = A._Slots.move
-
-    def two_launches(self, c):
-        n, stream, lib = self.N, _ext.stream_of(self.st), _ext.lib()
-        P._launched(lib.mc_pa_member_dist(
-            self.st.data_ptr(), self.owner.data_ptr(), c, self.h.data_ptr(),
-            self.h.stride(0), self.h.shape[1], self.h.element_size(),
-            self.sumvec.data_ptr(), n, self.dist.data_ptr(), stream),
-            "pa_member_dist")
-        P._launched(lib.mc_pa_mean_argmin(
-            self.st.data_ptr(), self.dist.data_ptr(), self.mag.data_ptr(),
-            self.owner.data_ptr(), self.stamp.data_ptr(), c, n,
-            self.part.data_ptr(), stream), "pa_mean_argmin")
-
-    A._Slots.move = two_launches
-    try:
-        yield
-    finally:
-        A._Slots.move = move
-
-
-@contextlib.contextmanager
-def phase_a_library(libs: dict, name: str, old_window: bool,
-                    old_move: bool = False):
-    """The wrappers on libs[name]; the parent's pa_window called as
-    parent_window calls it where old_window (its signature is
-    PARENT_WINDOW_SIGNATURE), its move as parent_move makes it where
-    old_move."""
-    parent = name == "parent"
-    with kernels_from(libs[name]), (
-            parent_window(libs[name]) if parent and old_window
-            else contextlib.nullcontext()), (
-            parent_move(libs[name]) if parent and old_move
-            else contextlib.nullcontext()):
+def phase_a_library(libs: dict, name: str):
+    """The wrappers on libs[name]."""
+    with kernels_from(libs[name]):
         yield
 
 
@@ -1476,6 +1368,7 @@ def phase_a_compare(dev, parent_dir: str, sizes: list) -> None:
     from meshclust_tpu_torch.config import ClusterConfig
     from meshclust_tpu_torch.core.bvec import BVec
     from meshclust_tpu_torch.core.runner import run
+    from meshclust_tpu_torch.utils import perf
     others = [os.path.join(_ext.CSRC, f) for f in ("kmer_hist.cu",
                                                      "nw_align_long.cu",
                                                      "phase_b.cu")]
@@ -1483,16 +1376,17 @@ def phase_a_compare(dev, parent_dir: str, sizes: list) -> None:
         parent_dir, "phase_a.cu"))], "this": _ext.sources()})
     libs = {name: load_library(path) for name, path in paths.items()}
     with open(os.path.join(parent_dir, "phase_a.cu")) as f:
-        src = f.read()
-    old_window = "const void* front_bin" in src
-    old_move = "mc_pa_move" not in src
+        if "mc_pa_next" not in f.read():
+            smoke.fail("the parent's phase_a.cu has no pa_next: its kernels "
+                       "take the center and the stamp from a host loop, "
+                       "which this tree's accumulate_device no longer runs")
     turns = ["parent", "this", "this", "parent"]
     flush = smoke.flush_l2(dev)
     rng = np.random.default_rng(9)
     rows8 = torch.from_numpy(rng.integers(
         0, 128, size=(smoke.PA_SUMS_ROWS, 256), dtype=np.int8)).to(dev)
     for name in turns:
-        with phase_a_library(libs, name, old_window, old_move):
+        with phase_a_library(libs, name):
             for label, rows in (("int8", rows8),
                                 ("int8 slice [:, 1:129]", rows8[:, 1:129])):
                 r = smoke.sums_case(rows, True, flush)
@@ -1507,9 +1401,9 @@ def phase_a_compare(dev, parent_dir: str, sizes: list) -> None:
         fasta = smoke.bench_corpus(n=n)
         cfg = ClusterConfig(files=[fasta], output=os.path.join(
             smoke.WORK, "phase_a_warm.clstr"), similarity=0.90).finalize()
-        _ext.reset_launches()
+        perf.reset()
         res = run(cfg, device=dev)
-        launches = dict(_ext.launches)
+        counters = perf.counters()
         ps = res["pointset"]
         bv = BVec(ps.lengths.copy(), cfg.bin_size)
         bv.bulk_insert(ps.lengths)
@@ -1526,19 +1420,19 @@ def phase_a_compare(dev, parent_dir: str, sizes: list) -> None:
               f"{notes['member warps']:.2f} warps of 32 slots and "
               f"{notes['member tiles']:.2f} tiles", flush=True)
         for name in ("parent", "this"):
-            with phase_a_library(libs, name, old_window, old_move):
+            with phase_a_library(libs, name):
                 print(f"  {name}, {n} reads:", flush=True)
                 if n <= FULL_CLUSTER_READS:
                     ms = absorb_windows_ms(ps, bv, params)
                     print("    pa_absorb ms a launch by window: "
                           + ", ".join(f"{k} {v:.5f}" for k, v in ms.items()),
                           flush=True)
-                phase_a_kernels(ps, bv, params, launches, traffic)
+                phase_a_kernels(ps, bv, params, counters, traffic)
                 host_split(ps, bv, params, cfg.similarity)
         clstr = set()
         for i, name in enumerate(turns):
             out = os.path.join(smoke.WORK, f"phase_a_{i}.clstr")
-            with phase_a_library(libs, name, old_window, old_move):
+            with phase_a_library(libs, name):
                 wall, phases = run_path(dev, fasta, out, similarity=0.90)
             with open(out, "rb") as f:
                 clstr.add(f.read())

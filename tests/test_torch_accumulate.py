@@ -5,10 +5,15 @@ tests/test_accum_device.py (species clones, and one where half the reads
 duplicate their species' seed), against the port's own host path at
 --id 0.90, and at --id 0.60 and 0.97 on lengths where the JAX package's
 float32 window limits differ from the host path's float64 ones: there the
-port follows the host path. Every comparison is exact: the same centers
-with the same members in the same order.
+port follows the host path. The device-driven loop (chunks of CHUNK
+iterations, read back once a chunk) against the host-driven loop it
+replaced, on those corpora and on a Zipf(2) corpus of mostly singletons,
+with phases that end on, before and just after a chunk's end; and pa_next's
+plain step against the host loop's decisions. Every comparison is exact:
+the same centers with the same members in the same order.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -19,6 +24,7 @@ from meshclust_tpu_torch.core import classify as C
 from meshclust_tpu_torch.core import accumulate_device as A
 from meshclust_tpu_torch.core.bvec import BVec
 from meshclust_tpu_torch.core.meanshift import MeanShift
+from meshclust_tpu_torch.ops import phase_a as P
 from tests.conftest import mutate, random_dna
 from tests.test_torch_device_backend import shifted, toy_model, toy_points
 
@@ -46,18 +52,20 @@ def with_weights(params, w):
 
 
 def jax_points(rng, n_species=8, per=10, length=400, rate=0.03,
-               duplicates=False):
+               duplicates=False, sizes=None):
     """The JAX package's PointSet of test_accum_device's corpus (n_species
-    random species, per clones each, every other clone an exact copy of
-    the species' seed with `duplicates`, records shuffled) and a classifier
-    trained on it by the port's Trainer (sample 120, --id 0.90), as the
-    JAX package's FeatureParams."""
+    random species, per clones each, or sizes[s] clones in species s,
+    every other clone an exact copy of the species' seed with
+    `duplicates`, records shuffled) and a classifier trained on it by the
+    port's Trainer (sample 120, --id 0.90), as the JAX package's
+    FeatureParams."""
     from meshclust_tpu.core.points import build_points
     from meshclust_tpu.io import fasta
     from meshclust_tpu.ops.features import FeatureParams
     from meshclust_tpu_torch.core.trainer import Trainer
     seqs = []
-    for s in range(n_species):
+    sizes = [per] * n_species if sizes is None else sizes
+    for s, per in enumerate(sizes):
         base = random_dna(rng, length + (0 if duplicates
                                          else int(rng.integers(-20, 20))))
         for c in range(per):
@@ -249,7 +257,10 @@ def test_counters_and_cmax_hint():
     perf.reset()
     assert got["accum_centers"] == len(full)
     assert got["accum_iters"] >= len(full)
-    assert got["accum_readbacks"] == got["accum_iters"] + 2
+    assert got["accum_device_iters"] == got["accum_iters"]
+    assert got["accum_replays"] == -(-got["accum_iters"] // A.CHUNK)
+    assert got["accum_readbacks"] == got["accum_replays"] + 1 \
+        <= got["accum_iters"] + 1
     cut = A.accumulate_device(ps, port_bv(ps, 7), params, 0.60, cmax_hint=3)
     assert listed(cut) == listed(full)[:3]
 
@@ -266,7 +277,7 @@ def _scalar_reads(fn):
 
 
 def test_one_readback_an_iteration():
-    """Phase A reads back once an absorb iteration (its .tolist()), and
+    """Phase A reads back once a chunk of iterations (its .tolist()), and
     besides only the largest count at setup; Phase B never until its
     end. On the card each hidden read would be a sync."""
     ps, params = edge_points(0.97)
@@ -281,3 +292,191 @@ def test_one_readback_an_iteration():
     db = C.DeviceBackend(ps, params)
     assert _scalar_reads(lambda: db.phase_b_loop(members, assign, rows, 5,
                                                  3)) == 0
+
+
+def host_driven(ps, bv, params, sim, cmax=0):
+    """Phase A as the host drove it before its control moved onto the
+    device, over the plain steps: each iteration's four scalars read back,
+    and the host choosing to move the center, end it, seed the next or
+    stop. -> (owner, stamp, active, center slots, iterations)."""
+    sl = A._Slots(ps, bv, params, sim, plain=True)
+    N = sl.N
+    cmax = cmax or N + 1
+    center_slot, t, seed, iters = [], 0, 0, 0
+    sl.active[:1] = False
+    while True:
+        sl.begin(seed, len(center_slot), t)
+        t += 1
+        while True:
+            sl.st[P.T] = t
+            sl.window()
+            sl.sweep()
+            sl.absorb_step()
+            n_pos, best, last, live = sl.st[: P.LIVE + 1].tolist()
+            t += 1
+            iters += 1
+            if n_pos == 0:
+                break
+            sl.move_step()
+        center_slot.append(last)
+        seed = best if best < N else live
+        if seed >= N or len(center_slot) >= cmax:
+            break
+        sl.active[seed] = False
+    return (sl.owner.numpy(), sl.stamp.numpy(), sl.active.numpy(),
+            np.asarray(center_slot, np.int64), iters)
+
+
+@functools.lru_cache(maxsize=None)
+def zipf_points(n=220, seed=6):
+    """port_case of jax_points' corpus in species whose sizes are Zipf(2)
+    draws of at most 12 (most of them singletons): -> (points, params,
+    sizes)."""
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < n:
+        sizes.append(int(min(rng.zipf(2.0), 12, n - sum(sizes))))
+    return (*port_case(*jax_points(rng, sizes=sizes)), sizes)
+
+
+def _phase_case(name):
+    if name == "zipf":
+        ps, params, sizes = zipf_points()
+        assert sum(s == 1 for s in sizes) > len(sizes) / 2
+        return ps, params, 0.90
+    sim, q = {"edge_0.60_strict": (0.60, 0.9), "edge_0.97": (0.97, None),
+              "edge_0.97_strict": (0.97, 0.8)}[name]
+    ps, params = edge_points(sim)
+    return ps, shifted(params, ps, q)[0], sim
+
+
+@pytest.mark.parametrize("end", ["default", "on", "before", "after"])
+@pytest.mark.parametrize("name", ["edge_0.60_strict", "edge_0.97",
+                                  "edge_0.97_strict", "zipf"])
+def test_chunked_loop_equals_host_driven_loop(name, end, monkeypatch):
+    """accumulate_device's chunks (the plain steps on the CPU, as a graph's
+    replays run the kernels) against the host-driven loop: owner, stamp,
+    active, center slots and iterations equal, bit for bit. CHUNK set so
+    that the phase ends on a chunk's last iteration, one before it, or on
+    the first iteration of a new chunk (past the end each chunk's
+    iterations change nothing); the device counted every iteration."""
+    from meshclust_tpu_torch.utils import perf
+    ps, params, sim = _phase_case(name)
+    owner, stamp, active, center_slot, iters = host_driven(
+        ps, port_bv(ps, 7), params, sim)
+    assert iters > len(center_slot) >= 4
+    if end != "default":
+        monkeypatch.setattr(A, "CHUNK", {"on": iters, "before": iters + 1,
+                                         "after": iters - 1}[end])
+    state = {}
+    perf.reset()
+    centers = A.accumulate_device(ps, port_bv(ps, 7), params, sim,
+                                  state=state)
+    got = perf.counters()
+    perf.reset()
+    for key, want in (("owner", owner), ("stamp", stamp), ("active", active),
+                      ("center_slot", center_slot)):
+        np.testing.assert_array_equal(state[key], want, err_msg=key)
+    assert got["accum_iters"] == got["accum_device_iters"] == iters
+    assert got["accum_centers"] == len(centers) == len(center_slot)
+    assert got["accum_replays"] == {"on": 1, "before": 1, "after": 2}.get(
+        end, -(-iters // A.CHUNK))
+    if name == "zipf":
+        assert sum(len(c.members) == 1 for c in centers) > len(centers) / 2
+        assert max(len(c.members) for c in centers) > 3
+
+
+@pytest.mark.parametrize("cmax", [1, 3])
+def test_chunked_loop_cut_at_cmax_equals_host_driven_loop(cmax):
+    ps, params, sim = _phase_case("zipf")
+    owner, stamp, active, center_slot, _ = host_driven(
+        ps, port_bv(ps, 7), params, sim, cmax)
+    state = {}
+    A.accumulate_device(ps, port_bv(ps, 7), params, sim, cmax_hint=cmax,
+                        state=state)
+    assert len(center_slot) == cmax
+    for key, want in (("owner", owner), ("stamp", stamp), ("active", active),
+                      ("center_slot", center_slot)):
+        np.testing.assert_array_equal(state[key], want, err_msg=key)
+
+
+def next_state(n=6, c=2, t=9, npos=0, best=4, live=1, done=0, count=3):
+    """A state at an iteration's end: center c (its slot 3) with `count`
+    members, absorb stamp t, the window's best and first live slots; the
+    slot arrays of n slots, rows [n, 3] int8; cmax-free."""
+    st, _ = P.new_state(n, "cpu")
+    st[[P.NPOS, P.BEST, P.LAST, P.LIVE, P.COUNT]] = torch.tensor(
+        [npos, best, 3, live, count])
+    st[[P.DONE, P.ITERS, P.C, P.MEMBERS, P.T]] = torch.tensor(
+        [done, 40, c, 11, t])
+    arrays = dict(
+        active=torch.tensor([False, True, True, False, True, True][:n]),
+        owner=torch.tensor([0, -1, -1, 2, -1, -1][:n]),
+        stamp=torch.tensor([0, 0, 0, 5, 0, 0][:n]),
+        rows=torch.arange(3 * n, dtype=torch.int8).reshape(n, 3),
+        sumvec=torch.tensor([7, 8, 9]),
+        center_slot=torch.full((n + 1,), -5))
+    return st, arrays
+
+
+def host_next(st, a, cmax):
+    """The host loop's decisions at an iteration's end (host_driven), on
+    copies: -> (st, arrays) after them."""
+    st = st.clone()
+    a = {k: v.clone() for k, v in a.items()}
+    n = a["active"].shape[0]
+    if st[P.DONE]:
+        return st, a
+    st[P.ITERS] += 1
+    t = int(st[P.T]) + 1
+    st[P.T] = t
+    if st[P.NPOS]:
+        return st, a
+    c = int(st[P.C])
+    a["center_slot"][c] = st[P.LAST]
+    st[P.MEMBERS] += st[P.COUNT]
+    st[P.C] = c + 1
+    best, live = int(st[P.BEST]), int(st[P.LIVE])
+    seed = best if best < n else live
+    if seed >= n or c + 1 >= cmax:
+        st[P.DONE] = 1
+        return st, a
+    a["active"][seed] = False
+    a["owner"][seed] = c + 1
+    a["stamp"][seed] = t
+    a["sumvec"][:] = a["rows"][seed]
+    st[P.LAST], st[P.COUNT], st[P.T] = seed, 1, t + 1
+    return st, a
+
+
+NEXT_CASES = {
+    "absorbed": (dict(npos=2), 99),
+    "seed_best": (dict(), 99),
+    "seed_first_live": (dict(best=6, live=1), 99),
+    "no_seed": (dict(best=6, live=6), 99),
+    "cmax": (dict(), 3),
+    "cmax_not_yet": (dict(), 4),
+    "done": (dict(done=1), 99),
+    "done_absorbed": (dict(done=1, npos=2), 99),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NEXT_CASES))
+def test_next_plain_equals_host_decisions(case):
+    """pa_next's plain step (through its CPU wrapper) against the host
+    loop's decisions: a seed from the window's best, else the first live
+    slot, else done; the cmax cut; nothing once done; st[T] spent once, or
+    twice where a center begins."""
+    kw, cmax = NEXT_CASES[case]
+    st, a = next_state(**kw)
+    want_st, want = host_next(st, a, cmax)
+    P.next(st, a["active"], a["owner"], a["stamp"], a["rows"], a["sumvec"],
+           a["center_slot"], cmax)
+    assert st.tolist() == want_st.tolist()
+    for k in a:
+        assert torch.equal(a[k], want[k]), k
+    begins = case in ("seed_best", "seed_first_live", "cmax_not_yet")
+    assert int(st[P.T]) == {True: 11, False: 10}[begins] \
+        or case.startswith("done")
+    assert bool(st[P.DONE]) == (case in ("no_seed", "cmax")
+                                or case.startswith("done"))

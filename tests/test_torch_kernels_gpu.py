@@ -308,103 +308,179 @@ def _listed(centers):
 
 
 def phase_a_lockstep(ps, params, sim, bv):
-    """Phase A driven as accumulate_device drives it, each step by the
-    plain _Slots and by the kernels' _Slots on the same card, every value
-    the next step reads compared bit for bit (the state buffer, active,
-    owner, stamp, sumvec; the sums of the window's live slots; the members'
-    distances). -> (iterations, launches of each kernel)."""
+    """Phase A driven as accumulate_device drives it on one rank, each step
+    by the plain _Slots and by the kernels' _Slots on the same card, every
+    value the next step reads compared bit for bit (the state buffer with
+    the loop's slots, active, owner, stamp, sumvec, the center slots; the
+    sums of the window's live slots; the members' distances), until the
+    done flag; then one more iteration, which changes nothing. ->
+    (iterations, launches of each kernel)."""
     from meshclust_tpu_torch.core import accumulate_device as A
     from meshclust_tpu_torch.ops import phase_a as P
     plain = A._Slots(ps, bv, params, sim, plain=True)
     kern = A._Slots(ps, bv, params, sim, plain=False)
     assert kern.h.dtype == ps.hist_dev.dtype
     both, N = (plain, kern), plain.N
+    names = ("active", "owner", "stamp", "sumvec", "center_slot")
 
     def same(*names):
         for name in names:
             assert torch.equal(getattr(plain, name), getattr(kern, name)), \
                 name
-        assert torch.equal(plain.st[: P.COUNT + 1], kern.st[: P.COUNT + 1])
+        for a, b in ((0, P.COUNT + 1), (P.DONE, P.T + 1)):
+            assert torch.equal(plain.st[a: b], kern.st[a: b])
 
     before = dict(_ext.launches)
     for sl in both:
         sl.active[:1] = False
-    c = t = seed = iters = 0
-    while True:
+        sl.begin(0, 0, 0)
+    iters = 0
+    while not int(kern.st[P.DONE]):
         for sl in both:
-            sl.begin(seed, c, t)
-        t += 1
-        while True:
-            for sl in both:
-                sl.window()
-                sl.step.sums(sl.st, sl.active, sl.h, sl.sums)
-            same("active")
-            w0, w1 = kern.st[P.W0: P.W1 + 1].tolist()
-            live = torch.nonzero(kern.active[w0: w1 + 1]).flatten() + w0
-            assert torch.equal(plain.sums[:, live], kern.sums[:, live])
-            for sl in both:
-                sl.step.absorb(sl.st, sl.sums, sl.model, sl.mag, sl.sq,
-                               sl.lenf, sl.owner, sl.stamp, sl.active, sl.h,
-                               sl.sumvec, c, t, sl.part)
-            same("active", "owner", "stamp", "sumvec")
-            n_pos, best, _, live_slot = kern.st[: P.LIVE + 1].tolist()
-            t += 1
-            iters += 1
-            if n_pos == 0:
-                break
-            for sl in both:
-                sl.move(c)
-            members = torch.nonzero(kern.owner == c).flatten()
+            sl.window()
+            sl.sweep()
+        same("active")
+        w0, w1 = kern.st[P.W0: P.W1 + 1].tolist()
+        live = torch.nonzero(kern.active[w0: w1 + 1]).flatten() + w0
+        assert torch.equal(plain.sums[:, live], kern.sums[:, live])
+        for sl in both:
+            sl.absorb_step()
+        same("active", "owner", "stamp", "sumvec")
+        moved = int(kern.st[P.NPOS]) > 0
+        iters += 1
+        for sl in both:
+            sl.move(None)
+        if moved:
+            members = torch.nonzero(kern.owner == kern.st[P.C]).flatten()
             assert torch.equal(plain.dist[members], kern.dist[members])
             assert torch.equal(plain.dist[N], kern.dist[N])
-            same()
-            assert not kern.st[P.TICKET: P.LIST + 1].any()
-        c += 1
-        seed = best if best < N else live_slot
-        if seed >= N:
-            break
+        same()
+        assert not kern.st[P.TICKET: P.LIST + 1].any()
         for sl in both:
-            sl.active[seed] = False
+            sl.next_step()
+        same(*names)
+    assert int(kern.st[P.ITERS]) == iters
+    assert int(kern.st[P.MEMBERS]) == N
+    ended = [getattr(kern, x).clone() for x in names + ("st",)]
+    for sl in both:
+        sl.iteration()
+    same(*names)
+    for x, want in zip(names + ("st",), ended):
+        assert torch.equal(getattr(kern, x), want), x
     return iters, {k: _ext.launches[k] - before[k] for k in _ext.launches}
+
+
+CHAIN = ("pa_window", "pa_sums", "pa_absorb", "pa_move", "pa_next")
 
 
 @pytest.mark.parametrize("dtype", sorted(PHASE_A_SCALES))
 def test_phase_a_kernels_equal_plain_steps(cuda, dtype):
     """Each Phase A kernel against its plain step on the card, iteration
-    by iteration, with the rows in each storage dtype; pa_window, pa_sums
-    and pa_absorb launch once an absorb iteration, pa_move once an
-    iteration that absorbed, and the mesh path's two kernels never."""
+    by iteration, with the rows in each storage dtype, through the done
+    flag and one iteration past it: the five kernels of the chain launch
+    once an iteration, the mesh path's two never."""
     ps, params, _ = _phase_a_case(PHASE_A_SCALES[dtype], cuda)
     assert ps.hist_dev.dtype == getattr(torch, dtype)
     iters, launched = phase_a_lockstep(ps, params, 0.90, _bvec(ps))
-    assert launched["pa_window"] == launched["pa_sums"] == \
-        launched["pa_absorb"] == iters
-    assert 0 < launched["pa_move"] < iters
+    assert {launched[k] for k in CHAIN} == {iters + 1}
     assert launched["pa_member_dist"] == launched["pa_mean_argmin"] == 0
+
+
+def _device_kernels(fn) -> dict:
+    """Launches of each Phase A kernel that the card ran in fn() (graph
+    replays included), read from torch.profiler's device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(CHAIN, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k in CHAIN:
+                if f"{k}_kernel" in e.name:
+                    out[k] += 1
+    return out
 
 
 @pytest.mark.parametrize("dtype", sorted(PHASE_A_SCALES))
 def test_phase_a_on_the_card_equals_plain_and_cpu(cuda, dtype):
-    """The whole Phase A through the kernels against plain=True on the
-    card and the CPU path: the same centers with the same members in the
-    same order; three Phase A launches an absorb iteration and one a move
-    of the center (an iteration that absorbed: all but each center's
-    last)."""
-    from meshclust_tpu_torch.core.accumulate_device import accumulate_device
+    """The whole Phase A through the kernels, CHUNK iterations a replay of
+    a CUDA graph, against plain=True on the card and the CPU path: the same
+    owner, stamp, active and center slots, the same iterations, and so the
+    same centers with the same members in the same order. The card runs
+    the five kernels of the chain once an iteration, CHUNK a replay, once
+    more each before the capture; the host launches them only into the
+    capture and reads back once a replay and once at the end."""
+    from meshclust_tpu_torch.core import accumulate_device as A
     from meshclust_tpu_torch.utils import perf
     ps, params, arrays = _phase_a_case(PHASE_A_SCALES[dtype], cuda)
     host, _, _ = _phase_a_case(PHASE_A_SCALES[dtype], "cpu")
     perf.reset()
     _ext.reset_launches()
-    got = _listed(accumulate_device(ps, _bvec(ps), params, 0.90))
+    state = {}
+    ran = _device_kernels(lambda: state.setdefault("centers", _listed(
+        A.accumulate_device(ps, _bvec(ps), params, 0.90, state=state))))
     c = perf.counters()
-    iters, moves = c["accum_iters"], c["accum_iters"] - c["accum_centers"]
-    pa = sum(v for k, v in _ext.launches.items() if k.startswith("pa_"))
-    assert _ext.launches["pa_move"] == moves
-    assert pa == 3 * iters + moves
-    assert got == _listed(accumulate_device(ps, _bvec(ps), params, 0.90,
-                                            plain=True))
-    assert got == _listed(accumulate_device(host, _bvec(host), params, 0.90))
+    replays = c["accum_replays"]
+    assert replays == -(-c["accum_iters"] // A.CHUNK) >= 2
+    assert c["accum_device_iters"] == c["accum_iters"]
+    assert c["accum_readbacks"] == replays + 1
+    assert {_ext.launches[k] for k in CHAIN} == {A.CHUNK + 1}
+    assert ran == dict.fromkeys(CHAIN, A.CHUNK * replays + 1)
+    for other, plain in ((ps, True), (host, None)):
+        want = {}
+        perf.reset()
+        centers = _listed(A.accumulate_device(other, _bvec(other), params,
+                                              0.90, plain=plain, state=want))
+        assert perf.counters()["accum_iters"] == c["accum_iters"]
+        assert centers == state["centers"]
+        for key in ("owner", "stamp", "active", "center_slot"):
+            np.testing.assert_array_equal(state[key], want[key],
+                                          err_msg=key)
+
+
+# pa_next's cases: (the state's n_pos, best, first live slot, done; cmax)
+# for 6 slots, center 2 at slot 3 (with_state below)
+PA_NEXT = {"absorbed": (2, 4, 1, 0, 99), "seed_best": (0, 4, 1, 0, 99),
+           "seed_first_live": (0, 6, 1, 0, 99), "no_seed": (0, 6, 6, 0, 99),
+           "cmax": (0, 4, 1, 0, 3), "done": (0, 4, 1, 1, 99)}
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int16", "int32", "int64"])
+@pytest.mark.parametrize("case", sorted(PA_NEXT))
+def test_pa_next_kernel_equals_plain(cuda, case, dtype):
+    """pa_next against next_plain, one launch: the state buffer, active,
+    owner, stamp, sumvec (a seed's row widened from each storage dtype)
+    and the center slots equal, for each of the loop's decisions."""
+    from meshclust_tpu_torch.ops import phase_a as P
+    npos, best, live, done, cmax = PA_NEXT[case]
+    n = 6
+    out = {}
+    for kernel in (True, False):
+        st, _ = P.new_state(n, cuda)
+        st[[P.NPOS, P.BEST, P.LAST, P.LIVE, P.COUNT]] = torch.tensor(
+            [npos, best, 3, live, 3], device=cuda)
+        st[[P.DONE, P.ITERS, P.C, P.MEMBERS, P.T]] = torch.tensor(
+            [done, 40, 2, 11, 9], device=cuda)
+        a = [torch.tensor([False, True, True, False, True, True],
+                          device=cuda),
+             torch.tensor([0, -1, -1, 2, -1, -1], device=cuda),
+             torch.tensor([0, 0, 0, 5, 0, 0], device=cuda),
+             (torch.arange(3 * n, device=cuda).reshape(n, 3) * 7 - 20).to(
+                 getattr(torch, dtype)),
+             torch.tensor([7, 8, 9], device=cuda),
+             torch.full((n + 1,), -5, dtype=torch.int64, device=cuda)]
+        if kernel:
+            before = _ext.launches["pa_next"]
+            P.next(st, *a, cmax)
+            assert _ext.launches["pa_next"] == before + 1
+        else:
+            P.next_plain(st, *a, cmax)
+        out[kernel] = [st] + a
+    for got, want in zip(out[True], out[False]):
+        assert torch.equal(got, want)
 
 
 def test_phase_a_at_two_ranks_sharing_the_card(cuda):
@@ -431,6 +507,8 @@ def test_phase_a_at_two_ranks_sharing_the_card(cuda):
             assert res["launches"]["pa_member_dist"] == moves
             assert res["launches"]["pa_mean_argmin"] == moves
             assert res["launches"]["pa_move"] == 0
+            assert res["launches"]["pa_next"] == 0
+            assert c["accum_device_iters"] == 0
             assert c["accum_iters"] < c["coll_accumulate"] \
                 <= 2 * c["accum_iters"]
 
@@ -553,14 +631,14 @@ def test_pa_member_dist_kernel_equals_plain(cuda, case, aligned):
     owner.copy_(torch.as_tensor(own))
     members = torch.nonzero(owner == c).flatten()
     st, _ = P.new_state(n, cuda)
-    st[P.COUNT] = members.numel()
+    st[P.COUNT], st[P.C] = members.numel(), c
     sumvec = rows[members].to(torch.int64).sum(0)
     got = torch.full((n + 1,), -7, dtype=torch.int64, device=cuda)
     before = _ext.launches["pa_member_dist"]
-    P.member_dist(st, owner, c, rows, sumvec, got)
+    P.member_dist(st, owner, rows, sumvec, got)
     assert _ext.launches["pa_member_dist"] == before + 1
     want = torch.zeros(n + 1, dtype=torch.int64, device=cuda)
-    P.member_dist_plain(st, owner, c, rows, sumvec, want)
+    P.member_dist_plain(st, owner, rows, sumvec, want)
     mask = torch.zeros(n + 1, dtype=torch.bool, device=cuda)
     mask[members] = True
     mask[n] = True
@@ -606,7 +684,7 @@ def _move_inputs(cuda, case, aligned, n=3000, c=5):
     mag = rows.to(torch.int64).sum(1).to(torch.float64)
     members = torch.nonzero(owner == c).flatten()
     st, part = P_.new_state(n, cuda)
-    st[P_.COUNT] = members.numel()
+    st[P_.COUNT], st[P_.C], st[P_.NPOS] = members.numel(), c, 1
     sumvec = rows[members].to(torch.int64).sum(0)
     assert torch.equal(sumvec, t * members.numel())
     return st, part, owner, c, rows, sumvec, mag, stamp, members
@@ -636,9 +714,9 @@ def test_pa_move_kernel_equals_plain(cuda, case, aligned):
         want = torch.zeros(n + 1, dtype=torch.int64, device=cuda)
         st_p = st.clone()
         before = _ext.launches["pa_move"]
-        P_.move(st, owner, c, rows, sumvec, mag, stamp, got, part)
+        P_.move(st, owner, rows, sumvec, mag, stamp, got, part)
         assert _ext.launches["pa_move"] == before + 1
-        P_.move_plain(st_p, owner, c, rows, sumvec, mag, stamp, want, part)
+        P_.move_plain(st_p, owner, rows, sumvec, mag, stamp, want, part)
         assert torch.equal(got[mask], want[mask])
         assert bool((got[~mask] == -7).all())
         assert torch.equal(st, st_p)
@@ -659,16 +737,16 @@ def test_pa_mean_argmin_over_the_list_equals_plain(cuda, case):
     for stamps, want_last in TIES.values():
         stamp[TWINS] = torch.tensor(stamps, device=cuda)
         dist = torch.full((n + 1,), -7, dtype=torch.int64, device=cuda)
-        P_.member_dist(st, owner, c, rows, sumvec, dist, part)
+        P_.member_dist(st, owner, rows, sumvec, dist, part)
         listed = part[P_.part_len(n) - (n + 1) // 2:].view(torch.int32)
         assert int(st[P_.LIST]) == members.numel()
         assert torch.equal(listed[: members.numel()].sort().values
                            .to(torch.int64), members)
         st_p = st.clone()
         before = _ext.launches["pa_mean_argmin"]
-        P_.mean_argmin(st, dist, mag, owner, stamp, c, part)
+        P_.mean_argmin(st, dist, mag, owner, stamp, part)
         assert _ext.launches["pa_mean_argmin"] == before + 1
-        P_.mean_argmin_plain(st_p, dist, mag, owner, stamp, c, part)
+        P_.mean_argmin_plain(st_p, dist, mag, owner, stamp, part)
         assert int(st[P_.LAST]) == int(st_p[P_.LAST]) == want_last
         assert int(st[P_.LIST]) == 0
 
@@ -777,6 +855,7 @@ def test_pa_absorb_kernel_equals_plain(cuda, window, nan):
     for kernel in (True, False):
         st, part = P.new_state(n, cuda)
         st[P.W0], st[P.W1], st[P.LAST], st[P.COUNT] = w0, w1, center, 5
+        st[P.C], st[P.T] = 3, 17
         active = torch.ones(n, dtype=torch.bool, device=cuda)
         active[center] = False
         owner = torch.full((n,), -1, dtype=torch.int64, device=cuda)
@@ -786,7 +865,7 @@ def test_pa_absorb_kernel_equals_plain(cuda, window, nan):
                            dtype=torch.int64, device=cuda)
         P.sums_plain(st, active, h64, sums)
         args = (st, sums, model, mag, sq, lenf, owner, stamp, active, h,
-                sumvec, 3, 17, part)
+                sumvec, part)
         if kernel:
             before = _ext.launches["pa_absorb"]
             P.absorb(*args)

@@ -29,10 +29,16 @@ the last block, here in a random block order) and its tie rules:
                   anything;
   pa_member_dist  pa_move's tiles, each busy block appending its list to
                   the rank's (under a mesh);
-  pa_mean_argmin  the least (d, stamp, slot) over that list.
-The rows may be cut into feature shards whose partials are summed, as
+  pa_mean_argmin  the least (d, stamp, slot) over that list;
+  pa_next         one block: the center's slot recorded where nothing was
+                  absorbed, the next seed (the best, else the first live
+                  slot) or the done flag, the stamp and iteration counters
+                  in st, the seed's row written into sumvec.
+The center's id and the absorb's stamp are read from st, as the kernels
+read them. The rows may be cut into feature shards whose partials are summed, as
 under a mesh. The model is held equal, step by step and iteration by
-iteration, to the plain steps of core/accumulate_device._Slots, on the edge
+iteration, to the plain steps of core/accumulate_device._Slots' chain
+(every step after the done flag a no-op), on the edge
 corpora of tests/test_torch_accumulate.py (--id 0.60 and 0.97 at their
 window-limit edges, 0.90 on species corpora), with duplicate rows planted
 so that f1 and d tie, with empty windows and with a lone read whose length
@@ -627,84 +633,111 @@ def numpy_slots(sl):
     return {k: getattr(sl, k).numpy().copy() for k in keys}
 
 
+def model_next(st, s, shards, sumvecs, center_slot, cmax):
+    """pa_next: one block, whose threads all read st before thread 0
+    writes it; where a center begins, the block's threads write the seed's
+    row into sumvec (each shard's), a count each. Nothing once st[DONE] is
+    set."""
+    N = s["active"].shape[0]
+    if st[P.DONE]:
+        return
+    c, t, best = int(st[P.C]), int(st[P.T]) + 1, int(st[P.BEST])
+    ends = st[P.NPOS] == 0
+    seed = best if best < N else int(st[P.LIVE])
+    stop = ends and (seed >= N or c + 1 >= cmax)
+    if ends and not stop:
+        for h, sv in zip(shards, sumvecs):
+            sv[:] = h[seed]
+    st[P.ITERS] += 1
+    if not ends:
+        st[P.T] = t
+        return
+    center_slot[c] = st[P.LAST]
+    st[P.MEMBERS] += st[P.COUNT]
+    st[P.C] = c + 1
+    if stop:
+        st[P.T], st[P.DONE] = t, 1
+        return
+    s["active"][seed] = False
+    s["owner"][seed], s["stamp"][seed] = c + 1, t
+    st[P.LAST], st[P.COUNT], st[P.T] = seed, 1, t + 1
+
+
 def lockstep(ps, bv, params, sim, n_shards=1, grid=SMALL, seed=0,
              least_slot=True, stamp_first=True, fused=None):
-    """Phase A driven as accumulate_device drives it, each step by the
-    plain _Slots and by the model, every value the next step reads
-    compared; the move as move_plain against pa_move's model (fused, the
-    default on one shard) or against pa_member_dist's and pa_mean_argmin's
-    (the mesh path, the default on several). -> (center slots, owner,
-    stamp, slots, record) where record counts empty windows, ties and
-    iterations."""
+    """Phase A driven as accumulate_device drives it on one rank, each step
+    by the plain _Slots' chain and by the model, every value the next step
+    reads compared; the move as the chain's move_plain against pa_move's
+    model (fused, the default on one shard) or as the mesh path's
+    pa_member_dist and pa_mean_argmin against theirs (the default on
+    several), then pa_next's plain step against its model, until the done
+    flag. -> (center slots, owner, stamp, slots, record) where record
+    counts empty windows, ties and iterations."""
     fused = n_shards == 1 if fused is None else fused
     assert not (fused and n_shards > 1)
     rng = np.random.default_rng(seed)
     sl = A._Slots(ps, bv, params, sim, plain=True)
     N, step = sl.N, sl.step
     s = numpy_slots(sl)
-    st = sl.st.numpy().copy()
     storage = ps.hist_dev[torch.as_tensor(sl.point)].numpy()
     shards = np.array_split(storage, n_shards, axis=1)
     spec, coef = sl.model.spec.numpy(), sl.model.coef.numpy()
     with_dot = sl.model.with_dot
     msums = np.zeros((2 if with_dot else 1, N), np.int64)
     rec = {"iters": 0, "empty": 0, "f1_ties": 0, "d_ties": 0}
-    center_slot, t, seed_slot = [], 0, 0
+    center_slot = np.zeros(N + 1, np.int64)
 
     def same_state():
         for k in ("active", "owner", "stamp"):
             np.testing.assert_array_equal(getattr(sl, k).numpy(), s[k])
-        np.testing.assert_array_equal(sl.st.numpy()[:P.COUNT + 1],
-                                      st[:P.COUNT + 1])
+        for a, b in ((0, P.COUNT + 1), (P.DONE, P.T + 1)):
+            np.testing.assert_array_equal(sl.st.numpy()[a: b], st[a: b])
+        np.testing.assert_array_equal(np.concatenate(sumvecs),
+                                      sl.sumvec.numpy())
 
     sl.active[:1] = False
+    sl.begin(0, 0, 0)
+    st = sl.st.numpy().copy()
     s["active"][0] = False
-    while True:
-        c = len(center_slot)
-        sl.begin(seed_slot, c, t)
-        s["owner"][seed_slot], s["stamp"][seed_slot] = c, t
-        st[P.LAST], st[P.COUNT] = seed_slot, 1
-        sumvecs = [h[seed_slot].astype(np.int64) for h in shards]
-        t += 1
-        while True:
-            sl.window()
-            model_window(st, s["active"], s["ranges"], grid, seed % 16)
-            same_state()
-            w0, w1 = st[P.W0], st[P.W1]
-            rec.setdefault("first_window", (w0, w1))
-            rec["empty"] += int(not (s["active"][max(w0, 0): w1 + 1]).any())
-            step.sums(sl.st, sl.active, sl.h, sl.sums)
-            read = model_sums(st, s, shards, msums, with_dot, grid)
-            live = [x for x in range(max(w0, 0), min(w1, N - 1) + 1)
-                    if s["active"][x]]
-            assert read == live
-            np.testing.assert_array_equal(msums[:, live],
-                                          sl.sums.numpy()[:, live])
-            f1_live = _f1_of(sl, live)
-            rec["f1_ties"] += int(len(f1_live) > 1 and np.sum(
-                f1_live == f1_live.max()) > 1)
-            step.absorb(sl.st, sl.sums, sl.model, sl.mag, sl.sq, sl.lenf,
-                        sl.owner, sl.stamp, sl.active, sl.h, sl.sumvec, c, t,
-                        sl.part)
-            model_absorb(st, s, msums, spec, coef, with_dot, shards, sumvecs,
-                         c, t, grid, rng, least_slot)
-            same_state()
-            np.testing.assert_array_equal(np.concatenate(sumvecs),
-                                          sl.sumvec.numpy())
-            n_pos, best, last_h, live_slot = sl.st[:P.LIVE + 1].tolist()
-            t += 1
-            rec["iters"] += 1
-            if n_pos == 0:
-                break
-            step.move(sl.st, sl.owner, c, sl.h, sl.sumvec, sl.mag,
-                      sl.stamp, sl.dist, sl.part)
-            members = np.flatnonzero(s["owner"] == c).tolist()
+    s["owner"][0] = s["stamp"][0] = 0
+    sumvecs = [h[0].astype(np.int64) for h in shards]
+    while not st[P.DONE]:
+        sl.window()
+        model_window(st, s["active"], s["ranges"], grid, seed % 16)
+        same_state()
+        w0, w1 = st[P.W0], st[P.W1]
+        rec.setdefault("first_window", (w0, w1))
+        rec["empty"] += int(not (s["active"][max(w0, 0): w1 + 1]).any())
+        sl.sweep()
+        read = model_sums(st, s, shards, msums, with_dot, grid)
+        live = [x for x in range(max(w0, 0), min(w1, N - 1) + 1)
+                if s["active"][x]]
+        assert read == live
+        np.testing.assert_array_equal(msums[:, live],
+                                      sl.sums.numpy()[:, live])
+        f1_live = _f1_of(sl, live)
+        rec["f1_ties"] += int(len(f1_live) > 1 and np.sum(
+            f1_live == f1_live.max()) > 1)
+        c = int(st[P.C])
+        sl.absorb_step()
+        model_absorb(st, s, msums, spec, coef, with_dot, shards, sumvecs,
+                     c, int(st[P.T]), grid, rng, least_slot)
+        same_state()
+        rec["iters"] += 1
+        if st[P.NPOS]:
             if fused:
+                sl.move(None)
                 mdist, read = model_move(st, s, c, shards[0], sumvecs[0],
                                          grid, rng, stamp_first)
             else:
+                step.member_dist(sl.st, sl.owner, sl.h, sl.sumvec, sl.dist,
+                                 sl.part)()
+                step.mean_argmin(sl.st, sl.dist, sl.mag, sl.owner, sl.stamp,
+                                 sl.part)()
                 mdist, read, lst = model_member_dist(st, s, c, shards,
                                                      sumvecs, grid, rng)
+            members = np.flatnonzero(s["owner"] == c).tolist()
+            if not fused:
                 assert sorted(lst) == members
             assert read == members
             np.testing.assert_array_equal(mdist[members + [N]],
@@ -714,14 +747,17 @@ def lockstep(ps, bv, params, sim, n_shards=1, grid=SMALL, seed=0,
             if not fused:
                 model_mean_argmin(st, s, mdist, lst, grid, rng, stamp_first)
             assert not st[P.TICKET: P.LIST + 1].any()
-            same_state()
-        center_slot.append(last_h)
-        seed_slot = best if best < N else live_slot
-        if seed_slot >= N:
-            break
-        sl.active[seed_slot] = False
-        s["active"][seed_slot] = False
-    return center_slot, s["owner"], s["stamp"], sl.point, rec
+        else:
+            sl.move(None)               # a no-op: nothing absorbed
+        same_state()
+        sl.next_step()
+        model_next(st, s, shards, sumvecs, center_slot, N + 1)
+        same_state()
+        np.testing.assert_array_equal(sl.center_slot.numpy(), center_slot)
+    assert st[P.ITERS] == rec["iters"] and st[P.MEMBERS] == N
+    n_centers = int(st[P.C])
+    return (center_slot[:n_centers].tolist(), s["owner"], s["stamp"],
+            sl.point, rec)
 
 
 def _f1_of(sl, live):
@@ -902,13 +938,14 @@ def move_models(rows, owner, stamp, c, count, grid, stamp_first, fused,
 
 
 def plain_move(rows, owner, stamp, c, count):
-    """move_plain through the wrapper (CPU tensors): (st[LAST], dist)."""
+    """move_plain through the wrapper (CPU tensors), in an iteration that
+    absorbed: (st[LAST], dist)."""
     n = owner.shape[0]
     h = torch.as_tensor(rows)
     st, part = P.new_state(n, "cpu")
-    st[P.COUNT] = count
+    st[P.COUNT], st[P.C], st[P.NPOS] = count, c, 1
     dist = torch.zeros(n + 1, dtype=torch.int64)
-    P.move(st, torch.as_tensor(owner), c, h, h[torch.as_tensor(owner) == c]
+    P.move(st, torch.as_tensor(owner), h, h[torch.as_tensor(owner) == c]
            .to(torch.int64).sum(0), h.to(torch.int64).sum(1).to(torch.float64),
            torch.as_tensor(stamp), dist, part)
     return int(st[P.LAST]), dist.numpy()
@@ -939,8 +976,9 @@ def test_mean_argmin_tie_goes_to_the_least_stamp(stamp_first, fused, grid):
     stamp = torch.tensor([1, 9, 2, 5, 3, 1, 3, 4])
     dist = torch.tensor([4, 50, 4, 40, 50, 4, 50, 4, 30])
     st, part = P.new_state(n, "cpu")
+    st[P.C] = 2
     P.mean_argmin(st, dist, torch.full((n,), 200.0, dtype=torch.float64),
-                  owner, stamp, 2, part)
+                  owner, stamp, part)
     assert int(st[P.LAST]) == 4
 
 
@@ -1253,7 +1291,10 @@ def test_source_constants_match_the_wrappers():
                        ("kLast", P.LAST), ("kLive", P.LIVE), ("kW0", P.W0),
                        ("kW1", P.W1), ("kCount", P.COUNT), ("kTail", P.TAIL),
                        ("kTicket", P.TICKET), ("kMove", P.MOVE),
-                       ("kList", P.LIST), ("kMoveShift", P.MOVE_SHIFT),
+                       ("kList", P.LIST), ("kDone", P.DONE),
+                       ("kIters", P.ITERS), ("kC", P.C),
+                       ("kMembers", P.MEMBERS), ("kT", P.T),
+                       ("kMoveShift", P.MOVE_SHIFT),
                        ("kComboSquared", F.COMBO_SQUARED)):
         assert const(name) == want, name
     for i, col in enumerate(P.RANGES):
@@ -1266,7 +1307,7 @@ def test_source_constants_match_the_wrappers():
                        ("kFeatSimRatio", F.FEAT_SIMRATIO),
                        ("kFeatKulczynski2", F.FEAT_KULCZYNSKI2)):
         assert flag(name) == want, name
-    assert P.LIST < P.STATE_LEN
+    assert P.T < P.STATE_LEN
     # pa_move's partials fit part at every size: three a busy tile
     for n in (1, 1023, 1024, 1025, 10 ** 6):
         assert 3 * P.owner_tiles(n) <= P.part_len(n) - (n + 1) // 2
