@@ -7,7 +7,10 @@ layer boundaries while `active`:
 and, once the job has returned, its k, histograms and trained model.
 
 The wrappers are installed once, before the warm-up job, and cost one
-attribute test a call while inactive.
+attribute test a call while inactive. `take` keeps what it reads as the
+program returned it; `settle`, once the window has closed, makes the
+reference's forms of it (an align-mode job at 15k reads aligns ~1.8M pairs,
+a dict of them takes seconds of Python).
 """
 from __future__ import annotations
 
@@ -55,24 +58,33 @@ class Capture:
         self._restore = []
 
     def take(self, result: Dict) -> Dict:
-        """The job's state for the check, copied to the host; resets the
-        capture for the next job."""
-        aligned: Dict = {}
-        for pairs, ids in self._calls:
-            for (a, b), v in zip(pairs, ids.tolist()):
-                aligned.setdefault((int(a), int(b)), float(v))
+        """The job's state, on the host, for `settle`; resets the capture
+        for the next job."""
         params = result["model"].params
         state = {
             "k": int(result["k"]),
-            "hist": np.asarray(result["pointset"].hist).astype(np.int64),
+            "hist": np.asarray(result["pointset"].hist),
             "model": {"lookup": list(params.singles),
                       "combos": [(c, list(ix)) for c, ix in params.combos],
                       "mins": np.asarray(params.mins, np.float64),
                       "maxs": np.asarray(params.maxs, np.float64),
                       "weights": np.asarray(params.weights, np.float64)},
-            "aligned": aligned,
+            "calls": self._calls,
             "split": self.split,
             "phase_a": self.phase_a,
         }
         self._calls, self.split, self.phase_a = [], None, None
         return state
+
+
+def settle(state: Dict) -> Dict:
+    """A taken state as the check reads it: int64 histograms, and the
+    aligner's calls as `aligned`, {(a, b): identity} in the order the job
+    first aligned each pair."""
+    aligned: Dict = {}
+    for pairs, ids in state.pop("calls"):
+        for (a, b), v in zip(pairs, ids.tolist()):
+            aligned.setdefault((int(a), int(b)), float(v))
+    state["aligned"] = aligned
+    state["hist"] = state["hist"].astype(np.int64)
+    return state

@@ -36,7 +36,7 @@ def readings(workload: str, seeds, device: str = "cuda", out=None):
     import torch
     from meshclust_tpu_torch.config import ClusterConfig
     from meshclust_tpu_torch.core import runner
-    from benchmark.capture import Capture
+    from benchmark.capture import Capture, settle
     from benchmark.reference import solve as R
     from benchmark.run import checked_corpus
     spec = S.load()
@@ -45,7 +45,7 @@ def readings(workload: str, seeds, device: str = "cuda", out=None):
     traffic = S.traffic(cell["traffic"])
     gen = S.generator(traffic["generator"])
     flags = dict(cfg["flags"])
-    align_mode = float(flags["similarity"]) < 0.6
+    align_mode = R.align_mode(flags)
     variant = R.CONTROLS[cfg["control"]]
     cap = Capture()
     rows = []
@@ -64,7 +64,7 @@ def readings(workload: str, seeds, device: str = "cuda", out=None):
                 torch.cuda.synchronize()
             job_s = time.perf_counter() - t
             cap.active = False
-            st = cap.take(res)
+            st = settle(cap.take(res))
             del res
             with open(clstr) as f:
                 st["clstr"] = f.read()

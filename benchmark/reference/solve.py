@@ -28,6 +28,12 @@ import numpy as np
 from benchmark.reference import cluster, corpus, kmer, model as M, nw
 
 
+def align_mode(flags: Dict) -> bool:
+    """Whether a run of these flags clusters in align mode: `align` set, or
+    an identity below 0.60 (Runner.cpp:25-39)."""
+    return bool(flags.get("align")) or float(flags["similarity"]) < 0.6
+
+
 def solve(fasta: str, flags: Dict, split_pairs: Optional[Sequence],
           check_pairs: Sequence[Tuple[int, int]],
           aligned: Optional[Dict[Tuple[int, int], float]], device,
@@ -35,7 +41,6 @@ def solve(fasta: str, flags: Dict, split_pairs: Optional[Sequence],
     headers, codes = corpus.read_fasta(fasta)
     lengths = np.asarray([c.shape[0] for c in codes], np.int64)
     sim = float(flags["similarity"])
-    align_mode = sim < 0.6
     k = int(flags["kmer"]) if flags.get("kmer") else kmer.find_k(lengths)
     hist = kmer.histograms(codes, k)
     check_pairs = [tuple(p) for p in check_pairs]
@@ -55,7 +60,8 @@ def solve(fasta: str, flags: Dict, split_pairs: Optional[Sequence],
         return np.asarray([v if v is not None else got[tuple(p)]
                            for p, v in zip(prs, known)])
 
-    if align_mode:
+    in_align_mode = align_mode(flags)
+    if in_align_mode:
         mdl = M.align_model(sim, dt)
         oracle = cluster.AlignOracle(mdl, align)
     else:
@@ -66,7 +72,8 @@ def solve(fasta: str, flags: Dict, split_pairs: Optional[Sequence],
         oracle = cluster.KmerOracle(stats, mdl, device)
     after_a, centers = cluster.run(lengths, hist, oracle, sim,
                                    int(flags["delta"]),
-                                   int(flags["iterations"]), dt, align_mode)
+                                   int(flags["iterations"]), dt,
+                                   in_align_mode)
     return {
         "k": k,
         "hist": hist,

@@ -77,6 +77,7 @@ class Run:
         self.counters: Dict[str, float] = {}
         self.job_inputs: List[Dict] = []
         self.trace: Optional[Dict] = None
+        self.take_s = 0.0
 
 
 def parse(argv) -> argparse.Namespace:
@@ -205,10 +206,7 @@ def execute(args, device: str = "cuda", faults=None) -> Dict:
         run = Run()
         run.setup_s = time.perf_counter() - T0
 
-        restore_spans = prof = None
-        if args.trace:
-            restore_spans = tracing.wrap_spans(perf)
-            prof = tracing.open_profiler()
+        prof = tracing.open_profiler() if args.trace else None
         states: Dict[int, Dict] = {}
         outs = []
         failed = 0
@@ -238,13 +236,14 @@ def execute(args, device: str = "cuda", faults=None) -> Dict:
                          "segments": info["segments"], "k": int(res["k"])})
                     outs.append((n, ci, out))
                     if want:
+                        tt = time.perf_counter()
                         states[ci] = cap.take(res)
+                        run.take_s += time.perf_counter() - tt
                 del res
                 n += 1
         run.window_s = time.perf_counter() - t_start
         if prof is not None:
             prof.__exit__(None, None, None)
-            restore_spans()
             run.trace = tracing.reduce(tracing.raw_events(prof))
             del prof
         cap.restore()
@@ -271,7 +270,7 @@ def execute(args, device: str = "cuda", faults=None) -> Dict:
         log(f"jobs {len(run.job_walls)} failed {failed} window "
             f"{run.window_s:.3f}s setup {run.setup_s:.3f}s"
             + (f" build {build_s:.3f}s" if build_s is not None else "")
-            + f" launches {launches} {info}")
+            + f" take {run.take_s:.3f}s launches {launches} {info}")
         if run.trace is not None:
             log("device busy s by span: " + json.dumps(
                 run.trace["busy_by_span"]))
@@ -318,9 +317,9 @@ def device_info(device: str, chips: int, peak: int, run: Run) -> Dict:
 def check(args, cfg_file: Dict, pool, states: Dict[int, Dict], target: int,
           outs, dev):
     """(the numbers compared, each with its limit; diagnostics)."""
+    from benchmark.capture import settle
     from benchmark.reference import solve as R
     limits = cfg_file["limits"]
-    align_mode = float(cfg_file["flags"]["similarity"]) < 0.6
     ci = target if target in states else min(states) if states else None
     checks: Dict[str, Dict] = {}
     info = ""
@@ -342,16 +341,19 @@ def check(args, cfg_file: Dict, pool, states: Dict[int, Dict], target: int,
     if ci is None:
         checks["reference_job"] = {"value": 1, "limit": 0}
         return checks, "no job to check"
-    st = states[ci]
+    t = time.perf_counter()
+    st = settle(states[ci])
+    settle_s = time.perf_counter() - t
     out = next(o for n, c, o in outs if c == ci)
     with open(out) as f:
         st["clstr"] = f.read()
     t = time.perf_counter()
     ref = R.check_job(st, pool[ci][0], cfg_file, args.seed, dev)
-    numbers = R.compare(st, ref, align_mode)
+    numbers = R.compare(st, ref, R.align_mode(cfg_file["flags"]))
     for name, v in numbers.items():
         checks[name] = {"value": v, "limit": limits[name]}
-    info = (f"reference corpus {ci} in {time.perf_counter() - t:.3f}s, "
+    info = (f"settle {settle_s:.3f}s, "
+            f"reference corpus {ci} in {time.perf_counter() - t:.3f}s, "
             f"{len(ref['aligned'])} of the job's {len(st['aligned'])} "
             f"pairs aligned, oracle misses "
             f"{ref['oracle_misses']}")

@@ -6,12 +6,14 @@ import torch
 
 from benchmark import control
 from benchmark import spec as S
+from benchmark.reference import solve
 from benchmark.tests import tiny
 
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("workload", ["kmer_id90.tiny", "align_id50.tiny"])
+@pytest.mark.parametrize("workload", ["kmer_id90.tiny", "align_id50.tiny",
+                                      "align_id90.tiny"])
 def test_the_control_fails_a_number_the_program_passes(monkeypatch,
                                                         tmp_path, workload):
     root = tiny.make(str(tmp_path))
@@ -21,3 +23,7 @@ def test_the_control_fails_a_number_the_program_passes(monkeypatch,
     (row,) = control.readings(workload, [2**31 + 9], device="cpu")
     assert all(v <= limits[k] for k, v in row["program"].items())
     assert any(v > limits[k] for k, v in row["control"].items())
+    # align mode (by --id or by the flag) compares no model
+    model = not solve.align_mode(cfg["flags"])
+    assert ("model_gap" in row["program"]) == model
+    assert ("model_gap" in row["control"]) == model

@@ -108,3 +108,15 @@ def test_the_reference_imports_nothing_of_the_program_or_jax():
                                "bisect"), (name, m)
                 assert top != "benchmark" or \
                     m.startswith("benchmark.reference"), (name, m)
+
+
+@pytest.mark.parametrize("align", [False, True])
+@pytest.mark.parametrize("similarity", [0.5, 0.59, 0.6, 0.9])
+def test_align_mode_is_the_programs_rule(similarity, align):
+    from meshclust_tpu_torch.config import ClusterConfig
+    from benchmark.reference import solve
+    flags = {"similarity": similarity, "align": align}
+    want = ClusterConfig(similarity=similarity, align=align).finalize().align
+    assert solve.align_mode(flags) is want
+    if not align:
+        assert solve.align_mode({"similarity": similarity}) is want

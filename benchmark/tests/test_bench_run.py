@@ -9,6 +9,7 @@ import sys
 import time
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -81,7 +82,8 @@ def plant(name):
     ("kmer_id90.tiny", "move_unchanged", "phase_a"),
     ("kmer_id90.tiny", "half_batch", "hist_rows"),
     ("kmer_id90.tiny", "altered_answer", "nw_pairs"),
-    ("align_id50.tiny", "altered_answer", "nw_pairs")])
+    ("align_id50.tiny", "altered_answer", "nw_pairs"),
+    ("align_id90.tiny", "altered_answer", "nw_pairs")])
 def test_a_planted_fault_makes_the_run_not_correct(monkeypatch, tmp_path,
                                                    workload, fault, caught):
     from meshclust_tpu_torch.core import accumulate_device as A
@@ -97,10 +99,58 @@ def test_a_planted_fault_makes_the_run_not_correct(monkeypatch, tmp_path,
     assert c["value"] > c["limit"]
 
 
-def test_align_mode_run_is_correct(monkeypatch, tmp_path):
-    res = execute(monkeypatch, tmp_path, "align_id50.tiny", seconds=2.0)
+@pytest.mark.parametrize("workload,similarity", [("align_id50.tiny", 0.5),
+                                                 ("align_id90.tiny", 0.9)])
+def test_align_mode_run_is_correct(monkeypatch, tmp_path, workload,
+                                   similarity):
+    """Align mode by --id < 0.60 or by the `align` flag: the run is correct,
+    compares no model, and the job's model is the identity alone."""
+    from benchmark.reference import model as M
+    from benchmark.reference import solve
+    checked = []
+    orig = solve.check_job
+
+    def check_job(state, *a, **kw):
+        checked.append(state)
+        return orig(state, *a, **kw)
+    monkeypatch.setattr(solve, "check_job", check_job)
+    res = execute(monkeypatch, tmp_path, workload, seconds=2.0)
     assert res["correct"] is True and res["attempted"] >= 1
     assert "model_gap" not in res["checks"]
+    (state,) = checked
+    want = solve.model_params(M.align_model(similarity))
+    assert state["model"]["lookup"] == [M.FEAT_ALIGN]
+    assert solve.model_gap(state["model"], want) == 0.0
+    assert state["split"] is None
+
+
+def test_settle_keeps_each_pairs_first_identity_in_order():
+    from benchmark.capture import settle
+    state = {"hist": np.ones((2, 3), np.int16),
+             "calls": [([(3, 1), (0, 2)], np.asarray([0.5, 0.25])),
+                       ([(0, 2), (1, 3), (3, 1)],
+                        np.asarray([0.75, 1.0, 0.125]))]}
+    out = settle(state)
+    assert list(out["aligned"].items()) == [((3, 1), 0.5), ((0, 2), 0.25),
+                                            ((1, 3), 1.0)]
+    assert "calls" not in out and out["hist"].dtype == np.int64
+
+
+def test_a_traced_run_reads_the_programs_own_spans(monkeypatch, tmp_path):
+    """The program's own spans are the trace's ranges: the idle breakdown
+    is by them, and the per-layer metrics are read."""
+    from meshclust_tpu_torch.utils import perf
+    root = tiny.make(str(tmp_path))
+    tiny.point(monkeypatch, root)
+    args = R.parse(["--workload", "kmer_id90.tiny", "--seed", "11",
+                    "--seconds", "1", "--trace", "1"])
+    res = R.execute(args, device="cpu")
+    assert res["correct"] is True
+    gaps = {name for name, _ in res["breakdown"]["idle_gaps"]}
+    assert len(gaps) == 10
+    assert gaps - {"outside_spans"} <= set(perf.phases())
+    assert {"train_pivots.s_per_job", "phase_a.host_ms_per_iter",
+            "device.idle_share", "prepare.s_per_job"} <= set(res["metrics"])
 
 
 def test_no_module_of_jax_is_loaded_in_a_run(tmp_path):

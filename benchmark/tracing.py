@@ -1,9 +1,9 @@
 """The traced run's profiler window and its reduction to device numbers.
 
-In a traced run (--trace 1) the harness wraps `utils.perf.phase` so that
-every span the program opens is also a `torch.profiler.record_function`
-range named "span:<name>", opens one profiler over the whole window
-(CPU and CUDA activities), and reduces the profiler's raw events to:
+In a traced run (--trace 1) the harness opens one profiler over the whole
+window (CPU and CUDA activities); while it records, every span the program
+opens (`utils.perf.phase`) is also a profiler range named "span:<name>".
+The harness reduces the profiler's raw events to:
 
 - kernel_s: device seconds by kernel, copy or set name;
 - busy_s: the union of the device's intervals inside the window;
@@ -17,31 +17,11 @@ range named "span:<name>", opens one profiler over the whole window
 from __future__ import annotations
 
 import bisect
-import contextlib
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
 WINDOW = "bench:window"
 SPAN = "span:"
-
-
-def wrap_spans(perf_module):
-    """Install the span wrapper on the program's utils.perf module; returns
-    a function that removes it."""
-    import torch
-    original = perf_module.phase
-
-    @contextlib.contextmanager
-    def phase(name: str):
-        with torch.profiler.record_function(SPAN + name):
-            with original(name):
-                yield
-
-    perf_module.phase = phase
-
-    def restore():
-        perf_module.phase = original
-    return restore
 
 
 def open_profiler():
