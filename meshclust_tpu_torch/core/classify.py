@@ -42,6 +42,7 @@ import torch
 from meshclust_tpu_torch.core.points import PointSet
 from meshclust_tpu_torch.ops import features as F
 from meshclust_tpu_torch.parallel import dist
+from meshclust_tpu_torch.utils import perf
 from meshclust_tpu_torch.utils.log import log
 
 # 46340^2 < 2^31: rows whose counts are at most this multiply in int32.
@@ -232,24 +233,30 @@ class AlignBackend:
     def _identities(self, a_idx: np.ndarray, b_idx: np.ndarray) -> np.ndarray:
         a_idx = np.asarray(a_idx, np.int64)
         b_idx = np.asarray(b_idx, np.int64)
-        keys = self.memo.key_of(a_idx, b_idx)
-        vals, found = self.memo.lookup(keys)
+        perf.add("memo_lookups", a_idx.shape[0])
+        with perf.phase("align_memo"):
+            keys = self.memo.key_of(a_idx, b_idx)
+            vals, found = self.memo.lookup(keys)
         if not found.all():
             if self.phase_b:
                 # reference semantics: miss == empty-string alignment -> 0
-                miss_keys = np.unique(keys[~found])
-                self.memo.insert(miss_keys,
-                                 np.zeros(miss_keys.shape[0], np.float64))
-                vals, found = self.memo.lookup(keys)
+                with perf.phase("align_batch"):
+                    miss_keys = np.unique(keys[~found])
+                with perf.phase("align_memo"):
+                    self.memo.insert(miss_keys,
+                                     np.zeros(miss_keys.shape[0], np.float64))
+                    vals, found = self.memo.lookup(keys)
                 return vals
             # dedup the missing pairs before hitting the aligner
-            miss_keys, inv_first = np.unique(keys[~found],
-                                             return_index=True)
-            mpos = np.flatnonzero(~found)[inv_first]
-            pairs = [(int(a_idx[t]), int(b_idx[t])) for t in mpos]
+            with perf.phase("align_batch"):
+                miss_keys, inv_first = np.unique(keys[~found],
+                                                 return_index=True)
+                mpos = np.flatnonzero(~found)[inv_first]
+                pairs = [(int(a_idx[t]), int(b_idx[t])) for t in mpos]
             got = self.aligner.identities(pairs)
-            self.memo.insert(miss_keys, np.asarray(got, np.float64))
-            vals, found = self.memo.lookup(keys)
+            with perf.phase("align_memo"):
+                self.memo.insert(miss_keys, np.asarray(got, np.float64))
+                vals, found = self.memo.lookup(keys)
         return vals
 
     def _score(self, ids: np.ndarray):
@@ -338,39 +345,40 @@ class AlignBackend:
         ps = self.ps
         V = ps.V
         CHUNK = max(1, (1 << 22) // max(V, 1))   # ~32 MB of int64 rows
-        for c0 in range(0, C, CHUNK):
-            c1 = min(C, c0 + CHUNK)
-            s, e = int(bounds[c0]), int(bounds[c1])
-            if e == s:
-                continue
-            rows = pos_pool[s:e]
-            seg = (pos_owner[s:e] - c0).astype(np.int64)
-            nc = c1 - c0
-            H = ps.hist_rows(rows).astype(np.int64)
-            st = bounds[c0: c1 + 1] - s
-            cs = np.zeros((rows.shape[0] + 1, V), np.int64)
-            np.cumsum(H, axis=0, out=cs[1:])
-            sums = cs[st[1:]] - cs[st[:-1]]          # exact segment sums
-            cnt = (st[1:] - st[:-1]).astype(np.float64)
-            good = cnt > 0
-            c_mean = np.zeros((nc, V), np.float64)
-            c_mean[good] = sums[good] / cnt[good, None]
-            cw = np.floor(c_mean).astype(np.int64)
-            dist = 2 * np.minimum(H, cw[seg]).sum(axis=1)
-            mag = np.floor(H.astype(np.float64) + c_mean[seg]).sum(axis=1)
-            frac = dist.astype(np.float64) / mag
-            d = 10000.0 * (1.0 - frac * frac)
-            dmin = np.full(nc, np.inf)
-            np.minimum.at(dmin, seg, d)
-            cand = d == dmin[seg]
-            first = np.full(nc, rows.shape[0], np.int64)
-            np.minimum.at(first, seg[cand],
-                          np.arange(rows.shape[0], dtype=np.int64)[cand])
-            sel = good & (first < rows.shape[0])
-            nxt = np.full(nc, -1, np.int64)
-            nxt[sel] = rows[first[sel]]
-            changed = sel & (nxt != center_rows[c0:c1])
-            out[c0:c1][changed] = nxt[changed]
+        with perf.phase("update_mean"):
+            for c0 in range(0, C, CHUNK):
+                c1 = min(C, c0 + CHUNK)
+                s, e = int(bounds[c0]), int(bounds[c1])
+                if e == s:
+                    continue
+                rows = pos_pool[s:e]
+                seg = (pos_owner[s:e] - c0).astype(np.int64)
+                nc = c1 - c0
+                H = ps.hist_rows(rows).astype(np.int64)
+                st = bounds[c0: c1 + 1] - s
+                cs = np.zeros((rows.shape[0] + 1, V), np.int64)
+                np.cumsum(H, axis=0, out=cs[1:])
+                sums = cs[st[1:]] - cs[st[:-1]]          # exact segment sums
+                cnt = (st[1:] - st[:-1]).astype(np.float64)
+                good = cnt > 0
+                c_mean = np.zeros((nc, V), np.float64)
+                c_mean[good] = sums[good] / cnt[good, None]
+                cw = np.floor(c_mean).astype(np.int64)
+                dist = 2 * np.minimum(H, cw[seg]).sum(axis=1)
+                mag = np.floor(H.astype(np.float64) + c_mean[seg]).sum(axis=1)
+                frac = dist.astype(np.float64) / mag
+                d = 10000.0 * (1.0 - frac * frac)
+                dmin = np.full(nc, np.inf)
+                np.minimum.at(dmin, seg, d)
+                cand = d == dmin[seg]
+                first = np.full(nc, rows.shape[0], np.int64)
+                np.minimum.at(first, seg[cand],
+                              np.arange(rows.shape[0], dtype=np.int64)[cand])
+                sel = good & (first < rows.shape[0])
+                nxt = np.full(nc, -1, np.int64)
+                nxt[sel] = rows[first[sel]]
+                changed = sel & (nxt != center_rows[c0:c1])
+                out[c0:c1][changed] = nxt[changed]
         return out
 
 

@@ -23,6 +23,7 @@ import numpy as np
 
 from meshclust_tpu_torch.core.bvec import BVec
 from meshclust_tpu_torch.core.points import PointSet
+from meshclust_tpu_torch.utils import perf
 from meshclust_tpu_torch.utils.log import log
 from meshclust_tpu_torch.utils.progress import Progress
 
@@ -85,11 +86,13 @@ class MeanShift:
         ps = self.ps
         current: List[int] = [last]
         while True:
+            perf.add("accum_host_iters", 1)
             length = int(ps.lengths[last])
             lo = int(length * self.sim)
             hi = int(length / self.sim)
-            front, back = bv.get_range(lo, hi)
-            window, spans = bv.window(front, back)
+            with perf.phase("accum_bvec"):
+                front, back = bv.get_range(lo, hi)
+                window, spans = bv.window(front, back)
             if hasattr(self.backend, "get_close"):
                 marks, is_min, best = self.backend.get_close(last, window)
             else:
@@ -97,19 +100,22 @@ class MeanShift:
                 is_min = not bool(marks.any())
                 best = int(np.argmax(f1)) if window.shape[0] else -1
             if not is_min:
-                bv.apply_marks(spans, marks)
-                harvested = bv.remove_available(front, back)
+                with perf.phase("accum_bvec"):
+                    bv.apply_marks(spans, marks)
+                    harvested = bv.remove_available(front, back)
                 current.extend(harvested)
-                last = mean_select(ps, np.asarray(current, np.int64))
+                with perf.phase("accum_mean"):
+                    last = mean_select(ps, np.asarray(current, np.int64))
             else:
                 if best < 0:
                     next_seed = bv.pop()
                 else:
                     # next center seed = max-f1 candidate (first max), like
                     # Trainer::get_close's pmax reduction (Trainer.cpp:99)
-                    r, c = bv.flat_to_position(spans, best)
-                    next_seed = int(window[best])
-                    bv.erase(r, c)
+                    with perf.phase("accum_bvec"):
+                        r, c = bv.flat_to_position(spans, best)
+                        next_seed = int(window[best])
+                        bv.erase(r, c)
                 centers.append(Center(last, current))
                 return next_seed, len(current)
 

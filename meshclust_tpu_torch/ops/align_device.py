@@ -185,6 +185,7 @@ class DeviceAligner:
         perf.add("nw_cells", float((self.lengths[ia] * self.lengths[ib])
                                    .sum()))
         perf.add("nw_pairs", n)
+        perf.add("nw_calls", 1)
         with perf.phase("align"):
             alen, amatch = self.counts(pairs)
         return amatch.astype(np.float64) / np.maximum(

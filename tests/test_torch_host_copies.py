@@ -4,14 +4,18 @@ meshclust_tpu imports jax at package level, so the port (which runs where
 there is no jax) carries its own copies of the jax-free host modules. Each
 copy must equal its original once three things are normalised: the package
 name, the upstream MeShClust source prefix that the originals spell as an
-absolute path in a few docstrings, and utils.perf spans, which the port
-opens where the JAX package has none: every `with perf.phase("..."):` (or
-`_perf.phase`) line holding that one item is removed from both sides and
-its body dedented.
+absolute path in a few docstrings, and utils.perf spans and counters, which
+the port opens and counts where the JAX package has none: every
+`with perf.phase("..."):` (or `_perf.phase`) line holding that one item is
+removed from both sides and its body dedented; every one-line
+`perf.add("...", <expr>)` statement whose <expr> calls nothing but `len`,
+`int` or `float` and assigns nothing, and a module-level
+`from meshclust_tpu.utils import perf`, is removed from both sides.
 
 Functions and classes that the port's own modules carry over verbatim are
 held to their originals the same way, by source.
 """
+import ast
 import inspect
 import os
 import re
@@ -87,14 +91,68 @@ def strip_spans(text):
     return "\n".join(out)
 
 
+COUNTER = re.compile(r'^ *_?perf\.add\("[A-Za-z0-9_.]+", .+\)$')
+PERF_IMPORT = re.compile(r'^from meshclust_tpu(_torch)?\.utils import perf$')
+
+
+# Nodes that would let a counter's argument act: a call (other than of
+# these builtins), an assignment expression, a lambda, a yield or an await.
+ACTS = (ast.Call, ast.NamedExpr, ast.Lambda, ast.Yield, ast.YieldFrom,
+        ast.Await)
+PURE_CALLS = ("len", "int", "float")
+
+
+def _acts(node):
+    return isinstance(node, ACTS) and not (
+        isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+        and node.func.id in PURE_CALLS)
+
+
+def _is_counter(line):
+    """Whether the line, parsed, is one statement and nothing else: a call
+    `perf.add("<name>", <expr>)` (or `_perf.add`) whose <expr> calls
+    nothing but `len`, `int` or `float` and assigns nothing."""
+    try:
+        body = ast.parse(line.strip()).body
+    except SyntaxError:
+        return False
+    if len(body) != 1 or not isinstance(body[0], ast.Expr):
+        return False
+    call = body[0].value
+    return (isinstance(call, ast.Call)
+            and isinstance(call.func, ast.Attribute)
+            and call.func.attr == "add"
+            and isinstance(call.func.value, ast.Name)
+            and call.func.value.id in ("perf", "_perf")
+            and len(call.args) == 2 and not call.keywords
+            and isinstance(call.args[0], ast.Constant)
+            and isinstance(call.args[0].value, str)
+            and not any(_acts(n) for n in ast.walk(call.args[1])))
+
+
+def _perf_line(line):
+    """A one-line counter statement or the module-level import of
+    utils.perf."""
+    if PERF_IMPORT.match(line):
+        return True
+    return bool(COUNTER.match(line)) and _is_counter(line)
+
+
+def strip_perf(text):
+    """`text` without its counter statements, its module-level perf import
+    and its span statements (`strip_spans`)."""
+    return strip_spans("\n".join(line for line in text.split("\n")
+                                  if not _perf_line(line)))
+
+
 def _normalise(copy_text):
-    return strip_spans(copy_text.replace("meshclust_tpu_torch",
-                                         "meshclust_tpu"))
+    return strip_perf(copy_text.replace("meshclust_tpu_torch",
+                                        "meshclust_tpu"))
 
 
 @pytest.mark.parametrize("rel", COPIED_FILES)
 def test_copy_equals_original(rel):
-    original = strip_spans(
+    original = strip_perf(
         _read("meshclust_tpu", rel).replace(UPSTREAM_PREFIX, ""))
     assert _normalise(_read("meshclust_tpu_torch", rel)) == original
 
@@ -159,7 +217,7 @@ def _source(module, qualname):
                          ids=[f"{m}.{q}" for m, _, q in COPIED_OBJECTS])
 def test_carried_object_equals_original(port_mod, orig_mod, qualname):
     got = _source(f"meshclust_tpu_torch.{port_mod}", qualname)
-    want = strip_spans(_source(f"meshclust_tpu.{orig_mod}", qualname))
+    want = strip_perf(_source(f"meshclust_tpu.{orig_mod}", qualname))
     assert _normalise(got) == want
 
 
@@ -198,3 +256,63 @@ def test_span_normaliser(copy, equal):
     """A span added around original lines passes; anything else that
     differs, inside a span's body or in the statement itself, fails."""
     assert (strip_spans(copy) == strip_spans(ORIGINAL)) is equal
+
+
+@pytest.mark.parametrize("copy,equal", [
+    (ORIGINAL.replace("    total = 0\n",
+                      "    total = 0\n    perf.add(\"items\", len(xs))\n"),
+     True),
+    (ORIGINAL.replace("        total += x",
+                      "        _perf.add(\"items\", 1)\n"
+                      "        total += x"), True),
+    (ORIGINAL.replace("    for x in xs:\n        total += x",
+                      "    with perf.phase(\"sum\"):\n"
+                      "        perf.add(\"items\", len(xs))\n"
+                      "        for x in xs:\n            total += x"), True),
+    ("from meshclust_tpu.utils import perf\n" + ORIGINAL, True),
+    ("from meshclust_tpu_torch.utils import perf\n" + ORIGINAL, True),
+    (ORIGINAL.replace("    total = 0\n",
+                      "    total = 1\n    perf.add(\"items\", len(xs))\n"),
+     False),
+    (ORIGINAL.replace("        total += x",
+                      "        perf.add(\"items\", 1)\n"
+                      "        total -= x"), False),
+    (ORIGINAL.replace("    total = 0\n",
+                      "    total = 0\n    perf.add(\"items\", len(xs))"
+                      "; total += 1\n"), False),
+    (ORIGINAL.replace("    total = 0\n",
+                      "    total = 0\n    perf.add(\"items\", len(\n"
+                      "        xs))\n"), False),
+    (ORIGINAL.replace("    total = 0\n",
+                      "    total = 0\n    perf.add(\"items\", 1); xs.clear()\n"),
+     False),
+    (ORIGINAL.replace("    total = 0\n",
+                      "    total = 0\n    perf.add(\"items\", 1) or xs.clear()\n"),
+     False),
+    (ORIGINAL.replace("    total = 0\n",
+                      "    total = 0\n    perf.add(\"items\", xs.shape[0])\n"),
+     True),
+    (ORIGINAL.replace("    total = 0\n",
+                      "    total = 0\n    perf.add(\"items\", xs.pop())\n"),
+     False),
+    (ORIGINAL.replace("    total = 0\n",
+                      "    total = 0\n    perf.add(\"items\", (n := 1))\n"),
+     False),
+    (ORIGINAL.replace("    total = 0\n",
+                      "    total = 0\n    perf.add(\"items\", 1)\n"
+                      "    from meshclust_tpu.utils import perf\n"), False),
+    ("from meshclust_tpu.utils import log\n" + ORIGINAL, False),
+], ids=["counter_removed", "counter_in_loop_removed",
+        "counter_in_span_removed", "module_import_removed",
+        "port_module_import_removed", "changed_line_beside_counter",
+        "changed_line_after_counter", "counter_with_a_second_statement",
+        "counter_over_two_lines", "counter_then_a_call_kept",
+        "counter_or_a_call_kept", "counter_of_a_subscript_removed",
+        "counter_calling_kept", "counter_assigning_kept",
+        "indented_import_kept",
+        "other_import_kept"])
+def test_counter_and_import_normaliser(copy, equal):
+    """Counter statements and the module-level perf import are removed from
+    both sides; any other line that differs, beside them or sharing their
+    line, fails."""
+    assert (strip_perf(copy) == strip_perf(ORIGINAL)) is equal
