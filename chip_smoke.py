@@ -52,7 +52,10 @@ Phases (any failure exits non-zero before the last line):
      beside one index_add_ of its positive rows, pb_pick beside one
      scatter_reduce_ (amin) of its ties' pool positions; the same checks,
      untimed, on the 15k centers each split in two adjacent centers
-     (split_centers), which must merge;
+     (split_centers), which must merge; the pivot-order kernel
+     (csrc/pivot_order.cu) against the host chain it replaces on the 15k
+     and 150k corpora: training's begin row and 150 pivot rows bit-equal,
+     the chains' walls in turns, the kernel's ms a launch and its bound;
   4. run each path on the GPU with the launch counts set to 0 just before
      it, and check that it launched both kernels, kmer_hist exactly once:
      - k-mer mode: 15,000 synthetic reads of ~1 kb, --id 0.90, default
@@ -62,7 +65,8 @@ Phases (any failure exits non-zero before the last line):
        in a CUDA graph, every iteration the device's, one readback a
        replay,
        the fused Phase B through its four kernels, each once an iteration,
-       no plain step, with no replay fallback; its accumulate and
+       no plain step, with no replay fallback; training's pivot orders
+       through the pivot-order kernel, twice, for 151 rows; its accumulate and
        phase_b seconds, absorb iterations and readbacks printed) and the
        partition must
        match the planted species (NMI >= 0.95); the same corpus rerun with
@@ -94,9 +98,10 @@ Phases (any failure exits non-zero before the last line):
        background bases must be masked; each stage's wall is printed;
   6. ranks (parallel/dist.launch, one spawned process a rank): the 15k
      k-mer run at 2 ranks sharing the card (gloo) must write phase 4's
-     CLSTR byte for byte, each rank launching kmer_hist once, the NW
-     kernel as often as phase 4's run, pa_absorb once an absorb
-     iteration and a move as pa_member_dist and pa_mean_argmin (the
+     CLSTR byte for byte, each rank launching kmer_hist once and
+     pivot_order twice, the NW kernel as often as phase 4's run, pa_absorb
+     once an absorb iteration and a move as pa_member_dist and
+     pa_mean_argmin (the
      all-reduce of the distances between them), and each Phase B kernel
      once an iteration on its block of the pool; each rank prints its
      device and
@@ -1711,6 +1716,91 @@ def check_phase_b(dev) -> list:
     return rows_out
 
 
+def check_pivot_order(dev) -> dict:
+    """The pivot-order kernel (csrc/pivot_order.cu) against the host chain
+    it replaces (ops/pivot_order.orders_plain: exact device Manhattan rows,
+    float64 keys on the host, libstdc++'s std::sort a row) on the 15k and
+    150k k-mer corpora: Trainer._ref_order_chain's begin row and its 150
+    pivot rows (the default --sample and --pivots), bit-equal; the whole
+    chain (two launches or the host chain, and the readback) in turns
+    (plain, kernel, kernel, plain); the kernel's device ms a launch by CUDA
+    events beside its bound: the histogram's rows read once, the orders
+    written (bytes), or an abs-add a row element and log2(n) compares a
+    point a row at the dispatch rate (operations). Returns the kernel's row
+    at 15k (the main path's shapes)."""
+    import torch
+    from meshclust_tpu_torch import _ext, native
+    from meshclust_tpu_torch.core.points import build_points
+    from meshclust_tpu_torch.io import fasta as fio
+    from meshclust_tpu_torch.ops import histogram as H
+    from meshclust_tpu_torch.ops import pivot_order as PO
+    row = None
+    for n in (15000, 150000):
+        t0 = time.time()
+        per = [fio.read_fasta(bench_corpus(n=n))]
+        ps = build_points(per[0], H.find_k(per), dev)
+        perm = np.arange(ps.n, dtype=np.int32)
+        native.ref_sort_perm(perm, np.asarray(ps.lengths, np.int64))
+        perm_t = torch.from_numpy(perm).to(dev)
+        begin_pt = int(perm[ps.n // 2])
+        slots = torch.as_tensor([i * (ps.n - 1) // 149 for i in range(150)],
+                                device=dev)
+        heaps = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def chain(fn):
+            kw = {"heaps": heaps} if fn is PO.orders else {}
+            begin = fn(ps, [begin_pt], perm_t, **kw)[0]
+            rows = begin[slots].to(torch.int64)
+            return rows, PO.to_host(fn(ps, rows, begin, **kw))
+
+        runs = []
+        for fn in (PO.orders_plain, PO.orders, PO.orders, PO.orders_plain):
+            _ext.reset_launches()
+            heaps.zero_()
+            torch.cuda.synchronize()
+            t1 = time.time()
+            rows, out = chain(fn)
+            runs.append((rows.cpu(), out, (time.time() - t1) * 1e3,
+                         _ext.launches["pivot_order"], int(heaps.item())))
+        wrong = sum(int((r[1] != runs[0][1]).sum()) for r in runs)
+        if wrong or any(not torch.equal(r[0], runs[0][0]) for r in runs):
+            fail(f"pivot orders at {n} reads: the kernel's differ from the "
+                 f"host chain's ({wrong} entries)")
+        if [r[3] for r in runs] != [0, 2, 2, 0]:
+            fail(f"pivot orders at {n} reads launched "
+                 f"{[r[3] for r in runs]} times")
+        rows = runs[0][0].to(dev)
+        one_ms = cuda_ms(lambda: PO.orders(ps, [begin_pt], perm_t), 5)
+        many_ms = cuda_ms(lambda: PO.orders(ps, rows, perm_t), 5)
+        V, width = ps.hist_dev.shape[1], ps.hist_dev.element_size()
+        P = rows.shape[0]
+        b = bound(ps.n * V * width + P * ps.n * 4 + ps.n * 4,
+                  P * ps.n * (V + int(np.ceil(np.log2(ps.n))))
+                  / DISPATCH_OPS_PER_S)
+        scratch = _ext.lib().mc_pivot_order_scratch(ps.n)
+        where = (f"global scratch, {scratch} B a row" if scratch
+                 else "shared memory")
+        walls = [r[2] for r in runs]
+        print(f"  pivot orders at {ps.n} reads ({ps.hist_dev.dtype} rows, V "
+              f"= {V}, workspace in {where}): begin row + {P} pivot rows "
+              f"bit-equal to the host chain; "
+              f"chain wall ms in turns: plain {walls[0]:.3f}, kernel "
+              f"{walls[1]:.3f}, kernel {walls[2]:.3f}, plain {walls[3]:.3f}; "
+              f"heap ranges {runs[1][4]}; kernel device ms a launch: 1 row "
+              f"{one_ms:.4f}, {P} rows {many_ms:.4f}; bound "
+              f"{b['bound_ms']:.5f} ms ({b['bound_by']}), "
+              f"{b['bound_ms'] / many_ms:.4g} of it (took "
+              f"{time.time() - t0:.1f} s)", flush=True)
+        if row is None:
+            row = {"name": "pivot_order", "route": "cuda",
+                   "source": "meshclust_tpu_torch/csrc/pivot_order.cu",
+                   "replaces": "none (the host chain of "
+                               "meshclust_tpu/core/trainer.py:157)",
+                   "ms": many_ms, "plain_ms": (walls[0] + walls[3]) / 2,
+                   "library_ms": None, "max_abs_err": wrong, **b}
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main paths
 # ---------------------------------------------------------------------------
@@ -1858,6 +1948,10 @@ def main_path(dev) -> dict:
     if any(plain_calls.values()):
         fail(f"the k-mer run took Phase B's plain steps on the card "
              f"({plain_calls})")
+    if launches["pivot_order"] != 2 or counters.get("pivot_rows") != 151:
+        fail(f"the k-mer run's training launched pivot_order "
+             f"{launches['pivot_order']} times for "
+             f"{counters.get('pivot_rows')} rows, not twice for 151")
     print(f"  Phase B: {sum(launches[k] for k in PHASE_B) / PB_ITERS:.2f} "
           f"launches an iteration ({ {k: launches[k] for k in PHASE_B} }), "
           f"no plain step", flush=True)
@@ -2411,6 +2505,9 @@ def ranks_path(kmer_launches: dict) -> dict:
         if o["launches"]["kmer_hist"] != 1:
             fail(f"rank {o['rank']} launched kmer_hist "
                  f"{o['launches']['kmer_hist']} times, not once")
+        if o["launches"]["pivot_order"] != 2:
+            fail(f"rank {o['rank']} launched pivot_order "
+                 f"{o['launches']['pivot_order']} times, not twice")
         if o["launches"]["nw_align_long"] != kmer_launches["nw_align_long"]:
             fail(f"rank {o['rank']} launched the NW kernel "
                  f"{o['launches']['nw_align_long']} times, phase 4's run "
@@ -2514,7 +2611,7 @@ def main() -> int:
 
     print("phase 3: kernels against their plain versions", flush=True)
     rows = [check_histogram(dev), check_nw_long(dev), *check_phase_a(dev),
-            *check_phase_b(dev)]
+            *check_phase_b(dev), check_pivot_order(dev)]
 
     print("phase 4: main paths", flush=True)
     kmer = main_path(dev)

@@ -35,7 +35,7 @@ launches: Dict[str, int] = {"kmer_hist": 0, "nw_align_long": 0,
                              "pa_window": 0, "pa_sums": 0, "pa_absorb": 0,
                              "pa_member_dist": 0, "pa_mean_argmin": 0,
                              "pa_move": 0, "pa_next": 0, "pb_band": 0, "pb_dist": 0,
-                             "pb_pick": 0, "pb_merge": 0}
+                             "pb_pick": 0, "pb_merge": 0, "pivot_order": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -90,6 +90,11 @@ _SIGNATURES = {
     # scratch, stream
     "mc_pb_merge": [_P, _L, _I, _I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _P,
                     _I, _P, _I, _I, _P, _P, _P, _P],
+    # hist, hist stride, V, width, mag, rows, P, perm, n, out, scratch (or
+    # null), heaps, stream
+    "mc_pivot_order": [_P, _L, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P],
+    # n -> bytes of scratch a row (0: shared memory holds it)
+    "mc_pivot_order_scratch": [_I],
 }
 
 

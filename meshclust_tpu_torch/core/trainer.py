@@ -114,36 +114,44 @@ class Trainer:
         sorts — with libstdc++'s exact unstable tie order (native/refsort).
         Returns (pivots, orders) or None when unavailable (no native lib,
         or beyond MESHCLUST_REFSORT_MAX points). The device distance rows
-        are exact at every size, so no exactness gate is needed."""
+        are exact at every size, so no exactness gate is needed.
+
+        The length sort runs on the host; the distance rows and their sorts
+        are ops/pivot_order.orders: on a card two launches (the begin row,
+        then every pivot row over its order, the pivots picked on the
+        card) and one readback, on the CPU the host chain."""
         from meshclust_tpu_torch import native
+        from meshclust_tpu_torch.ops import pivot_order as PO
         ps = self.ps
         n = ps.n
         if n > int(os.environ.get("MESHCLUST_REFSORT_MAX", "200000")):
             return None
         if native.get_refsort() is None:
             return None
-        dist_rows = ps.distance_rows_device
+        dev = ps.device
 
         perm = np.arange(n, dtype=np.int32)
         native.ref_sort_perm(perm, np.asarray(ps.lengths, np.int64))
         begin_pt = int(perm[n // 2])
-        db = dist_rows(np.asarray([begin_pt], np.int64))[0]
-        native.ref_sort_perm(perm, db.astype(np.int64))
-        pivots = [int(perm[i * (n - 1) // num_iterations])
-                  for i in range(num_iterations + 1)]
-        pdists = dist_rows(np.asarray(pivots, np.int64)).astype(np.int64)
-        orders_arr = np.tile(perm, (len(pivots), 1))
-        native.ref_sort_perm_batch(orders_arr, np.ascontiguousarray(pdists))
+        on_card = dev.type == "cuda"
+        heaps = torch.zeros(1, dtype=torch.int32, device=dev) \
+            if on_card else None
+        begin = PO.orders(ps, [begin_pt], torch.from_numpy(perm).to(dev),
+                          heaps)[0]
+        slots = torch.as_tensor([i * (n - 1) // num_iterations
+                                 for i in range(num_iterations + 1)],
+                                dtype=torch.int64, device=dev)
+        pivot_rows = begin[slots].to(torch.int64)
+        orders_dev = PO.orders(ps, pivot_rows, begin, heaps)
+        orders_arr = PO.to_host(orders_dev)
+        pivots = [int(p) for p in pivot_rows.tolist()]
+        if on_card:
+            perf.add("pivot_rows", 1 + len(pivots))
+            perf.add("pivot_heap", int(heaps.item()))
 
         class RefOrders:
             def __init__(self):
-                self._dev = None
-
-            @property
-            def orders_dev(self):
-                if self._dev is None:
-                    self._dev = torch.from_numpy(orders_arr).to(ps.device)
-                return self._dev
+                self.orders_dev = orders_dev    # [P, N] on ps.device
 
             def gather(self, ii, jj):
                 return orders_arr[np.asarray(ii, np.int64),

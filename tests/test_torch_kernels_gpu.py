@@ -1153,3 +1153,150 @@ def test_phase_b_loop_split_150k_equals_plain(cuda):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert (got[3] != np.arange(rows.shape[0])).sum() > rows.shape[0] // 4
+
+
+# -- pivot orders (csrc/pivot_order.cu) -------------------------------------
+
+def _traffic_points(cuda, tmp_path, traffic, reads=None, seed=2718281829):
+    """A PointSet on the card of corpus 0 of a benchmark traffic mix
+    (benchmark/traffic/<traffic>.json), `reads` reads if given."""
+    import json
+    import os
+    from benchmark.generators import species_clones
+    from meshclust_tpu_torch.core import points as PT
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "traffic",
+                           f"{traffic}.json")) as f:
+        mix = json.load(f)
+    if reads:
+        mix["reads"] = reads
+    path = str(tmp_path / f"{traffic}.fasta")
+    species_clones.make(mix, seed, 0, path)
+    per = [fio.read_fasta(path)]
+    return PT.build_points(per[0], H.find_k(per), cuda)
+
+
+def _as_dtype(ps, dtype):
+    import dataclasses
+    return dataclasses.replace(ps, hist=None, hist_dev=ps.hist_dev.to(dtype))
+
+
+def _chain(ps, pivots, fn):
+    """Trainer._ref_order_chain's orders through `fn` (orders or
+    orders_plain): the begin row over the length order, then `pivots`
+    evenly spaced pivot rows over the begin row's order."""
+    from meshclust_tpu_torch import native
+    n = ps.n
+    perm = np.arange(n, dtype=np.int32)
+    assert native.ref_sort_perm(perm, np.asarray(ps.lengths, np.int64))
+    begin = fn(ps, [int(perm[n // 2])],
+               torch.from_numpy(perm).to(ps.device))[0]
+    rows = begin[torch.as_tensor([i * (n - 1) // (pivots - 1)
+                                  for i in range(pivots)],
+                                 device=ps.device)].to(torch.int64)
+    return begin.cpu(), fn(ps, rows, begin).cpu()
+
+
+@pytest.mark.parametrize("traffic", ["r15k", "rare15k"])
+def test_pivot_order_kernel_equals_host_chain(cuda, tmp_path, traffic):
+    """At 15k reads (the workspace in shared memory), every storage dtype:
+    the kernel's begin row and 150 pivot rows equal the host chain's
+    (float64 host keys, libstdc++'s std::sort) bit for bit, one launch a
+    batch of rows."""
+    from meshclust_tpu_torch.ops import pivot_order as PO
+    ps = _traffic_points(cuda, tmp_path, traffic)
+    assert ps.n == 15000 and _ext.lib().mc_pivot_order_scratch(ps.n) == 0
+    want = _chain(ps, 150, PO.orders_plain)
+    for dtype in (torch.int8, torch.int16, torch.int32, torch.int64):
+        psd = _as_dtype(ps, dtype)
+        before = _ext.launches["pivot_order"]
+        got = _chain(psd, 150, PO.orders)
+        assert _ext.launches["pivot_order"] == before + 2
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), dtype
+
+
+def test_pivot_order_kernel_equals_host_chain_150k(cuda, tmp_path):
+    """At 150k reads the workspace lives in global scratch: the same
+    kernel's rows equal the host chain's."""
+    from meshclust_tpu_torch.ops import pivot_order as PO
+    ps = _traffic_points(cuda, tmp_path, "r15k", reads=150000)
+    assert _ext.lib().mc_pivot_order_scratch(ps.n) > 0
+    got = _chain(ps, 9, PO.orders)
+    want = _chain(ps, 9, PO.orders_plain)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_pivot_order_kernel_reaches_the_heap_path(cuda):
+    """Keys from a McIlroy adversary (test_torch_pivot_schedule.mcilroy,
+    point 0 the pivot at key 0) as Manhattan distances: row j = [M - t_j,
+    t_j, 0, 0], so key j rises with t_j. The kernel takes the depth-limit
+    heap path as often as std::sort does and leaves its order."""
+    from meshclust_tpu_torch.core import points as PT
+    from meshclust_tpu_torch.ops import pivot_order as PO
+    from test_torch_pivot_schedule import mcilroy, replica_sort
+    n, M = 2000, 5000
+    t = mcilroy(n, solid=(0,))
+    hist = np.zeros((n, 4), np.int16)
+    hist[:, 0] = M - t
+    hist[:, 1] = t
+    ps = PT.PointSet(hist=None, mag=np.full(n, M, np.int64),
+                     sq=np.zeros(n, np.int64),
+                     lengths=np.full(n, 100, np.int64),
+                     one_mers=np.zeros((n, 4), np.int64),
+                     headers=[f">r{i}" for i in range(n)], codes=[], k=1,
+                     V=4, hist_dev=torch.from_numpy(hist).to(cuda))
+    keys = ps.distance_rows_device(np.zeros(1, np.int64))[0]
+    assert np.array_equal(np.argsort(keys, kind="stable"),
+                          np.argsort(t, kind="stable"))
+    assert len(np.unique(keys)) == len(np.unique(t))
+    perm = torch.arange(n, dtype=torch.int32, device=cuda)
+    heaps = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = PO.orders(ps, [0], perm, heaps)
+    want = PO.orders_plain(ps, [0], perm)
+    assert torch.equal(got, want)
+    order, count = replica_sort(np.arange(n), keys)
+    assert count > 0 and int(heaps.item()) == count
+    assert np.array_equal(got[0].cpu().numpy(), order)
+
+
+def test_trainer_split_on_the_card_equals_cpu(cuda, tmp_path):
+    """Trainer.split()'s sampled pairs through the kernel equal the host
+    chain's on the CPU; a training launches the kernel twice and counts
+    its rows."""
+    import json
+    import os
+    from benchmark.generators import species_clones
+    from meshclust_tpu_torch.core import points as PT
+    from meshclust_tpu_torch.core import trainer as TR
+    from meshclust_tpu_torch.utils import perf
+    mix = {"generator": "species_clones", "pool": 1, "shape_seed": 21,
+           "reads": 1200, "species_sizes": {"law": "fixed", "size": 40},
+           "length": {"mean": 240, "spread": 30}, "trim_div": 50,
+           "trim_min": 2, "substitution": {"low": 0.03, "high": 0.03}}
+    path = str(tmp_path / "split.fasta")
+    species_clones.make(mix, 1618033988, 0, path)
+    per = [fio.read_fasta(path)]
+    k = H.find_k(per)
+    pairs = {}
+    for dev in (cuda, torch.device("cpu")):
+        ps = PT.build_points(per[0], k, dev)
+        tr = TR.Trainer(ps, n_points=600, cutoff=0.9, max_pts_from_one=8,
+                        k=k)
+        perf.reset()
+        _ext.reset_launches()
+        pairs[dev.type] = tr.split()
+        if dev.type == "cuda":
+            assert _ext.launches["pivot_order"] == 2
+            assert perf.counters()["pivot_rows"] == 1 + 75
+            assert perf.counters()["pivot_heap"] == 0
+        else:
+            assert _ext.launches["pivot_order"] == 0
+    assert len(pairs["cuda"]) > 100
+    assert pairs["cuda"] == pairs["cpu"]
+    perf.reset()
+    _ext.reset_launches()
+    TR.Trainer(PT.build_points(per[0], k, cuda), n_points=600, cutoff=0.9,
+               max_pts_from_one=8, k=k).train()
+    assert _ext.launches["pivot_order"] == 2
