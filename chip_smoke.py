@@ -18,25 +18,20 @@ Phases (any failure exits non-zero before the last line):
      flushed L2, beside its other mode and the device featurization
      (launch + narrowing); the NW kernel also on pairs at its thread, warp
      and strip edges (from the constants ops/align_device.py exports),
-     lopsided pairs and one 40 kb x 40 kb pair; Phase A's seven kernels
+     lopsided pairs and one 40 kb x 40 kb pair; Phase A's five kernels
      (csrc/phase_a.cu) on the 15k-read and the 150k-read k-mer corpora's
      Phase A inputs (each from one run of the path): each kernel against
      its plain step over the first 200 iterations of the chain (pa_window,
-     pa_sums, pa_absorb, pa_move, pa_next; the mesh path's pa_member_dist
-     and pa_mean_argmin on a copy of the state at each move), then the
-     whole phase's owner, stamp and center slots against the plain path's,
-     in turns (plain, kernels, kernels, plain) with their walls and ms an
-     iteration, each kernel's device time and its plain step's under the
-     profiler (a move through pa_move, and through the mesh path's two
-     kernels), the launches (the chain's five into a CUDA graph) and
-     replays, the
-     bytes an iteration must move (pa_window's beside a count of every
-     flag) and each move's members' first and last tile of owners;
-     pa_member_dist and pa_move also on the largest center of the whole
-     phase, with the L2 flushed, beside the PyTorch yardsticks (cdist, p =
-     1, on float32 copies of the members' rows and the floored mean; for
-     pa_move then distance_d and argmin) and pa_move beside the mesh
-     path's two launches;
+     pa_sums, pa_absorb, pa_move, pa_next), then the whole phase's owner,
+     stamp and center slots against the plain path's, in turns (plain,
+     kernels, kernels, plain) with their walls and ms an iteration, each
+     kernel's device time and its plain step's under the profiler, the
+     launches (the chain's five into a CUDA graph) and replays, the bytes
+     an iteration must move (pa_window's beside a count of every flag) and
+     each move's members' first and last tile of owners; pa_move also on
+     the largest center of the whole phase, with the L2 flushed, beside
+     the PyTorch yardstick (cdist, p = 1, on float32 copies of the
+     members' rows and the floored mean, then distance_d and argmin);
      pa_sums also on 1,000,000 synthetic rows of 256 counts (int8, with
      and without the dot, int16, int32, and an int8 column slice at an odd
      byte) and on the 15k corpus's rows, over a window of every slot, with
@@ -99,12 +94,10 @@ Phases (any failure exits non-zero before the last line):
   6. ranks (parallel/dist.launch, one spawned process a rank): the 15k
      k-mer run at 2 ranks sharing the card (gloo) must write phase 4's
      CLSTR byte for byte, each rank launching kmer_hist once and
-     pivot_order twice, the NW kernel as often as phase 4's run, pa_absorb
-     once an absorb iteration and a move as pa_member_dist and
-     pa_mean_argmin (the
-     all-reduce of the distances between them), and each Phase B kernel
-     once an iteration on its block of the pool; each rank prints its
-     device and
+     pivot_order twice, the NW kernel as often as phase 4's run, the whole
+     Phase A through the graphed chain (each of its five kernels CHUNK + 1
+     times), and each Phase B kernel once an iteration on its block of the
+     pool; each rank prints its device and
      backend, rows featurized, launches, featurize/train/accumulate/
      phase_b seconds and its collectives and bytes by site, and the wall
      is printed against phase 4's; the small corpus at 3 and 4 ranks and
@@ -552,16 +545,13 @@ def check_nw_long(dev) -> dict:
 # phase 3: Phase A's kernels (csrc/phase_a.cu)
 # ---------------------------------------------------------------------------
 
-PHASE_A = ("pa_window", "pa_sums", "pa_absorb", "pa_move", "pa_next",
-           "pa_member_dist", "pa_mean_argmin")
-# The five of an iteration on one rank, in the order of its chain.
-PHASE_A_CHAIN = PHASE_A[:5]
+# The five of an iteration, in the order of its chain.
+PHASE_A = ("pa_window", "pa_sums", "pa_absorb", "pa_move", "pa_next")
 # The JAX code each Phase A kernel replaces
 # (meshclust_tpu/core/accumulate_device.py; pa_next: the body of its
 # lax.while_loop past the absorb and the move).
 PHASE_A_REPLACES = {"pa_window": 173, "pa_sums": 237, "pa_absorb": 237,
-                    "pa_move": 394, "pa_next": 87, "pa_member_dist": 394,
-                    "pa_mean_argmin": 394}
+                    "pa_move": 394, "pa_next": 87}
 # Float64 operations of the classifier on one slot with the default singles
 # (csrc/phase_a.cu:classify; a division or root counted as one), and one
 # H100 SXM's float64 rate outside the tensor cores (NVIDIA's data sheet).
@@ -613,30 +603,6 @@ def eager_chunks():
         A._Slots.graph = graph
 
 
-@contextlib.contextmanager
-def listed_moves():
-    """_Slots.move in the mesh path's two steps on one rank, without the
-    all-reduce: pa_member_dist listing the members, then pa_mean_argmin over
-    the list (their plain steps on the plain path), where the iteration
-    absorbed (read back from st: under eager_chunks only)."""
-    from meshclust_tpu_torch.core import accumulate_device as A
-    from meshclust_tpu_torch.ops import phase_a as P
-    move = A._Slots.move
-
-    def two_steps(self, c):
-        if int(self.st[P.DONE]) or not int(self.st[P.NPOS]):
-            return
-        self.step.member_dist(self.st, self.owner, self.h, self.sumvec,
-                              self.dist, self.part)()
-        self.step.mean_argmin(self.st, self.dist, self.mag, self.owner,
-                              self.stamp, self.part)()
-    A._Slots.move = two_steps
-    try:
-        yield
-    finally:
-        A._Slots.move = move
-
-
 def ranged(name, fn, prefix: str = "phase_a"):
     """fn inside the profiler range <prefix>.<name>."""
     import torch
@@ -686,13 +652,11 @@ def phase_a_run(ps, bv, params, plain: bool, cmax: int = 0) -> dict:
 
 
 def phase_a_launches() -> dict:
-    """The Phase A launches of one phase through the kernels on one rank:
-    each kernel of the chain once before the capture and CHUNK times into
-    it (the graph's replays launch no more), the mesh path's none."""
+    """The Phase A launches of one phase through the kernels: each kernel
+    of the chain once before the capture and CHUNK times into it (the
+    graph's replays launch no more)."""
     from meshclust_tpu_torch.core.accumulate_device import CHUNK
-    want = dict.fromkeys(PHASE_A, 0)
-    want.update(dict.fromkeys(PHASE_A_CHAIN, CHUNK + 1))
-    return want
+    return dict.fromkeys(PHASE_A, CHUNK + 1)
 
 
 def window_bytes(act, table, last: int, live0: int, tail0: int) -> int:
@@ -741,17 +705,16 @@ def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
     path on these inputs (cut at cmax centers if cmax > 0): each input
     read once, each output written once, counted from what the data made
     each launch do (a replay that reads back, after each step, the window,
-    its live slots, the positives and the members; a move counts for
-    pa_move and for the mesh path's pa_member_dist and pa_mean_argmin); and,
-    a launch, notes of the layouts' work: "pa_window (all flags)", the
-    bytes of a pa_window that reads every slot's flag, and bin and len of
-    the live ones; "members", a move's members; "member warps" and "member
-    tiles", the 32-slot and the 1,024-slot chunks of slots that hold them
-    (a warp of 32 slots served its members one by one in an earlier
-    pa_member_dist; a block of this one takes a tile); "first tile" and "last tile", the
-    tiles of a move's least and greatest member, and "tiles", all of them
-    (a scan of owners narrowed to the members' range would read last -
-    first + 1 of them)."""
+    its live slots, the positives and the members); and, a launch, notes
+    of the layouts' work: "pa_window (all flags)", the bytes of a pa_window
+    that reads every slot's flag, and bin and len of the live ones;
+    "members", a move's members; "member warps" and "member tiles", the
+    32-slot and the 1,024-slot chunks of slots that hold them (a warp of 32
+    slots served its members one by one in an earlier move kernel; a block
+    of pa_move takes a tile); "first tile" and "last tile", the tiles of a
+    move's least and greatest member, and "tiles", all of them (a scan of
+    owners narrowed to the members' range would read last - first + 1 of
+    them)."""
     import torch
     from meshclust_tpu_torch.core.accumulate_device import accumulate_device
     from meshclust_tpu_torch.ops import features as F
@@ -821,15 +784,8 @@ def phase_a_traffic(ps, bv, params, cmax: int = 0) -> tuple:
                 # owner of every slot, each member's row, sumvec; each
                 # member's mag and stamp read and distance written; st's
                 # count read, center and two counters written
-                rows_b = 8 * N + m * V * width + 8 * V
-                nbytes["pa_move"] += rows_b + 24 * m + 32
-                # the mesh path's two launches: the rows' part and each
-                # member's distance and list entry written; then the list,
-                # dist, mag and stamp of each member read
-                nbytes["pa_member_dist"] += rows_b + 12 * m
-                nbytes["pa_mean_argmin"] += 28 * m
-                calls["pa_member_dist"] += 1
-                calls["pa_mean_argmin"] += 1
+                nbytes["pa_move"] += 8 * N + m * V * width + 8 * V \
+                    + 24 * m + 32
             elif name == "next":
                 # st's eight slots read, ITERS and T written; where the
                 # center ends its slot, MEMBERS and C; where one begins, the
@@ -859,15 +815,13 @@ def device_total_us(event) -> float:
     return float(event.cuda_time_total if total is None else total)
 
 
-def phase_a_device_ms(ps, bv, params, plain: bool, cmax: int,
-                      listed: bool = False) -> tuple:
+def phase_a_device_ms(ps, bv, params, plain: bool, cmax: int) -> tuple:
     """(device ms a call of each step, device ms an iteration) of a Phase A
     cut at cmax centers under torch.profiler: on the kernel path each
     kernel's own time, on the plain path the device time of the step's
-    range (its ops' kernels); with `listed`, a move as the mesh path's two
-    steps (listed_moves, over eager_chunks). A step that did not run gets
-    0. The kernel path's chunks are a CUDA graph's replays (but for
-    `listed`): the profiler reads its kernels from the device's events."""
+    range (its ops' kernels). A step that did not run gets 0. The kernel
+    path's chunks are a CUDA graph's replays: the profiler reads its
+    kernels from the device's events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -876,9 +830,7 @@ def phase_a_device_ms(ps, bv, params, plain: bool, cmax: int,
     from meshclust_tpu_torch.utils import perf
     perf.reset()
     torch.cuda.synchronize()
-    with phase_a_steps(lambda name, fn, args: ranged(name, fn)), (
-            listed_moves() if listed else contextlib.nullcontext()), (
-            eager_chunks() if listed else contextlib.nullcontext()), profile(
+    with phase_a_steps(lambda name, fn, args: ranged(name, fn)), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         accumulate_device(ps, bv, params, 0.90, cmax_hint=cmax, plain=plain)
         torch.cuda.synchronize()
@@ -909,18 +861,13 @@ def phase_a_lockstep_errors(ps, bv, params, iters: int) -> dict:
     chunk drives them, the max abs difference of every value the next step
     reads (state buffer with the loop's slots, owner, stamp, active,
     sumvec, center slots; sums of the window's live slots; members'
-    distances), per kernel; at each move also the mesh path's
-    pa_member_dist and pa_mean_argmin (on one rank) on a copy of the
-    kernels' state."""
+    distances), per kernel."""
     import torch
     from meshclust_tpu_torch.core import accumulate_device as A
     from meshclust_tpu_torch.ops import phase_a as P
     plain = A._Slots(ps, bv, params, 0.90, plain=True)
     kern = A._Slots(ps, bv, params, 0.90, plain=False)
     both, N = (plain, kern), plain.N
-    # the mesh path's two kernels, on a copy of the kernels' state
-    st2, part2 = P.new_state(N, kern.st.device)
-    dist2 = torch.empty_like(kern.dist)
     err = {k: 0 for k in PHASE_A}
 
     def diff(name, *pairs):
@@ -951,26 +898,15 @@ def phase_a_lockstep_errors(ps, bv, params, iters: int) -> dict:
         state("pa_absorb", "owner", "stamp", "active", "sumvec")
         moved = int(kern.st[P.NPOS]) > 0
         done += 1
-        if moved:
-            st2.copy_(kern.st)
-            P.member_dist(st2, kern.owner, kern.h, kern.sumvec, dist2, part2)
         for sl in both:
             sl.move(None)
         if moved:
             members = torch.nonzero(kern.owner == kern.st[P.C]).flatten()
-            for name, got in (("pa_move", kern.dist),
-                              ("pa_member_dist", dist2)):
-                diff(name, (plain.dist[members], got[members]),
-                     (plain.dist[N:], got[N:]))
-            P.mean_argmin(st2, dist2, kern.mag, kern.owner, kern.stamp,
-                          part2)
-            diff("pa_mean_argmin", (plain.st[P.LAST: P.LAST + 1],
-                                    st2[P.LAST: P.LAST + 1]),
-                 (st2[P.TICKET: P.LIST + 1], torch.zeros_like(
-                     st2[P.TICKET: P.LIST + 1])))
+            diff("pa_move", (plain.dist[members], kern.dist[members]),
+                 (plain.dist[N:], kern.dist[N:]))
         state("pa_move")
-        diff("pa_move", (kern.st[P.TICKET: P.LIST + 1],
-                         torch.zeros_like(kern.st[P.TICKET: P.LIST + 1])))
+        diff("pa_move", (kern.st[P.TICKET: P.MOVE + 1],
+                         torch.zeros_like(kern.st[P.TICKET: P.MOVE + 1])))
         for sl in both:
             sl.next_step()
         state("pa_next", "owner", "stamp", "active", "sumvec", "center_slot")
@@ -982,9 +918,9 @@ def phase_a_profile_child(paths: list) -> int:
     params) file, the device ms of each Phase A step on both paths, then
     of each Phase B step (phase_b_device_ms); prints one JSON line {path:
     [kernel ms, plain ms, kernel ms an iteration, plain ms an iteration,
-    the mesh pair's ms an iteration, Phase B's kernel ms, plain ms, kernel
-    ms an iteration, plain ms an iteration]}. A process of its own, so that the smoke's later
-    traced run starts with no earlier profiler session in its process."""
+    Phase B's kernel ms, plain ms, kernel ms an iteration, plain ms an
+    iteration]}. A process of its own, so that the smoke's later traced
+    run starts with no earlier profiler session in its process."""
     import torch
     out = {}
     for path in paths:
@@ -993,16 +929,9 @@ def phase_a_profile_child(paths: list) -> int:
                                        PROFILE_CENTERS)
         plain_ms, plain_dev_ms = phase_a_device_ms(ps, bv, params, True,
                                                    PROFILE_CENTERS)
-        # the mesh path's two kernels and plain steps, a move in two steps
-        two, two_dev_ms = phase_a_device_ms(ps, bv, params, False,
-                                            PROFILE_CENTERS, listed=True)
-        two_plain, _ = phase_a_device_ms(ps, bv, params, True,
-                                         PROFILE_CENTERS, listed=True)
-        for k in ("pa_member_dist", "pa_mean_argmin"):
-            ms[k], plain_ms[k] = two[k], two_plain[k]
         pb = [phase_b_device_ms(ps, bv, params, plain)
               for plain in (False, True)]
-        out[path] = [ms, plain_ms, dev_ms, plain_dev_ms, two_dev_ms,
+        out[path] = [ms, plain_ms, dev_ms, plain_dev_ms,
                      pb[0][0], pb[1][0], pb[0][1], pb[1][1]]
     print(json.dumps(out), flush=True)
     return 0
@@ -1048,62 +977,18 @@ def sums_yardstick(rows, want, flush) -> tuple:
     return cold_ms(lib, 10, flush), exact
 
 
-def check_member_dist(ps, bv, params, owner, flush) -> dict:
-    """pa_member_dist on the largest center of a whole phase (owner: its
-    final owners in slot order), sumvec its members' rows summed and
-    count their number: its distances against member_dist_plain's, its
-    ms and the yardstick's with the L2 flushed and warm. The yardstick is
-    torch.cdist(p = 1) of the members' rows against cw, float32 copies
-    gathered beforehand: 2 sum min(h, cw) = sum h + sum cw - sum |h - cw|,
-    exact while every sum stays below 2^24."""
-    import torch
-    from meshclust_tpu_torch.core import accumulate_device as A
-    from meshclust_tpu_torch.core.classify import mean_floor
-    from meshclust_tpu_torch.ops import phase_a as P
-    sl = A._Slots(ps, bv, params, 0.90, plain=False)
-    n = sl.N
-    c = int(np.bincount(owner[owner >= 0]).argmax())
-    own = torch.as_tensor(owner).to(sl.h.device)
-    members = torch.nonzero(own == c).flatten()
-    st, _ = P.new_state(n, sl.h.device)
-    st[P.COUNT], st[P.C] = members.numel(), c
-    sumvec = sl.h[members].to(torch.int64).sum(0)
-    got = torch.full((n + 1,), -7, dtype=torch.int64, device=sl.h.device)
-    want = torch.zeros_like(got)
-    P.member_dist(st, own, sl.h, sumvec, got)
-    P.member_dist_plain(st, own, sl.h, sumvec, want)
-    at = torch.cat([members, members.new_tensor([n])])
-    rows32 = sl.h[members].to(torch.float32)
-    cw32 = mean_floor(sumvec, st[P.COUNT]).to(torch.float32)
-
-    def lib():
-        return torch.cdist(rows32, cw32[None], p=1.0)[:, 0]
-
-    def kernel():
-        P.member_dist(st, own, sl.h, sumvec, got)
-    two_min = rows32.sum(1) + cw32.sum() - lib()
-    return {"members": members.numel(),
-            "max_abs_err": max_abs_err(got[at], want[at]),
-            "ms": cold_ms(kernel, 10, flush), "warm_ms": cuda_ms(kernel, 20),
-            "library_ms": cold_ms(lib, 10, flush),
-            "library_warm_ms": cuda_ms(lib, 20),
-            "exact": torch.equal(two_min.to(torch.int64), got[members])}
-
-
 def check_move(ps, bv, params, state, flush) -> dict:
     """pa_move on the largest center of a whole phase (state: its final
     owner and stamp in slot order), sumvec its members' rows summed and
     count their number: st[LAST] and the distances against move_plain's;
-    its ms with the L2 flushed and warm, beside the mesh path's two
-    launches (pa_member_dist listing the members, pa_mean_argmin over the
-    list) and the yardstick: torch.cdist (p = 1) of the members' rows
-    against cw (float32 copies gathered beforehand), then distance_d and
+    its ms with the L2 flushed and warm, beside the yardstick: torch.cdist
+    (p = 1) of the members' rows against cw (float32 copies gathered beforehand), then distance_d and
     argmin in float64 (argmin keeps the least slot among equal d, not the
     least stamp)."""
     import torch
     from meshclust_tpu_torch.core import accumulate_device as A
-    from meshclust_tpu_torch.core.classify import mean_floor
     from meshclust_tpu_torch.ops import phase_a as P
+    from meshclust_tpu_torch.ops.classifier import mean_floor
     sl = A._Slots(ps, bv, params, 0.90, plain=False)
     n, dev = sl.N, sl.h.device
     owner = state["owner"]
@@ -1121,7 +1006,7 @@ def check_move(ps, bv, params, state, flush) -> dict:
     P.move_plain(st_p, own, sl.h, sumvec, sl.mag, stamp, want, part)
     at = torch.cat([members, members.new_tensor([n])])
     err = max(max_abs_err(got[at], want[at]),
-              max_abs_err(st[: P.LIST + 1], st_p[: P.LIST + 1]))
+              max_abs_err(st[: P.MOVE + 1], st_p[: P.MOVE + 1]))
     rows32 = sl.h[members].to(torch.float32)
     cw32 = mean_floor(sumvec, st[P.COUNT]).to(torch.float32)
     mass = rows32.sum(1).to(torch.float64) + cw32.sum().to(torch.float64)
@@ -1134,16 +1019,11 @@ def check_move(ps, bv, params, state, flush) -> dict:
 
     def kernel():
         P.move(st, own, sl.h, sumvec, sl.mag, stamp, got, part)
-
-    def two():
-        P.member_dist(st, own, sl.h, sumvec, got, part)
-        P.mean_argmin(st, got, sl.mag, own, stamp, part)
     tile = 2 * P.THREADS * P.OWNER_LOADS
     return {"members": members.numel(), "max_abs_err": err,
             "tiles": (int(members[0]) // tile, int(members[-1]) // tile,
                       P.owner_tiles(n)),
             "ms": cold_ms(kernel, 10, flush), "warm_ms": cuda_ms(kernel, 20),
-            "two_ms": cold_ms(two, 10, flush), "two_warm_ms": cuda_ms(two, 20),
             "library_ms": cold_ms(lib, 10, flush),
             "library_warm_ms": cuda_ms(lib, 20),
             "same": int(members[lib()]) == int(st_p[P.LAST])}
@@ -1157,7 +1037,7 @@ PA_SUMS_ROWS = 1000000
 def check_pa_sums(dev, rows_15k) -> float:
     """pa_sums against sums_plain on synthetic [PA_SUMS_ROWS, 256] rows
     (numpy seed 9, counts 0-127) as int8 with and without the dot, int16,
-    int32, and a rank's int8 column slice at an odd byte (single-byte
+    int32, and an int8 column slice at an odd byte (single-byte
     pieces), each timed with the L2 flushed beside its bound and the
     int8 rows beside the PyTorch yardstick (cdist + matmul); then the 15k
     corpus's rows over a window of all its slots, whose yardstick ms is
@@ -1208,10 +1088,9 @@ def check_phase_a(dev) -> list:
     iterations, then the whole phase (owner, stamp, center slots) bit for
     bit, timed in turns (plain, kernels, kernels, plain); then, in a child
     process, each kernel's device time and its plain step's under the
-    profiler (a move through pa_move, and through the mesh path's two
-    kernels); pa_member_dist and pa_move on the largest center, timed
-    beside the two launches and their yardsticks; and the bound. Returns
-    the six kernels' rows (at 15k, the main path's shapes)."""
+    profiler; pa_move on the largest center, timed beside its yardstick;
+    and the bound. Returns the five kernels' rows (at 15k, the main path's
+    shapes)."""
     import torch
     from meshclust_tpu_torch.core import accumulate_device as A
     from meshclust_tpu_torch.ops import phase_a as P
@@ -1252,32 +1131,18 @@ def check_phase_a(dev) -> list:
               f"kernels {runs[2]['wall']:.4f}, plain {runs[3]['wall']:.4f}; "
               f"ms an iteration: kernels {k_it[0]:.4f}-{k_it[1]:.4f}, plain "
               f"{p_it[0]:.4f}-{p_it[1]:.4f}; {runs[1]['replays']:.0f} "
-              f"replays of {len(PHASE_A_CHAIN)} x {A.CHUNK} launches, "
+              f"replays of {len(PHASE_A)} x {A.CHUNK} launches, "
               f"{runs[1]['readbacks']:.0f} readbacks; bound "
               f"{total_bytes / iters / HBM_BYTES_PER_S * 1e3:.5f} ms an "
               f"iteration ({total_bytes / iters:.0f} B at "
               f"{HBM_BYTES_PER_S:.3g} B/s) (took {time.time() - t0:.1f} s, "
               f"its inputs' run included)", flush=True)
-        md = check_member_dist(ps, bv, params, runs[1]["state"]["owner"],
-                               flush_l2(dev))
-        print(f"    pa_member_dist on the largest center ({md['members']} "
-              f"members): {md['ms']:.5f} ms L2 flushed, {md['warm_ms']:.5f} "
-              f"warm, max abs err {md['max_abs_err']}; yardstick cdist (p "
-              f"= 1) {md['library_ms']:.5f} ms L2 flushed, "
-              f"{md['library_warm_ms']:.5f} warm (exact {md['exact']})",
-              flush=True)
-        if md["max_abs_err"]:
-            fail(f"pa_member_dist differs from member_dist_plain at {n} "
-                 f"reads")
         mv = check_move(ps, bv, params, runs[1]["state"], flush_l2(dev))
         print(f"    pa_move on the largest center ({mv['members']} members, "
               f"tiles {mv['tiles'][0]}-{mv['tiles'][1]} of "
               f"{mv['tiles'][2]}): {mv['ms']:.5f} ms L2 flushed, "
               f"{mv['warm_ms']:.5f} warm, max abs err {mv['max_abs_err']}; "
-              f"the mesh path's two launches (pa_member_dist, "
-              f"pa_mean_argmin over its list) {mv['two_ms']:.5f} ms L2 "
-              f"flushed, {mv['two_warm_ms']:.5f} warm; yardstick cdist + "
-              f"argmin {mv['library_ms']:.5f} ms L2 flushed, "
+              f"yardstick cdist + argmin {mv['library_ms']:.5f} ms L2 flushed, "
               f"{mv['library_warm_ms']:.5f} warm (the same member "
               f"{mv['same']})", flush=True)
         if mv["max_abs_err"]:
@@ -1297,8 +1162,7 @@ def check_phase_a(dev) -> list:
               f"range would read {span:.2f}); pa_move's bound {b['bound_ms']:.6g} ms a launch "
               f"({per_launch['pa_move']:.0f} B)", flush=True)
         INPUTS[n] = path
-        found[n] = (path, err, per_launch, ops_s, md["library_ms"],
-                    mv["library_ms"])
+        found[n] = (path, err, per_launch, ops_s, mv["library_ms"])
         if n == 15000:
             sums_lib_ms = check_pa_sums(dev, ps.hist_dev)
     t0 = time.time()
@@ -1311,17 +1175,13 @@ def check_phase_a(dev) -> list:
     timed_ = json.loads(child.stdout.strip().splitlines()[-1])
     PROFILED.update({n: timed_[found[n][0]] for n in found})
     rows = None
-    for n, (path, err, per_launch, ops_s, dist_lib_ms,
-            move_lib_ms) in found.items():
-        ms, plain_ms, dev_ms, plain_dev_ms, two_dev_ms = timed_[path][:5]
-        two_ms = ms["pa_member_dist"] + ms["pa_mean_argmin"]
+    for n, (path, err, per_launch, ops_s, move_lib_ms) in found.items():
+        ms, plain_ms, dev_ms, plain_dev_ms = timed_[path][:4]
         print(f"  Phase A at {n} reads under the profiler (first "
               f"{PROFILE_CENTERS} centers, a child process, "
               f"{time.time() - t0:.1f} s for both corpora): device ms an "
-              f"iteration: kernels {dev_ms:.5f} (a move in the mesh path's "
-              f"two kernels {two_dev_ms:.5f}), plain {plain_dev_ms:.5f}; a "
-              f"move: pa_move {ms['pa_move']:.5f} ms, pa_member_dist + "
-              f"pa_mean_argmin {two_ms:.5f} ms", flush=True)
+              f"iteration: kernels {dev_ms:.5f}, plain {plain_dev_ms:.5f}",
+              flush=True)
         for k in PHASE_A:
             b = bound(per_launch[k], ops_s[k])
             print(f"    {k}: {ms[k]:.5f} ms a launch (plain step "
@@ -1331,12 +1191,10 @@ def check_phase_a(dev) -> list:
                   f"max abs err {err[k]}", flush=True)
         if rows is None:
             # pa_sums's yardstick: cdist + matmul on float32 copies of the
-            # 15k rows (check_pa_sums); pa_member_dist's: cdist on its
-            # members' rows (check_member_dist); pa_move's: cdist + argmin
+            # 15k rows (check_pa_sums); pa_move's: cdist + argmin
             # (check_move). No PyTorch call computes the other kernels'
             # functions: their library_ms is null.
-            lib_ms = {"pa_sums": sums_lib_ms, "pa_member_dist": dist_lib_ms,
-                      "pa_move": move_lib_ms}
+            lib_ms = {"pa_sums": sums_lib_ms, "pa_move": move_lib_ms}
             rows = [{"name": k, "route": "cuda",
                      "source": "meshclust_tpu_torch/csrc/phase_a.cu",
                      "replaces": "meshclust_tpu/core/accumulate_device.py:"
@@ -1682,7 +1540,7 @@ def check_phase_b(dev) -> list:
               f"({runs[1][2]}); bound {total / HBM_BYTES_PER_S * 1e3:.5f} "
               f"ms an iteration ({total:.0f} B at {HBM_BYTES_PER_S:.3g} "
               f"B/s) (took {time.time() - t0:.1f} s)", flush=True)
-        ms, plain_ms, dev_ms, plain_dev_ms = PROFILED[n][5:9]
+        ms, plain_ms, dev_ms, plain_dev_ms = PROFILED[n][4:8]
         print(f"  Phase B at {n} reads under the profiler: device ms an "
               f"iteration: kernels {dev_ms:.5f}, plain {plain_dev_ms:.5f}; "
               f"pb_band's sums as one index_add_ of the positive rows "
@@ -2512,23 +2370,18 @@ def ranks_path(kmer_launches: dict) -> dict:
             fail(f"rank {o['rank']} launched the NW kernel "
                  f"{o['launches']['nw_align_long']} times, phase 4's run "
                  f"{kmer_launches['nw_align_long']}")
-        if o["launches"]["pa_absorb"] != o["counters"]["accum_iters"]:
-            fail(f"rank {o['rank']} launched pa_absorb "
-                 f"{o['launches']['pa_absorb']} times in "
-                 f"{o['counters']['accum_iters']:.0f} absorb iterations")
-        moves = o["counters"]["accum_iters"] - o["counters"]["accum_centers"]
-        got = [o["launches"][k] for k in ("pa_member_dist", "pa_mean_argmin",
-                                          "pa_move", "pa_next")]
-        if got != [moves, moves, 0, 0]:
-            fail(f"rank {o['rank']} moved {moves:.0f} centers with "
-                 f"pa_member_dist, pa_mean_argmin and pa_move launched {got} "
-                 f"times (a move under the mesh: the first two once each)")
+        got = {k: o["launches"][k] for k in PHASE_A}
+        if got != phase_a_launches():
+            fail(f"rank {o['rank']} launched Phase A's kernels {got} "
+                 f"times, not {phase_a_launches()} (the graphed chain)")
+        if o["counters"].get("coll_accumulate", 0):
+            fail(f"rank {o['rank']} issued a collective in Phase A")
         got = [o["launches"][k] for k in PHASE_B]
         if got != [PB_ITERS] * len(PHASE_B):
             fail(f"rank {o['rank']} launched {PHASE_B} {got} times, not "
                  f"{PB_ITERS} each (one an iteration on its block of the "
                  f"pool)")
-        for site in ("featurize", "accumulate", "phase_b"):
+        for site in ("featurize", "phase_b"):
             if o["counters"].get(f"coll_{site}", 0) <= 0:
                 fail(f"rank {o['rank']} issued no collective at {site}")
     label = "k-mer path --id 0.90"

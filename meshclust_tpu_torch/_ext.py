@@ -9,8 +9,8 @@ It is loaded with ctypes; every pointer and the stream travel as c_void_p.
 
 Each C entry point launches on the caller's current stream and returns
 `cudaGetLastError()`; `check` raises on anything but 0. The wrappers in
-ops/ count their launches in `launches`, so a run can show that it went
-through the kernels.
+ops/ count their launches in `launches` (`_launched` checks and counts one),
+so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
+import torch
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -33,9 +35,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Launch counts by kernel name; the wrappers add one per launch.
 launches: Dict[str, int] = {"kmer_hist": 0, "nw_align_long": 0,
                              "pa_window": 0, "pa_sums": 0, "pa_absorb": 0,
-                             "pa_member_dist": 0, "pa_mean_argmin": 0,
-                             "pa_move": 0, "pa_next": 0, "pb_band": 0, "pb_dist": 0,
-                             "pb_pick": 0, "pb_merge": 0, "pivot_order": 0}
+                             "pa_move": 0, "pa_next": 0, "pb_band": 0,
+                             "pb_dist": 0, "pb_pick": 0, "pb_merge": 0,
+                             "pivot_order": 0}
+# The element width in bytes that an entry point's `width` takes, by the
+# dtype of the rows it reads.
+_WIDTHS = {torch.int8: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -60,11 +65,6 @@ _SIGNATURES = {
     # stamp, active, rows, row stride, V, width, sumvec, n, part, stream
     "mc_pa_absorb": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                      _L, _I, _I, _P, _I, _P, _P],
-    # st, owner, rows, row stride, V, width, sumvec, n, dist, part (or null:
-    # no member list), stream
-    "mc_pa_member_dist": [_P, _P, _P, _L, _I, _I, _P, _I, _P, _P, _P],
-    # st, dist, mag, stamp, n, part, stream
-    "mc_pa_mean_argmin": [_P, _P, _P, _P, _I, _P, _P],
     # st, owner, rows, row stride, V, width, sumvec, n, mag, stamp, dist,
     # part, stream
     "mc_pa_move": [_P, _P, _P, _L, _I, _I, _P, _I, _P, _P, _P, _P, _P],
@@ -208,7 +208,12 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
+def _launched(err: int, name: str) -> None:
+    """check(err, name), then one launch of kernel `name` counted."""
+    check(err, name)
+    launches[name] += 1
+
+
 def stream_of(t) -> int:
     """Raw handle of the current CUDA stream on t's device."""
-    import torch
     return torch.cuda.current_stream(t.device).cuda_stream

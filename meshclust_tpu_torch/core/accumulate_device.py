@@ -14,8 +14,8 @@ one). Here the state lives on the device, over
   limits of its length. Dynamic: active (still in the bvec), owner (center
   id of an absorbed slot), stamp (absorb iteration).
 
-On one rank the loop's control is on the device too: an iteration is a
-fixed chain of five steps of ops/phase_a (pa_window, pa_sums, pa_absorb,
+The loop's control is on the device too: an iteration is a fixed chain of
+five steps of ops/phase_a (pa_window, pa_sums, pa_absorb,
 pa_move, which moves the center only if the iteration absorbed, and
 pa_next, which ends a center, records its slot and seeds the next one, or
 sets the done flag), each a no-op once the flag is set. So the host runs
@@ -30,7 +30,7 @@ eagerly a chunk at a time. A phase runs at most CHUNK - 1 iterations past
 its end. The scalars live in one int64 state buffer on the device and the
 state is set with fill_ (assigning a Python number copies it from the
 host), so nothing else syncs. The decisions are the float64 classifier of
-core/classify.py in the same op order, bit-equal to the host path. Ties
+ops/classifier.py in the same op order, bit-equal to the host path. Ties
 take the first occurrence: candidates in slot order (the reference's
 iteration order), members in (stamp, slot) order (its member-list order).
 
@@ -41,35 +41,18 @@ bvec::index_of once per phase; the in-bin quirks are masked reductions over
 the live slots (cases in ops/phase_a.window_plain). The kernel path reads
 them from a table built once per phase (window_ranges): the slot ranges
 that decide each center's window, whose first or last live slots it finds.
-
-With a mesh (parallel/dist) the feature axis is sharded: each rank keeps
-its [N, V/n] slice of the rows (the plain steps widen it by the largest
-count of all V), and each reduction over V is one SUM across ranks of exact
-int64 partials: the Manhattan and dot sums of a sweep ([2, N]) and the
-mean's distance sums with the sum of the floored mean ([N + 1]). The
-mean's sums stay on the slice, so there the move is two steps around that
-SUM (pa_member_dist, pa_mean_argmin). The host drives that loop, an
-iteration at a time, and writes the center's id and the absorb's stamp
-into the state buffer; the slot state is replicated and identical on every
-rank, so each rank reads back the same four scalars an iteration
-(positives absorbed, first-max candidate, current center slot, first live
-slot).
-Phase A runs replicated when V is not a multiple of the ranks or
-MESHCLUST_PHASEA_SHARD=0.
 """
 from __future__ import annotations
 
-import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from meshclust_tpu_torch.core.classify import row_dtype
 from meshclust_tpu_torch.ops import features as F
 from meshclust_tpu_torch.ops import phase_a as P
-from meshclust_tpu_torch.parallel import dist
+from meshclust_tpu_torch.ops.classifier import Model, widen
 from meshclust_tpu_torch.utils import perf
 from meshclust_tpu_torch.utils.progress import Progress
 
@@ -118,7 +101,7 @@ def window_ranges(lens, sizes, lo, hi, front_bin, back_bin) -> np.ndarray:
     return np.stack(cols, axis=1).astype(np.int32)
 
 
-# Iterations a chunk on one rank: a replay of the graph, one readback.
+# Iterations a chunk: a replay of the graph, one readback.
 CHUNK = 32
 
 
@@ -126,14 +109,11 @@ class _Slots:
     """Phase A's state on the device, and its steps bound to it once
     (ops/phase_a's binders: their checks made here, not at each launch)
     through ops/phase_a's kernels or, with `plain`, their plain versions
-    (rows widened once per phase to row_dtype). One rank: iteration, its
-    five steps. Under a mesh: absorb (pa_window, pa_sums, the SUM,
-    pa_absorb, one readback) and move (pa_member_dist, the SUM,
-    pa_mean_argmin)."""
+    (rows widened once per phase, ops/classifier.widen): iteration, the
+    chain's five steps."""
 
     def __init__(self, ps, bv, params: F.FeatureParams, sim: float,
-                 mesh=None, plain: bool = True, cmax: int = 0):
-        self.mesh = mesh
+                 plain: bool = True, cmax: int = 0):
         self.point = np.concatenate([np.asarray(b, np.int64)
                                      for b in bv.idx])
         N = self.N = self.point.shape[0]
@@ -158,22 +138,16 @@ class _Slots:
         self.window_in = ((self.bin, self.len, self.lo, self.hi,
                            self.front_bin, self.back_bin) if plain
                           else (self.ranges,))
-        sp = put(self.point)
-        h = ps.hist_dev[sp]
-        if plain:
-            rows = row_dtype(int(h.max()) if h.numel() else 0)
-        if mesh is not None:
-            vl = ps.V // mesh.size
-            h = h[:, mesh.rank * vl: (mesh.rank + 1) * vl]
-        # [N, V] rows in slot order (this rank's [N, V/n] slice): widened
-        # once per phase for the plain steps; the kernels widen in registers
-        self.h = h.contiguous().to(rows) if plain else h
+        # [N, V] rows in slot order: widened once per phase for the plain
+        # steps; the kernels widen in registers
+        h = ps.hist_dev[put(self.point)]
+        self.h = widen(h) if plain else h
         self.step = step = P.steps(plain)
         f64 = {"dtype": torch.float64, "device": dev}
         self.mag = torch.as_tensor(ps.mag[self.point], **f64)
         self.sq = torch.as_tensor(ps.sq[self.point], **f64)
         self.lenf = torch.as_tensor(lens, **f64)
-        self.model = P.Model(params, ps.V, dev)
+        self.model = Model(params, ps.V, dev)
         self.active = torch.ones(N, dtype=torch.bool, device=dev)
         self.owner = torch.full((N,), -1, dtype=torch.int64, device=dev)
         self.stamp = torch.zeros(N, dtype=torch.int64, device=dev)
@@ -187,19 +161,16 @@ class _Slots:
         self.wait_s = 0.0
         self.window = step.window(self.st, self.active, *self.window_in)
         self.sweep = step.sums(self.st, self.active, self.h, self.sums)
-        # the move's one step (a mesh: its first, before the SUM)
+        self.absorb_step = step.absorb(
+            self.st, self.sums, self.model, self.mag, self.sq, self.lenf,
+            self.owner, self.stamp, self.active, self.h, self.sumvec,
+            self.part)
         self.move_step = step.move(
             self.st, self.owner, self.h, self.sumvec, self.mag, self.stamp,
-            self.dist, self.part) if mesh is None else step.member_dist(
-            self.st, self.owner, self.h, self.sumvec, self.dist, self.part)
-        if mesh is None:
-            self.absorb_step = step.absorb(
-                self.st, self.sums, self.model, self.mag, self.sq, self.lenf,
-                self.owner, self.stamp, self.active, self.h, self.sumvec,
-                self.part)
-            self.next_step = step.next(self.st, self.active, self.owner,
-                                       self.stamp, self.h, self.sumvec,
-                                       self.center_slot, cmax or N + 1)
+            self.dist, self.part)
+        self.next_step = step.next(self.st, self.active, self.owner,
+                                   self.stamp, self.h, self.sumvec,
+                                   self.center_slot, cmax or N + 1)
 
     def window_bounds(self, last):
         """(w0, w1) of the center at slot `last` (a tensor) on the live
@@ -220,7 +191,7 @@ class _Slots:
         self.sumvec.copy_(self.h[seed])
 
     def iteration(self) -> None:
-        """One rank: an iteration's five steps, with no host decision."""
+        """An iteration's five steps, with no host decision."""
         self.window()
         self.sweep()
         self.absorb_step()
@@ -262,41 +233,16 @@ class _Slots:
         self.wait_s += time.perf_counter() - t
         return out
 
-    def absorb(self, t: int) -> list:
-        """Under a mesh: classify the live window against the center (a =
-        the center, as in HostBackend.classify) and absorb the positives
-        into center st[C] at stamp t. -> [positives, the window's first max
-        of f1 (N if empty), the center's slot, the first live slot], the
-        iteration's one readback. (The first live slot is taken before the
-        absorb: it is read only when nothing was absorbed.)"""
-        st, step = self.st, self.step
-        st[P.T: P.T + 1].fill_(t)
-        self.window()
-        self.sweep()
-        sums = dist.psum(self.sums, self.mesh, "accumulate")
-        step.absorb(st, sums, self.model, self.mag, self.sq, self.lenf,
-                    self.owner, self.stamp, self.active, self.h, self.sumvec,
-                    self.part)()
-        return self.readback(0, P.LIVE + 1)
-
     def move(self, c: Optional[int]) -> None:
-        """The center moves to its member closest to the members' mean.
-        One rank: pa_move, a no-op where the iteration absorbed nothing (c
-        is None: st[C] alone holds the center's id). Under a mesh, where
-        the iteration absorbed: pa_member_dist, the SUM, pa_mean_argmin (c,
-        the host's copy of st[C], which the steps read)."""
+        """The center moves to its member closest to the members' mean:
+        pa_move, a no-op where the iteration absorbed nothing. c is None:
+        st[C] alone holds the center's id."""
         self.move_step()
-        if self.mesh is None:
-            return
-        d = dist.psum(self.dist, self.mesh, "accumulate")
-        self.step.mean_argmin(self.st, d, self.mag, self.owner, self.stamp,
-                              self.part)()
 
 
 def _device_loop(s: _Slots, graphed: bool, prog: Progress) -> tuple:
-    """One rank: the chain CHUNK iterations at a time, a CUDA graph's
-    replay where `graphed`, until the done flag. -> (iterations, centers,
-    chunks)."""
+    """The chain CHUNK iterations at a time, a CUDA graph's replay where
+    `graphed`, until the done flag. -> (iterations, centers, chunks)."""
     s.active[:1].fill_(False)                    # pop() the first seed
     s.begin(0, 0, 0)
     run = s.graph() if graphed else s.chunk
@@ -311,35 +257,6 @@ def _device_loop(s: _Slots, graphed: bool, prog: Progress) -> tuple:
             return iters, centers, chunks
 
 
-def _mesh_loop(s: _Slots, cmax: int, prog: Progress) -> tuple:
-    """Under a mesh: the host drives both loops, an iteration at a time.
-    -> (iterations, centers)."""
-    N = s.N
-    n_centers = t = seed = iters = 0
-    s.active[:1].fill_(False)                    # pop() the first seed
-    while True:
-        c = n_centers
-        s.begin(seed, c, t)
-        t += 1
-        n_members = 1
-        while True:
-            n_pos, best, last_h, live = s.absorb(t)
-            t += 1
-            iters += 1
-            if n_pos == 0:
-                break
-            n_members += n_pos
-            s.move(c)
-        s.center_slot[c: c + 1].fill_(last_h)
-        n_centers += 1
-        prog += n_members
-        # next seed: the window's best candidate (erased), else pop()
-        seed = best if best < N else live
-        if seed >= N or n_centers >= cmax:
-            return iters, n_centers
-        s.active[seed: seed + 1].fill_(False)
-
-
 def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
                       cmax_hint: int = 0, mesh=None,
                       plain: Optional[bool] = None,
@@ -347,38 +264,29 @@ def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
     """Run Phase A on ps's device. `bv` must be a finalized BVec (it is
     not changed); returns the Center list in reference semantics (see
     core/meanshift.Center). cmax_hint > 0 stops after that many centers.
-    mesh: shard the feature axis over its ranks (module docstring); every
-    rank returns the same centers. plain: the torch steps instead of the
-    CUDA kernels of ops/phase_a (default: on the CPU only; the kernels'
-    wrappers take their plain versions for CPU tensors). state: a dict
-    that receives the final slot state (owner, stamp, active, center_slot,
-    point: numpy, in slot order), for checks. Span accum_loop: the
-    absorb/move loop. Counters: accum_iters (absorb iterations),
-    accum_centers, accum_readbacks (device-to-host reads: one a chunk, or
-    under a mesh one an iteration, and one of the final state),
+    mesh: unused; Phase A runs whole on every rank, each on the rows it
+    holds, and every rank returns the same centers (MeanShift passes its
+    mesh). plain: the torch steps instead of the CUDA kernels of
+    ops/phase_a (default: on the CPU only; the kernels' wrappers take their
+    plain versions for CPU tensors). state: a dict that receives the final
+    slot state (owner, stamp, active, center_slot, point: numpy, in slot
+    order), for checks. Span accum_loop: the absorb/move loop. Counters:
+    accum_iters (absorb iterations), accum_centers, accum_readbacks
+    (device-to-host reads: one a chunk and one of the final state),
     accum_wait_s (host seconds blocked in the loop's readbacks),
-    accum_replays (chunks on one rank: a graph's replays on the card) and
+    accum_replays (chunks: a graph's replays on the card) and
     accum_device_iters (the iterations the device's control ran: all of
-    them on one rank, none under a mesh)."""
+    them)."""
     from meshclust_tpu_torch.core.meanshift import Center
-    if mesh is not None and (
-            ps.V % mesh.size
-            or os.environ.get("MESHCLUST_PHASEA_SHARD", "1") != "1"):
-        mesh = None
     if sum(len(b) for b in bv.idx) == 0:
         return []
     plain = ps.device.type == "cpu" if plain is None else plain
-    s = _Slots(ps, bv, params, sim, mesh, plain, cmax_hint)
+    s = _Slots(ps, bv, params, sim, plain, cmax_hint)
     N = s.N
     prog = Progress(N + 1, "Accumulation")
     with perf.phase("accum_loop"):
-        if mesh is None:
-            iters, n_centers, chunks = _device_loop(
-                s, s.st.device.type == "cuda" and not plain, prog)
-            device_iters = iters
-        else:
-            iters, n_centers = _mesh_loop(s, cmax_hint or N + 1, prog)
-            chunks = device_iters = 0
+        iters, n_centers, chunks = _device_loop(
+            s, s.st.device.type == "cuda" and not plain, prog)
     prog.end()
     out = torch.cat([s.owner, s.stamp, s.center_slot[:n_centers]]).cpu()
     owner, stamp = out[:N].numpy(), out[N: 2 * N].numpy()
@@ -388,10 +296,10 @@ def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
                      center_slot=center_slot, point=s.point)
     perf.add("accum_iters", float(iters))
     perf.add("accum_centers", float(n_centers))
-    perf.add("accum_readbacks", float((chunks or iters) + 1))
+    perf.add("accum_readbacks", float(chunks + 1))
     perf.add("accum_wait_s", s.wait_s)
     perf.add("accum_replays", float(chunks))
-    perf.add("accum_device_iters", float(device_iters))
+    perf.add("accum_device_iters", float(iters))
 
     # group members by owner keeping (stamp, slot) insertion order
     order = np.lexsort((np.arange(N), stamp))   # (stamp, slot) order

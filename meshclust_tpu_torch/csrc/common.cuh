@@ -1,8 +1,8 @@
 // Shared by the port's Phase A and Phase B kernels (phase_a.cu, phase_b.cu):
 // the block size, the reductions, the rows read in pieces and their sums
 // (man, dot, sum min), the floored mean served from shared memory, and the
-// float64 classifier of ops/phase_a.py:Model, each operation rounded as the
-// plain PyTorch version's. Each source includes it in its own anonymous
+// float64 classifier of ops/classifier.py:Model, each operation rounded as
+// the plain PyTorch version's. Each source includes it in its own anonymous
 // namespace, so nothing here is linked across sources.
 #pragma once
 
@@ -18,7 +18,7 @@ typedef unsigned long long u64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// pa_sums and pa_member_dist: the widest piece of a row a lane loads, and
+// pa_sums and pa_move: the widest piece of a row a lane loads, and
 // the loads a lane has in flight before it reduces.
 constexpr int kPieceBytes = 16;
 constexpr int kUnroll = 4;
@@ -29,8 +29,8 @@ constexpr int kFeatLD = 1 << 1, kFeatManhattan = 1 << 2,
               kFeatSimRatio = 1 << 6, kFeatKulczynski2 = 1 << 10;
 constexpr int kComboSquared = 1;
 // Most singles a model has: its singles are distinct flags
-// (Feature.add_feature), and the kernels compute six (ops/phase_a.py:Model
-// checks both).
+// (Feature.add_feature), and the kernels compute six
+// (ops/classifier.py:Model checks both).
 constexpr int kMaxSingles = 6;
 // The bytes of the floored mean a block keeps in shared memory (V in
 // chunks of that): tile_dist.
@@ -91,7 +91,7 @@ __device__ bool last_block(i64* ticket, i64 blocks) {
 
 // The rows are read in pieces of VEC bytes, one load instruction a lane:
 // 16 bytes where the rows' base, pitch and length are all multiples of 16,
-// else the widest of 8, 4, 2 and 1 that divides them (a rank's column slice
+// else the widest of 8, 4, 2 and 1 that divides them (a column slice
 // at an odd offset, rows of 4 int8 counts at k = 1); mc_pa_sums picks VEC.
 template <int VEC>
 struct Piece {
@@ -206,7 +206,7 @@ __device__ __forceinline__ A group_sum(A v, int lanes) {
   return v;
 }
 
-// The classifier, packed by ops/phase_a.py:Model:
+// The classifier, packed by ops/classifier.py:Model:
 //   spec (int32): S, J, singles[S], is_sim[S], kinds[J], off[J + 1], idx[..]
 //   coef (f64):   V, mins[S], spans[S], weights[J + 1]
 // The flags of the singles the model has (each computed once a pair).

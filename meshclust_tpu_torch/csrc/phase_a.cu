@@ -1,11 +1,11 @@
-// Phase A's absorb iteration for Hopper (sm_90a): seven kernels over the live
+// Phase A's absorb iteration for Hopper (sm_90a): five kernels over the live
 // window, with the slot state and the loop's control on the device.
 //
 // Replaces, as XLA and not Pallas, the absorb iteration of
 // meshclust_tpu/core/accumulate_device.py:87 build_accumulate: its
 // window_bounds (:173), classify_full (:237) and mean_argmin_full (:394),
-// which the JAX package runs inside one lax.while_loop. On one rank an
-// iteration is a fixed chain of five launches, with no host decision in it
+// which the JAX package runs inside one lax.while_loop. An iteration is a
+// fixed chain of five launches, with no host decision in it
 // (core/accumulate_device.py captures CHUNK iterations in a CUDA graph and
 // replays it until st[kDone] is set):
 //   pa_window       the live window [w0, w1] of the center (bvec::get_range,
@@ -29,23 +29,16 @@
 //                   window's best candidate, else the first live slot), or
 //                   the phase done; the stamp and iteration counters.
 // Every one of them returns at once when st[kDone] is set, so iterations
-// past the phase's end change nothing. Under a mesh the host drives the loop
-// (an all-reduce sits between the kernels) and writes c and t into st; the
-// move is two launches around the all-reduce of the distances:
-//   pa_member_dist  pa_move's distances, and the members listed;
-//   pa_mean_argmin  pa_move's argmin over that list.
-// Under a mesh (parallel/dist) each rank's pa_sums and pa_member_dist write
-// partials over its slice of the feature axis, which one all-reduce sums
-// before the next kernel.
+// past the phase's end change nothing.
 //
 // State: st, one int64 buffer (ops/phase_a.py names its slots): n_pos, best,
 // center slot, first live slot, w0, w1, the member count, the last live
-// slot, pa_absorb's ticket, pa_move's counter, the length of
-// pa_member_dist's list, then the loop's: the done flag, the iterations,
-// the current center's id (the number of centers recorded before it), the
-// members of the recorded centers (the host reads these four back once a
-// replay) and the stamp of the next absorb. Every reduction is exact and independent of the
-// order in which blocks run: integer atomicAdd, or per-block partials that
+// slot, pa_absorb's ticket, pa_move's counter, an unused slot, then the
+// loop's: the done flag, the iterations, the current center's id (the
+// number of centers recorded before it), the members of the recorded
+// centers (the host reads these four back once a replay) and the stamp of
+// the next absorb. Every reduction is exact and independent of the order
+// in which blocks run: integer atomicAdd, or per-block partials that
 // the last block to finish (the one that draws the last ticket, or whose
 // members complete the count) combines under explicit tie rules. So every
 // result is bit-equal to the plain version's. No float is ever summed. Every
@@ -66,9 +59,6 @@
 //   pa_move         owner of every slot (8 B), the members' rows, sumvec,
 //                   mag and stamp (8 B each) of the members, their dist
 //                   written (8 B);
-//   pa_member_dist  pa_move's owners, rows and sumvec, the dist and the
-//                   list (4 B) of each member written;
-//   pa_mean_argmin  the list, dist, mag and stamp of each member;
 //   pa_next         st, and where a center begins, its seed's row (V x the
 //                   storage width), sumvec written and four slot writes.
 // So an iteration must read the window's live rows once in their storage
@@ -100,22 +90,19 @@
 // int64 block reductions and eight global atomics each, it took 7-15 us.
 // Here one block reads the center's table row and then only the flags of
 // the ranges it decides, a warp a range, all at once (pa_window_kernel).
-// pa_member_dist served each member with one warp, one count a lane, and
-// divided the mean again for every member and lane: a center's members sit
-// in neighbouring slots, so a few warps ran them one after another. Here a
+// The move served each member with one warp, one count a lane, and divided
+// the mean again for every member and lane: a center's members sit in
+// neighbouring slots, so a few warps ran them one after another. Here a
 // block divides the mean once into shared memory, compacts its members and
 // serves them as pa_sums serves rows: lane groups over 16-byte pieces,
-// byte SIMD for int8, several members in flight.
-// pa_mean_argmin scanned all N owners again, over a fixed grid of 528
-// blocks, each writing three partials and drawing a ticket: at 1M slots a
-// move read the 8 MB of owners twice, in two launches, each with its own
-// host cost. pa_move never finds the members twice: the blocks of
-// pa_member_dist's tiles that hold a member reduce the argmin of their own
-// list, and the blocks with none (most of ~977 at 1M) return after the
-// owners' scan, with no ticket; the block whose members complete st[kCount]
-// combines the few partials. Under a mesh the distances must be summed
-// across ranks before the argmin, so pa_member_dist lists the members (one
-// atomic a busy block) and pa_mean_argmin is one block over that list.
+// byte SIMD for int8, several members in flight. Its argmin scanned all N
+// owners again, over a fixed grid of 528 blocks, each writing three
+// partials and drawing a ticket: at 1M slots a move read the 8 MB of
+// owners twice, in two launches, each with its own host cost. pa_move
+// never finds the members twice: the blocks of its tiles that hold a
+// member reduce the argmin of their own list, and the blocks with none
+// (most of ~977 at 1M) return after the owners' scan, with no ticket; the
+// block whose members complete st[kCount] combines the few partials.
 // With the iteration's kernels at ~0.02 ms, the host loop that read four
 // scalars back an iteration and chose the next launch from them cost ten
 // times that in Python, ctypes and the sync, with the card idle. pa_next
@@ -130,27 +117,26 @@ namespace {
 
 // The most blocks pa_absorb's grid may take (4 an SM), and the partials a
 // block writes there. The partials' buffer `part` holds kPartials x
-// max(kBlocks, tiles) int64 (pa_move writes three a busy tile), then the
-// member list of pa_member_dist under a mesh (n int32): part_list.
+// max(kBlocks, tiles) int64 (pa_move writes three a busy tile).
 constexpr int kBlocks = 528;
 constexpr int kPartials = 4;
 // pa_window: its one block's warps (a query each), and the 16-byte vectors
 // of flags a lane has in flight a step.
 constexpr int kWindowWarps = 7;
 constexpr int kWinLoads = 2;
-// pa_member_dist: the 16-byte loads of owners (two slots each) a thread
-// makes (a block's tile: kThreads * 2 * kOwnerLoads slots).
+// pa_move: the 16-byte loads of owners (two slots each) a thread makes (a
+// block's tile: kThreads * 2 * kOwnerLoads slots).
 constexpr int kOwnerLoads = 2;
 constexpr int kTileSlots = kThreads * 2 * kOwnerLoads;
 
-// Slots of st (ops/phase_a.py: NPOS ... LIST): pa_absorb's ticket; pa_move's
-// partials drawn and members counted (one counter: pa_move_kernel); the
-// members listed under a mesh.
+// Slots of st (ops/phase_a.py: NPOS ... MOVE): pa_absorb's ticket; pa_move's
+// partials drawn and members counted (one counter: pa_move_kernel). Slot 10
+// is unused.
 constexpr int kNPos = 0, kBest = 1, kLast = 2, kLive = 3, kW0 = 4, kW1 = 5,
               kCount = 6, kTail = 7;
-constexpr int kTicket = 8, kMove = 9, kList = 10;
+constexpr int kTicket = 8, kMove = 9;
 // The loop's slots (ops/phase_a.py: DONE ... T): pa_next's alone, but for
-// kC and kT, which pa_absorb, pa_move and pa_member_dist read.
+// kC and kT, which pa_absorb and pa_move read.
 constexpr int kDone = 11, kIters = 12, kC = 13, kMembers = 14, kT = 15;
 // Columns of pa_window's table, a row a slot (ops/phase_a.py: RANGES).
 constexpr int kRanges = 8;
@@ -566,7 +552,7 @@ pa_absorb_kernel(i64* __restrict__ st, const i64* __restrict__ sums,
 }
 
 // ---------------------------------------------------------------------------
-// pa_member_dist
+// pa_move
 // ---------------------------------------------------------------------------
 
 // The members (owner == c) of a block's tile of kTileSlots slots, compacted
@@ -609,49 +595,6 @@ __device__ int tile_members(const i64* __restrict__ owner, i64 c, int n,
   return *n_list;
 }
 
-// A block a tile of owners (tile_members) of the center c = st[kC]. A block
-// with no member returns,
-// but block 0, which writes dist[n] = sum cw; the others compute the floored
-// mean and their members' distances (tile_dist). Under a mesh (lst not
-// null) each busy block also appends its members' slots to the list lst
-// with one global atomic (st[kList]), for pa_mean_argmin, which empties it;
-// a list that would pass n slots (no pa_mean_argmin in between) is not
-// written past them.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-pa_member_dist_kernel(i64* __restrict__ st, const i64* __restrict__ owner,
-                      const char* __restrict__ rows, i64 pitch, int V,
-                      const i64* __restrict__ sumvec, int n,
-                      i64* __restrict__ dist, int* __restrict__ lst) {
-  __shared__ __align__(16) char cw_s[kCwBytes];
-  __shared__ int list[kTileSlots];
-  __shared__ i64 dl[kTileSlots];
-  __shared__ int n_list;
-  __shared__ i64 base;
-  const int tid = threadIdx.x;
-  const double count = static_cast<double>(st[kCount]);
-  const i64 sv0 = tid < V ? sumvec[tid] : 0;
-  const int m = tile_members(owner, st[kC], n, list, &n_list);
-  if (m == 0 && blockIdx.x != 0) return;
-  if (m && lst) {
-    if (tid == 0)
-      base = static_cast<i64>(atomicAdd(
-          reinterpret_cast<u64*>(st + kList), static_cast<u64>(m)));
-    __syncthreads();
-    for (int i = tid; i < m && base + i < n; i += kThreads)
-      lst[base + i] = list[i];
-  }
-  i64 cw_sum = tile_dist<T, VEC>(rows, pitch, V, sumvec, sv0, count, list, m,
-                                 cw_s, dl, dist);
-  if (blockIdx.x != 0) return;
-  cw_sum = block_reduce(cw_sum, Sum());
-  if (tid == 0) dist[n] = cw_sum;
-}
-
-// ---------------------------------------------------------------------------
-// pa_mean_argmin and pa_move
-// ---------------------------------------------------------------------------
-
 // distance_d of member s to the mean: frac = dist / (mag + cw_sum), d =
 // 10000 * (1 - frac * frac), each operation rounded as the plain version's
 // (no FMA), with its tie keys.
@@ -663,40 +606,19 @@ __device__ __forceinline__ DBest member_d(i64 s, i64 dist_s, double mag_s,
           s};
 }
 
-// Under a mesh, after the all-reduce of dist: one block over the st[kList]
-// members that pa_member_dist listed in lst; the least (d, stamp, slot)
-// becomes st[kLast], and the list is emptied for the next move.
-__global__ void __launch_bounds__(kThreads)
-pa_mean_argmin_kernel(i64* __restrict__ st, const i64* __restrict__ dist,
-                      const double* __restrict__ mag,
-                      const i64* __restrict__ stamp, int n,
-                      const int* __restrict__ lst) {
-  const i64 m = imin(st[kList], n);
-  const double cw_sum = static_cast<double>(dist[n]);
-  DBest best = {INFINITY, 0x7fffffffffffffffLL, n};
-  for (i64 i = threadIdx.x; i < m; i += kThreads) {
-    const i64 s = lst[i];
-    best = DOp()(best, member_d(s, dist[s], mag[s], stamp[s], cw_sum));
-  }
-  best = block_reduce(best, DOp());
-  if (threadIdx.x == 0) {
-    st[kLast] = best.s;
-    st[kList] = 0;
-  }
-}
-
-// The move on one rank, one launch, of the center c = st[kC] in an iteration
-// that absorbed (it returns at once where st[kNPos] is 0, or st[kDone] set):
-// pa_member_dist's tiles, and in each busy
-// block the argmin of its own members. A block with no member returns after
-// the owners' scan (no atomic, no partial). A busy block draws its partial's
-// index at once (the high field of st[kMove]), loads its members' mag and
-// stamp (one a thread) beside the mean's division, divides the whole mean
-// (so it has sum cw), serves its members, then takes d for each from the
-// distances in shared memory and reduces the least (d, stamp, slot) to a
-// partial; after a fence it adds its member count to the low field of
-// st[kMove]. st[kCount] is exactly the number of slots with owner == c (1 at
-// the center's start, + n_pos at each absorb), so the one block whose add
+// The move, one launch, of the center c = st[kC] in an iteration that
+// absorbed (it returns at once where st[kNPos] is 0, or st[kDone] set): a
+// block a tile of owners (tile_members), and in each busy block the
+// distances of its members to the floored mean (tile_dist) and their
+// argmin. A block with no member returns after the owners' scan (no
+// atomic, no partial). A busy block draws its partial's index at once (the
+// high field of st[kMove]), loads its members' mag and stamp (one a
+// thread) beside the mean's division, divides the whole mean (so it has
+// sum cw), serves its members, then takes d for each from the distances in
+// shared memory and reduces the least (d, stamp, slot) to a partial; after
+// a fence it adds its member count to the low field of st[kMove].
+// st[kCount] is exactly the number of slots with owner == c (1 at the
+// center's start, + n_pos at each absorb), so the one block whose add
 // reaches it comes after every other block's add and has every partial, and
 // the high field it read back is their number: its first warp combines
 // them, writes st[kLast] and dist[n] = sum cw, and resets st[kMove].
@@ -925,55 +847,9 @@ extern "C" int mc_pa_absorb(void* st, const void* sums, int with_dot,
   return cudaGetLastError();
 }
 
-// Owner tiles of pa_member_dist and pa_move: one block a tile.
+// Owner tiles of pa_move: one block a tile.
 static int owner_tiles(int n) {
   return n > 0 ? (n + kTileSlots - 1) / kTileSlots : 1;
-}
-
-// The member list in `part`, past the partials.
-static int* part_list(void* part, int n) {
-  const int tiles = owner_tiles(n);
-  return reinterpret_cast<int*>(static_cast<i64*>(part) +
-                                kPartials * (tiles > kBlocks ? tiles : kBlocks));
-}
-
-template <typename T, int VEC>
-static int launch_member_dist(cudaStream_t s, i64* st, const i64* own,
-                              const void* rows, i64 pitch, int V,
-                              const i64* sv, int n, i64* out, int* lst) {
-  pa_member_dist_kernel<T, VEC><<<owner_tiles(n), kThreads, 0, s>>>(
-      st, own, static_cast<const char*>(rows), pitch, V, sv, n, out, lst);
-  return cudaGetLastError();
-}
-
-extern "C" int mc_pa_member_dist(void* st, const void* owner,
-                                 const void* rows, long long stride, int V,
-                                 int width, const void* sumvec, int n,
-                                 void* dist, void* part, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  i64* st_ = static_cast<i64*>(st);
-  const i64* own = static_cast<const i64*>(owner);
-  const i64* sv = static_cast<const i64*>(sumvec);
-  i64* out = static_cast<i64*>(dist);
-  int* lst = part ? part_list(part, n) : nullptr;
-  const i64 pitch = stride * width, length = static_cast<i64>(V) * width;
-  const int vec = piece_bytes(rows, pitch, length, width);
-#define MC_DIST(T, VEC)                                                       \
-  case VEC:                                                                   \
-    return launch_member_dist<T, VEC>(s, st_, own, rows, pitch, V, sv, n, \
-                                      out, lst)
-  MC_ROW_CASES(MC_DIST);
-#undef MC_DIST
-}
-
-extern "C" int mc_pa_mean_argmin(void* st, const void* dist, const void* mag,
-                                 const void* stamp, int n, void* part,
-                                 void* stream) {
-  pa_mean_argmin_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<i64*>(st), static_cast<const i64*>(dist),
-      static_cast<const double*>(mag), static_cast<const i64*>(stamp), n,
-      part_list(part, n));
-  return cudaGetLastError();
 }
 
 template <typename T, int VEC>

@@ -135,7 +135,7 @@ __device__ int block_scan(int x, int* total) {
   return base + x;
 }
 
-// The classifier's packed arrays (ops/phase_a.py:Model) into shared memory.
+// The classifier's packed arrays (ops/classifier.py:Model) into shared memory.
 __device__ void stage_model(double* model, const int* spec_g, int n_spec,
                             const double* coef_g, int n_coef) {
   int* spec = reinterpret_cast<int*>(model + n_coef);
@@ -1196,7 +1196,7 @@ static int thread_blocks(int n) {
 }
 static int words(int delta) { return (2 * delta + 1 + 31) / 32; }
 
-// The classifier's shared memory (ops/phase_a.py:Model keeps it below the
+// The classifier's shared memory (ops/classifier.py:Model keeps it below the
 // 48 KB a launch may take without an attribute).
 static size_t model_bytes(int n_spec, int n_coef) {
   return n_coef * sizeof(double) + n_spec * sizeof(int);

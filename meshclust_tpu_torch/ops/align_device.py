@@ -93,8 +93,7 @@ def nw_align_long(codes: torch.Tensor, lengths: torch.Tensor,
         codes.data_ptr(), codes.shape[1], lengths.data_ptr(), ia.data_ptr(),
         ib.data_ptr(), P, stride, match, mismatch, go, gc, bnd.data_ptr(),
         alen.data_ptr(), amatch.data_ptr(), _ext.stream_of(codes))
-    _ext.check(err, "nw_align_long")
-    _ext.launches["nw_align_long"] += 1
+    _ext._launched(err, "nw_align_long")
     return alen, amatch
 
 

@@ -186,8 +186,7 @@ def kmer_hist(codes: torch.Tensor, rec_off: torch.Tensor,
         seg_off.data_ptr(), n, k, init, int(bool(split)), counts.data_ptr(),
         ones.data_ptr(), mag.data_ptr(), sq.data_ptr(), largest.data_ptr(),
         _ext.stream_of(codes))
-    _ext.check(err, "kmer_hist")
-    _ext.launches["kmer_hist"] += 1
+    _ext._launched(err, "kmer_hist")
     return counts, ones, mag, sq, largest
 
 

@@ -38,9 +38,8 @@ from typing import Optional
 import torch
 
 from meshclust_tpu_torch import _ext
-from meshclust_tpu_torch.core.classify import mean_floor
-from meshclust_tpu_torch.core.meanshift import _DBL_MIN
-from meshclust_tpu_torch.ops.phase_a import Model
+from meshclust_tpu_torch.ops.classifier import (DBL_MIN, Model, mean_floor,
+                                                widen)
 
 # pb_band's and pb_dist's tile of members (kTile) and their block
 # (kTileThreads); pb_pick's and pb_merge's block (kThreads; pb_pick takes a
@@ -64,7 +63,6 @@ SCRATCH_HEAD = 3
 # State.paths: the tiles pb_band and pb_dist ran on each path (kBandStaged,
 # kBandGlobal, kDistStaged, kDistGlobal).
 PATHS = ("band_staged", "band_global", "dist_staged", "dist_global")
-_WIDTHS = {torch.int8: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8}
 
 
 def words(delta: int) -> int:
@@ -101,13 +99,6 @@ def n_jump(C: int) -> int:
     return max(1, math.ceil(math.log2(max(2, C))))
 
 
-def wide(rows: torch.Tensor) -> torch.Tensor:
-    """The plain steps' rows: int32 where every product of two counts of
-    the storage dtype fits it (int8 and int16), else int64
-    (core/classify.py:row_dtype)."""
-    return rows.to(torch.int32 if rows.element_size() < 4 else torch.int64)
-
-
 class State:
     """One Phase B's tensors on one device.
 
@@ -116,7 +107,7 @@ class State:
     bool, False on a mesh's padding (None: all valid); m_all [M_all], every
     rank's pool; goff, this block's first pool position. The points: hist
     [N, V] (storage dtype), mag, sq, lenf [N] float64, and the classifier
-    (ops/phase_a.Model). The centers: c_idx [C], c_valid [C] bool, remap
+    (ops/classifier.Model). The centers: c_idx [C], c_valid [C] bool, remap
     [C] (identity at first) and t_hist [iterations, C]. Per iteration:
     assign [M], bits [M, words(delta)] int32, sc [C, V + 1] int64 (zero
     between iterations), dstore [2 delta + 1, M] float64 (d of the
@@ -136,7 +127,8 @@ class State:
         M, V = rows.shape
         C = c_idx.shape[0]
         for name, t in (("hist", hist), ("rows", rows)):
-            if t.dim() != 2 or t.dtype not in _WIDTHS or t.shape[1] != V \
+            if t.dim() != 2 or t.dtype not in _ext._WIDTHS \
+                    or t.shape[1] != V \
                     or (V > 1 and t.stride(1) != 1):
                 raise ValueError(f"{name}: need [*, {V}] int8/16/32/64 with "
                                  f"unit lane stride, got {tuple(t.shape)} "
@@ -194,20 +186,6 @@ class State:
         return self.remap[self.assign]
 
 
-def _launched(err: int, name: str) -> None:
-    _ext.check(err, name)
-    _ext.launches[name] += 1
-
-
-def _score(pb: State, a: torch.Tensor, b: torch.Tensor, h_b: torch.Tensor):
-    """(positive, f1) of the pairs (a[t], b[t]), b's rows given
-    (DeviceBackend._score)."""
-    h_a = wide(pb.hist[a])
-    man, dot = pb.model.scorer.sums(h_a, h_b)
-    return pb.model.scorer(man, dot, pb.mag[a], pb.mag[b], pb.sq[a],
-                           pb.sq[b], pb.lenf[a], pb.lenf[b])
-
-
 def _bit(pb: State, oi: int) -> torch.Tensor:
     return ((pb.bits[:, oi // 32] >> (oi % 32)) & 1) != 0
 
@@ -221,9 +199,10 @@ def band(pb: State) -> None:
     if pb.on_cpu:
         return band_plain(pb)
     M, V = pb.rows.shape
-    _launched(_ext.lib().mc_pb_band(
+    _ext._launched(_ext.lib().mc_pb_band(
         pb.rows.data_ptr(), pb.rows.stride(0), pb.hist.data_ptr(),
-        pb.hist.stride(0), V, _WIDTHS[pb.rows.dtype], pb.m_idx.data_ptr(),
+        pb.hist.stride(0), V, _ext._WIDTHS[pb.rows.dtype],
+        pb.m_idx.data_ptr(),
         None if pb.m_valid is None else pb.m_valid.data_ptr(), M,
         pb.assign.data_ptr(), pb.remap.data_ptr(), pb.c_idx.data_ptr(),
         pb.c_valid.data_ptr(), pb.c_idx.shape[0], pb.mag.data_ptr(),
@@ -244,11 +223,12 @@ def band_plain(pb: State) -> None:
     pb.best_d.fill_(float("inf"))
     pb.best_pos.fill_(pb.m_all.shape[0])
     pb.bits.zero_()
-    h_m = wide(pb.rows)
+    h_m = widen(pb.rows)
     for oi, o in enumerate(range(-pb.delta, pb.delta + 1)):
         j = pb.assign + o
         jc = j.clamp(0, C - 1)
-        pos, _ = _score(pb, pb.c_idx[jc], pb.m_idx, h_m)
+        pos, _ = pb.model.scorer.pairs(pb.hist, pb.mag, pb.sq, pb.lenf,
+                                       pb.c_idx[jc], pb.m_idx, h_m)
         pos = pos & (j >= 0) & (j < C) & pb.c_valid[jc]
         if pb.m_valid is not None:
             pos = pos & pb.m_valid
@@ -268,9 +248,9 @@ def dist(pb: State) -> None:
     if pb.on_cpu:
         return dist_plain(pb)
     M, V = pb.rows.shape
-    _launched(_ext.lib().mc_pb_dist(
-        pb.rows.data_ptr(), pb.rows.stride(0), V, _WIDTHS[pb.rows.dtype],
-        pb.m_idx.data_ptr(), M, pb.assign.data_ptr(), pb.mag.data_ptr(),
+    _ext._launched(_ext.lib().mc_pb_dist(
+        pb.rows.data_ptr(), pb.rows.stride(0), V,
+        _ext._WIDTHS[pb.rows.dtype], pb.m_idx.data_ptr(), M, pb.assign.data_ptr(), pb.mag.data_ptr(),
         pb.delta, pb.bits.data_ptr(), pb.sc.data_ptr(), pb.dstore.data_ptr(),
         pb.best_d.data_ptr(), pb.span_cap, pb.paths.data_ptr(),
         _ext.stream_of(pb.hist)), "pb_dist")
@@ -281,7 +261,7 @@ def dist_plain(pb: State) -> None:
     V = pb.rows.shape[1]
     C = pb.c_idx.shape[0]
     cw = mean_floor(pb.sc[:, :V], pb.sc[:, V].clamp(min=1)[:, None])
-    h_m = wide(pb.rows)
+    h_m = widen(pb.rows)
     cw_rows = cw.to(h_m.dtype)
     cw_sum = cw.sum(1)                 # exact: integers below 2^53
     mag_m = pb.mag[pb.m_idx]
@@ -309,7 +289,7 @@ def pick(pb: State) -> None:
     if pb.on_cpu:
         return pick_plain(pb)
     C, Vp = pb.sc.shape
-    _launched(_ext.lib().mc_pb_pick(
+    _ext._launched(_ext.lib().mc_pb_pick(
         pb.rows.shape[0], pb.assign.data_ptr(), pb.delta, pb.bits.data_ptr(),
         pb.dstore.data_ptr(), pb.best_d.data_ptr(), pb.best_pos.data_ptr(),
         pb.goff, pb.sc.data_ptr(), C, Vp - 1, _ext.stream_of(pb.hist)),
@@ -343,8 +323,9 @@ def merge(pb: State, it: int) -> None:
     if pb.on_cpu:
         return merge_plain(pb, it)
     V = pb.rows.shape[1]
-    _launched(_ext.lib().mc_pb_merge(
-        pb.hist.data_ptr(), pb.hist.stride(0), V, _WIDTHS[pb.hist.dtype],
+    _ext._launched(_ext.lib().mc_pb_merge(
+        pb.hist.data_ptr(), pb.hist.stride(0), V,
+        _ext._WIDTHS[pb.hist.dtype],
         pb.c_idx.shape[0], pb.c_idx.data_ptr(), pb.c_valid.data_ptr(),
         pb.best_pos.data_ptr(), pb.m_all.data_ptr(), pb.m_all.shape[0],
         pb.mag.data_ptr(), pb.sq.data_ptr(), pb.lenf.data_ptr(),
@@ -364,13 +345,14 @@ def merge_plain(pb: State, it: int) -> None:
     moved = (pb.best_pos < M_all) & c_valid
     c_idx = torch.where(moved, pb.m_all[pb.best_pos.clamp(max=M_all - 1)],
                         pb.c_idx)
-    best_f1 = torch.full((C,), _DBL_MIN, dtype=torch.float64, device=dev)
+    best_f1 = torch.full((C,), DBL_MIN, dtype=torch.float64, device=dev)
     best_t = idx_c
-    h_i = wide(pb.hist[c_idx])
+    h_i = widen(pb.hist[c_idx])
     for o in range(1, pb.delta + 1):
         j = idx_c + o
         jc = j.clamp(max=C - 1)
-        pos, f1 = _score(pb, c_idx[jc], c_idx, h_i)
+        pos, f1 = pb.model.scorer.pairs(pb.hist, pb.mag, pb.sq, pb.lenf,
+                                        c_idx[jc], c_idx, h_i)
         cand = pos & (j < C) & c_valid & c_valid[jc] & (f1 > best_f1)
         best_f1 = torch.where(cand, f1, best_f1)
         best_t = torch.where(cand, jc, best_t)

@@ -28,7 +28,6 @@ from meshclust_tpu_torch import _ext
 THREADS = 512
 THRESHOLD = 16
 LARGE = 2048
-_WIDTHS = {torch.int8: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8}
 
 Rows = Union[Sequence[int], np.ndarray, torch.Tensor]
 
@@ -47,7 +46,8 @@ def orders(ps, rows: Rows, perm: torch.Tensor,
     rows_t = torch.as_tensor(rows, dtype=torch.int64).to(dev)
     if perm.dtype != torch.int32 or perm.shape != (n,) or perm.device != dev:
         raise ValueError("perm must be [n] int32 on the histogram's device")
-    if hist.dtype not in _WIDTHS or hist.dim() != 2 or hist.stride(1) != 1:
+    if hist.dtype not in _ext._WIDTHS or hist.dim() != 2 \
+            or hist.stride(1) != 1:
         raise ValueError("hist must be [N, V] rows of int8/16/32/64")
     if heaps is None:
         heaps = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -58,12 +58,12 @@ def orders(ps, rows: Rows, perm: torch.Tensor,
     scratch = (torch.empty(P * row_bytes, dtype=torch.uint8, device=dev)
                if row_bytes else None)
     mag = torch.from_numpy(np.ascontiguousarray(ps.mag, np.int64)).to(dev)
-    _ext.check(lib.mc_pivot_order(
-        hist.data_ptr(), hist.stride(0), hist.shape[1], _WIDTHS[hist.dtype],
+    _ext._launched(lib.mc_pivot_order(
+        hist.data_ptr(), hist.stride(0), hist.shape[1],
+        _ext._WIDTHS[hist.dtype],
         mag.data_ptr(), rows_t.data_ptr(), P, perm.contiguous().data_ptr(), n,
         out.data_ptr(), None if scratch is None else scratch.data_ptr(),
         heaps.data_ptr(), _ext.stream_of(hist)), "pivot_order")
-    _ext.launches["pivot_order"] += 1
     return out
 
 

@@ -8,11 +8,9 @@ the ranks and the (small) center state is replicated:
     records, balanced by bases, in one kmer_hist launch; the rows, 1-mers,
     magnitudes and sums of squares are gathered, so every rank holds the
     whole [N, V] histogram, and the largest count is a MAX across ranks;
-  - Phase A (accumulate) is FEATURE-sharded: each rank keeps its [N, V/n]
-    slice of the rows, and every reduction over V (Manhattan and dot sums,
-    the mean's distance sums) is one SUM of exact int64 partials. The slot
-    state (window, active, owner, stamp) is replicated and identical on
-    every rank;
+  - Phase A (accumulate) runs whole on every rank: the one-device loop of
+    core/accumulate_device on the rows every rank holds, with no
+    collective;
   - the fused Phase B (update + merge loop) is MEMBER-sharded: each rank
     holds a contiguous block of the member pool; per iteration one SUM of
     the mean's int64 sums and counts, one MIN of the best float64 distance

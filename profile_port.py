@@ -67,13 +67,11 @@ Parts (default: throughput,busy):
               model, each Phase A kernel's device ms a launch under the
               profiler (first PROFILE_CENTERS centers), its launches in
               the run, its bound (chip_smoke.py:phase_a_traffic over the
-              same centers) and its loss, launches x (ms - bound), with
-              the mesh path's move (pa_member_dist, pa_mean_argmin)
-              launched on one rank's shapes over the same centers; and one
+              same centers) and its loss, launches x (ms - bound); and one
               whole Phase A with an iteration's host wall split into the
               set-up, the graph's capture, the replays' launches, the
-              readbacks' wait and the rest. Up to 150k reads also: the busy share of a
-              profiled run; Phase A alone on that run's points and model
+              readbacks' wait and the rest. Up to 150k reads also: the
+              busy share of a profiled run; Phase A alone on that run's points and model
               through the kernels and through the plain steps, unprofiled
               in turns (plain, kernels, kernels, plain) and then each under
               the profiler (wall, device time, busy share, kernel launches,
@@ -143,8 +141,8 @@ Parts (default: throughput,busy):
   ranks       several ranks (parallel/dist), for each n of --ranks: n
               ranks (gloo where they share a card, NCCL where each has its
               own) time each collective at the 15k k-mer run's shapes (a
-              Phase A sweep's sums, a move of the center, a Phase B
-              iteration's sums, minimum and positions) and the gather of
+              Phase B iteration's sums, minimum and positions) and the
+              gather of
               the featurized rows at 15k and, over NCCL, 1M reads in two
               forms (the port's SUM into zeros and, over NCCL, an
               all-gather of padded blocks), host
@@ -294,14 +292,10 @@ def phase_a_kernels(ps, bv, params, counters: dict,
     (counters: the run's; each kernel of the chain CHUNK a replay and once
     before the capture), its bound (chip_smoke.py:phase_a_traffic over
     the same centers, unless given), the share of it, and the run's loss:
-    launches x (ms - bound); then the mesh path's two move kernels, each
-    move of the same centers launched as a rank of a mesh launches them
-    (one rank's shapes: every slot)."""
+    launches x (ms - bound)."""
     from meshclust_tpu_torch.core.accumulate_device import CHUNK
-    launches = dict.fromkeys(smoke.PHASE_A, 0)
-    launches.update(dict.fromkeys(
-        smoke.PHASE_A_CHAIN, int(counters["accum_replays"]) * CHUNK + 1))
-    moves = int(counters["accum_iters"] - counters["accum_centers"])
+    launches = dict.fromkeys(
+        smoke.PHASE_A, int(counters["accum_replays"]) * CHUNK + 1)
     ms, dev_ms = smoke.phase_a_device_ms(ps, bv, params, False,
                                          smoke.PROFILE_CENTERS)
     per_launch, ops_s = (traffic or smoke.phase_a_traffic(
@@ -316,19 +310,6 @@ def phase_a_kernels(ps, bv, params, counters: dict,
               f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4g}, loss "
               f"{launches[k] * (ms[k] - b['bound_ms']) / 1e3:.4f} s",
               flush=True)
-    # the mesh path's move (pa_member_dist, pa_mean_argmin) on one rank's
-    # shapes: the same centers, each move as the two launches a rank of a
-    # mesh makes (no collective: one rank holds every slot)
-    ms, _ = smoke.phase_a_device_ms(ps, bv, params, False,
-                                    smoke.PROFILE_CENTERS, listed=True)
-    for k in ("pa_member_dist", "pa_mean_argmin"):
-        b = smoke.bound(per_launch[k], ops_s[k])
-        print(f"      {k} (the mesh path's move, launched on one rank's "
-              f"shapes): {ms[k]:.5f} ms a launch, {moves} "
-              f"launches a rank at any rank count, bound "
-              f"{b['bound_ms']:.6g} ms ({b['bound_by']}, "
-              f"{per_launch[k]:.0f} B a launch), share "
-              f"{b['bound_ms'] / ms[k] if ms[k] else 0.0:.4g}", flush=True)
 
 
 def host_split(ps, bv, params, sim: float) -> None:
@@ -1540,8 +1521,7 @@ def kvariants(dev, specs: str) -> None:
 SASS_KERNELS = ("nw_align_long_kernel", "kmer_rows_kernelILb0E",
                 "kmer_split_kernel", "pa_absorb_kernelIaE",
                 "pa_sums_kernelIaLi16E", "pa_window_kernel",
-                "pa_member_dist_kernelIaLi16E", "pa_move_kernelIaLi16E",
-                "pa_mean_argmin_kernel", "pb_band_kernelIaLi16E",
+                "pa_move_kernelIaLi16E", "pb_band_kernelIaLi16E",
                 "pb_dist_kernelIaLi16E")
 
 
@@ -1608,10 +1588,7 @@ def sass_counts(label: str, func: str, op) -> None:
 
 # (label, shape, dtype, reduction) of the collectives timed by --parts
 # ranks: the 15k k-mer run's (N = 15,000, V = 256, ~150 centers)
-COLLECTIVES = (("Phase A sweep [2, 15000] int64 SUM", (2, 15000), "int64",
-                "sum"),
-               ("Phase A move [15001] int64 SUM", (15001,), "int64", "sum"),
-               ("Phase B sums [150, 257] int64 SUM", (150, 257), "int64",
+COLLECTIVES = (("Phase B sums [150, 257] int64 SUM", (150, 257), "int64",
                 "sum"),
                ("Phase B minimum [150] float64 MIN", (150,), "float64",
                 "min"),

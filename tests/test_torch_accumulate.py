@@ -277,13 +277,14 @@ def _scalar_reads(fn):
 
 
 def test_one_readback_an_iteration():
-    """Phase A reads back once a chunk of iterations (its .tolist()), and
-    besides only the largest count at setup; Phase B never until its
-    end. On the card each hidden read would be a sync."""
+    """Phase A reads back once a chunk of iterations (its .tolist()) and
+    nothing else (its rows are widened by their storage dtype, no count
+    read); Phase B never until its end. On the card each hidden read would
+    be a sync."""
     ps, params = edge_points(0.97)
     params, _ = shifted(params, ps, 0.8)
     assert _scalar_reads(lambda: A.accumulate_device(
-        ps, port_bv(ps, 7), params, 0.97)) == 1
+        ps, port_bv(ps, 7), params, 0.97)) == 0
     centers = A.accumulate_device(ps, port_bv(ps, 7), params, 0.97)
     members = np.asarray([m for c in centers for m in c.members], np.int64)
     assign = np.repeat(np.arange(len(centers)),

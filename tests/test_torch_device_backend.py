@@ -20,6 +20,7 @@ import torch
 
 from meshclust_tpu_torch import convert
 from meshclust_tpu_torch.core import classify as C
+from meshclust_tpu_torch.ops import classifier as CL
 from meshclust_tpu_torch.ops import features as F
 
 # One intra-op thread per test process keeps OpenMP from oversubscribing
@@ -127,7 +128,8 @@ def test_decisions_equal_host_backend(toy, q):
         assert near >= 2
     db = C.DeviceBackend(ps, params)
     hb = C.HostBackend(ps, params)
-    assert db.rows == (torch.int32 if scale == 1 else torch.int64)
+    assert CL.widen(db.hist_dev[:1]).dtype == (torch.int32 if scale == 1
+                                               else torch.int64)
     window = np.arange(ps.n)
     n_pos = 0
     for center in CENTERS:
@@ -172,20 +174,24 @@ def test_mean_floor_at_integer_means():
         rem = rng.integers(0, cnt, V).astype(np.int64)
         rem[::3] = 0                      # a third exactly divisible
         sums = q_true * cnt + rem
-        got = C.mean_floor(torch.from_numpy(sums), torch.tensor(cnt))
+        got = CL.mean_floor(torch.from_numpy(sums), torch.tensor(cnt))
         assert got.dtype == torch.float64
         np.testing.assert_array_equal(got.numpy().astype(np.int64),
                                       sums // cnt)
     sums = (np.arange(100) + (1 << 23) - 50).astype(np.int64)
     for cnt in (1, 3):
-        got = C.mean_floor(torch.from_numpy(sums * cnt),
+        got = CL.mean_floor(torch.from_numpy(sums * cnt),
                            torch.full((100,), cnt))
         np.testing.assert_array_equal(got.numpy().astype(np.int64), sums)
 
 
 def test_row_dtype():
-    assert C.row_dtype(46340) == torch.int32
-    assert C.row_dtype(46341) == torch.int64
+    assert CL.row_dtype(46340) == torch.int32
+    assert CL.row_dtype(46341) == torch.int64
+    widened = {torch.int8: torch.int32, torch.int16: torch.int32,
+               torch.int32: torch.int64, torch.int64: torch.int64}
+    for dtype, want in widened.items():
+        assert CL.widen(torch.zeros(1, dtype=dtype)).dtype == want
 
 
 def test_make_backend_picks_device_backend(toy):

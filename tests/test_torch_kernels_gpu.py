@@ -308,7 +308,7 @@ def _listed(centers):
 
 
 def phase_a_lockstep(ps, params, sim, bv):
-    """Phase A driven as accumulate_device drives it on one rank, each step
+    """Phase A driven as accumulate_device drives it, each step
     by the plain _Slots and by the kernels' _Slots on the same card, every
     value the next step reads compared bit for bit (the state buffer with
     the loop's slots, active, owner, stamp, sumvec, the center slots; the
@@ -355,7 +355,7 @@ def phase_a_lockstep(ps, params, sim, bv):
             assert torch.equal(plain.dist[members], kern.dist[members])
             assert torch.equal(plain.dist[N], kern.dist[N])
         same()
-        assert not kern.st[P.TICKET: P.LIST + 1].any()
+        assert not kern.st[P.TICKET: P.MOVE + 1].any()
         for sl in both:
             sl.next_step()
         same(*names)
@@ -378,12 +378,11 @@ def test_phase_a_kernels_equal_plain_steps(cuda, dtype):
     """Each Phase A kernel against its plain step on the card, iteration
     by iteration, with the rows in each storage dtype, through the done
     flag and one iteration past it: the five kernels of the chain launch
-    once an iteration, the mesh path's two never."""
+    once an iteration."""
     ps, params, _ = _phase_a_case(PHASE_A_SCALES[dtype], cuda)
     assert ps.hist_dev.dtype == getattr(torch, dtype)
     iters, launched = phase_a_lockstep(ps, params, 0.90, _bvec(ps))
     assert {launched[k] for k in CHAIN} == {iters + 1}
-    assert launched["pa_member_dist"] == launched["pa_mean_argmin"] == 0
 
 
 def _device_kernels(fn) -> dict:
@@ -484,11 +483,13 @@ def test_pa_next_kernel_equals_plain(cuda, case, dtype):
 
 
 def test_phase_a_at_two_ranks_sharing_the_card(cuda):
-    """Phase A feature-sharded over 2 ranks on the one card (gloo), each
-    rank launching the kernels on its [N, V/2] slice: every rank's centers
-    equal one rank's, with one or two collectives an absorb iteration."""
+    """Phase A at 2 ranks on the one card (gloo), each rank running the
+    whole phase through the graphed chain: every rank's centers equal one
+    rank's, every iteration the device's, one readback a replay and no
+    collective."""
     import torch_dist_ranks as R
-    from meshclust_tpu_torch.core.accumulate_device import accumulate_device
+    from meshclust_tpu_torch.core.accumulate_device import (
+        CHUNK, accumulate_device)
     from meshclust_tpu_torch.parallel import dist
     if torch.cuda.device_count() != 1:
         pytest.skip("ranks share a card only where there is one")
@@ -502,15 +503,10 @@ def test_phase_a_at_two_ranks_sharing_the_card(cuda):
         for res, w in zip(out, want):
             c = res["counters"]
             assert res["centers"] == w
-            moves = c["accum_iters"] - c["accum_centers"]
-            assert res["launches"]["pa_absorb"] == c["accum_iters"]
-            assert res["launches"]["pa_member_dist"] == moves
-            assert res["launches"]["pa_mean_argmin"] == moves
-            assert res["launches"]["pa_move"] == 0
-            assert res["launches"]["pa_next"] == 0
-            assert c["accum_device_iters"] == 0
-            assert c["accum_iters"] < c["coll_accumulate"] \
-                <= 2 * c["accum_iters"]
+            assert {res["launches"][k] for k in CHAIN} == {CHUNK + 1}
+            assert c["accum_device_iters"] == c["accum_iters"]
+            assert c["accum_readbacks"] == c["accum_replays"] + 1
+            assert c.get("coll_accumulate", 0) == 0
 
 
 def _window_slots(sizes, lens, sim, begin_bounds):
@@ -593,9 +589,9 @@ def test_pa_window_kernel_equals_plain_150k_slots(cuda):
         assert st[:P.W1 + 1].tolist() == want[:P.W1 + 1].tolist()
 
 
-# pa_member_dist's rows: (V, dtype, counts drawn from, a rank's column
-# slice [start, stop) or None); V * width past the kernel's 8 KB of the
-# mean in shared memory takes chunks
+# pa_move's rows: (V, dtype, counts drawn from, a column slice [start,
+# stop) or None); V * width past the kernel's 8 KB of the mean in shared
+# memory takes chunks
 PA_MEMBER_ROWS = {
     "k1_int8": (4, torch.int8, np.arange(128), None),
     "int8": (256, torch.int8, np.arange(128), None),
@@ -608,42 +604,6 @@ PA_MEMBER_ROWS = {
     "int64_chunked_V2048": (2048, torch.int64, np.arange(0, 10 ** 6, 999),
                             None),
 }
-
-
-@pytest.mark.parametrize("aligned", [True, False])
-@pytest.mark.parametrize("case", sorted(PA_MEMBER_ROWS))
-def test_pa_member_dist_kernel_equals_plain(cuda, case, aligned):
-    """pa_member_dist against member_dist_plain, one launch: members in a
-    run of neighbouring slots and scattered over 3,000 slots (three
-    tiles), sumvec their rows' sum, count their number; every member's
-    distance and sum cw equal, the other slots keep what they held; owner
-    at a 16-byte address or not."""
-    from meshclust_tpu_torch.ops import phase_a as P
-    V, dtype, pool, cols = PA_MEMBER_ROWS[case]
-    rng = np.random.default_rng(V + 1)
-    n, c = 3000, 5
-    full = torch.as_tensor(rng.choice(pool, size=(n, V))).to(dtype).to(cuda)
-    rows = full if cols is None else full[:, cols[0]: cols[1]]
-    own = rng.integers(0, 9, size=n)
-    own[1000: 1100] = c
-    base = torch.full((n + 1,), -1, dtype=torch.int64, device=cuda)
-    owner = base[:n] if aligned else base[1:]
-    owner.copy_(torch.as_tensor(own))
-    members = torch.nonzero(owner == c).flatten()
-    st, _ = P.new_state(n, cuda)
-    st[P.COUNT], st[P.C] = members.numel(), c
-    sumvec = rows[members].to(torch.int64).sum(0)
-    got = torch.full((n + 1,), -7, dtype=torch.int64, device=cuda)
-    before = _ext.launches["pa_member_dist"]
-    P.member_dist(st, owner, rows, sumvec, got)
-    assert _ext.launches["pa_member_dist"] == before + 1
-    want = torch.zeros(n + 1, dtype=torch.int64, device=cuda)
-    P.member_dist_plain(st, owner, rows, sumvec, want)
-    mask = torch.zeros(n + 1, dtype=torch.bool, device=cuda)
-    mask[members] = True
-    mask[n] = True
-    assert torch.equal(got[mask], want[mask])
-    assert bool((got[~mask] == -7).all())
 
 
 # pa_move's ties: members of center 5 whose rows are t, the floored mean,
@@ -696,9 +656,8 @@ from meshclust_tpu_torch.ops import phase_a as P_  # noqa: E402
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("case", sorted(PA_MEMBER_ROWS))
 def test_pa_move_kernel_equals_plain(cuda, case, aligned):
-    """pa_move against move_plain (member_dist_plain, then
-    mean_argmin_plain), one launch each time: st[LAST], the members'
-    distances and sum cw equal, the other slots keep what they held, and
+    """pa_move against move_plain, one launch each time: st[LAST], the
+    members' distances and sum cw equal, the other slots keep what they held, and
     the kernel's counters are back at 0; TWINS tie in d across three
     blocks, their stamps set in turn so that the least slot, the least
     stamp, and the least stamp in the last tile win."""
@@ -721,34 +680,7 @@ def test_pa_move_kernel_equals_plain(cuda, case, aligned):
         assert bool((got[~mask] == -7).all())
         assert torch.equal(st, st_p)
         assert int(st[P_.LAST]) == want_last
-        assert not st[P_.TICKET: P_.LIST + 1].any()
-
-
-@pytest.mark.parametrize("case", ["int8", "int8_odd_slice", "int16",
-                                  "int64_chunked_V2048"])
-def test_pa_mean_argmin_over_the_list_equals_plain(cuda, case):
-    """The mesh path: pa_member_dist with part lists the members (the list
-    holds each member once), pa_mean_argmin over that list against
-    mean_argmin_plain on the same distances, for each of TIES in a row (the
-    list is emptied between moves)."""
-    st, part, owner, c, rows, sumvec, mag, stamp, members = _move_inputs(
-        cuda, case, True)
-    n = owner.shape[0]
-    for stamps, want_last in TIES.values():
-        stamp[TWINS] = torch.tensor(stamps, device=cuda)
-        dist = torch.full((n + 1,), -7, dtype=torch.int64, device=cuda)
-        P_.member_dist(st, owner, rows, sumvec, dist, part)
-        listed = part[P_.part_len(n) - (n + 1) // 2:].view(torch.int32)
-        assert int(st[P_.LIST]) == members.numel()
-        assert torch.equal(listed[: members.numel()].sort().values
-                           .to(torch.int64), members)
-        st_p = st.clone()
-        before = _ext.launches["pa_mean_argmin"]
-        P_.mean_argmin(st, dist, mag, owner, stamp, part)
-        assert _ext.launches["pa_mean_argmin"] == before + 1
-        P_.mean_argmin_plain(st_p, dist, mag, owner, stamp, part)
-        assert int(st[P_.LAST]) == int(st_p[P_.LAST]) == want_last
-        assert int(st[P_.LIST]) == 0
+        assert not st[P_.TICKET: P_.MOVE + 1].any()
 
 
 def test_device_aligner_unstaged_small_budget_equals_cpu(cuda, monkeypatch):
@@ -834,6 +766,7 @@ def test_pa_absorb_kernel_equals_plain(cuda, window, nan):
     and, with `nan`, a slot whose length is NaN (its f1 is NaN: best is
     N)."""
     from meshclust_tpu_torch.ops import phase_a as P
+    from meshclust_tpu_torch.ops.classifier import Model
     ps, params, _ = _phase_a_case(1, cuda)
     n = ps.n
     h = ps.hist_dev.clone()
@@ -848,7 +781,7 @@ def test_pa_absorb_kernel_equals_plain(cuda, window, nan):
     mag = h64.sum(1).to(torch.float64)
     sq = (h64 * h64).sum(1).to(torch.float64)
     lenf = torch.as_tensor(lens, device=cuda)
-    model = P.Model(params, h.shape[1], cuda)
+    model = Model(params, h.shape[1], cuda)
     w0, w1 = {"empty": (50, 49), "one_slot": (90, 90),
               "all": (0, n - 1)}[window]
     out = {}

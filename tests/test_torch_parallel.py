@@ -9,11 +9,10 @@ port's single rank; mirrors tests/test_parallel.py case by case.
   outputs of JAX's 8-device phase_b_loop (the toy model of
   test_parallel.py, with an uneven pool, and banded cases that merge), and
   no read back before the end;
-- Phase A with the feature axis sharded at 2/4 ranks: JAX's Phase A over
-  its mesh (the same centers with the same members in the same order), the
-  sharded path engaged (collectives at its site) and one read an absorb
-  iteration, as on one rank; under MESHCLUST_PHASEA_SHARD=0 the same
-  centers from the replicated path (no collective at its site).
+- Phase A at 2/3/4 ranks, run whole on every rank: JAX's Phase A over its
+  mesh and the port's single rank (the same centers with the same members
+  in the same order), every iteration the device loop's, one readback a
+  chunk and no collective.
 
 Every comparison is exact. tests/test_torch_parallel_run.py drives the
 whole pipeline over ranks.
@@ -216,6 +215,7 @@ def test_phase_b_sharded_collectives_and_reads(phase_b_ranks, phase_b_ref):
 
 @pytest.fixture(scope="module")
 def phase_a_ref():
+    """(cases, JAX's centers over its mesh, the port's on one rank)."""
     from meshclust_tpu.core.accumulate_device import accumulate_device
     from meshclust_tpu.core.bvec import BVec as JBVec
     from tests.test_torch_accumulate import CORPORA, jax_points
@@ -231,41 +231,38 @@ def phase_a_ref():
         want.append([(c.center, list(c.members)) for c in accumulate_device(
             jps, jbv, jparams, 0.90, mesh=jax_mesh())])
         cases.append((arrays_of(jps), port_params(jparams), 20, 0.90))
-    return cases, want
+    one = [res["centers"] for res in R.phase_a(cases)]
+    return cases, want, one
 
 
-@pytest.fixture(scope="module", params=[(2, "1"), (4, "1"), (2, "0")],
-                ids=["2ranks", "4ranks", "2ranks_shard_off"])
+@pytest.fixture(scope="module", params=[2, 3, 4],
+                ids=["2ranks", "3ranks", "4ranks"])
 def phase_a_ranks(request, phase_a_ref):
-    """(shard switch, each rank's results); the spawned ranks inherit
-    MESHCLUST_PHASEA_SHARD."""
-    n, shard = request.param
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MESHCLUST_PHASEA_SHARD", shard)
-        return shard, dist.launch(R.phase_a, n, "cpu", phase_a_ref[0])
+    """Each rank's results."""
+    return dist.launch(R.phase_a, request.param, "cpu", phase_a_ref[0])
 
 
 def test_phase_a_feature_sharded_equals_jax_mesh(phase_a_ranks, phase_a_ref):
-    _, outs = phase_a_ranks
-    for out in outs:
-        for got, want in zip(out, phase_a_ref[1]):
-            assert len(want) >= 4
-            assert got["centers"] == want
+    """Phase A, run whole on every rank: each rank's centers are the JAX
+    mesh's and the port's single rank's."""
+    _, want, one = phase_a_ref
+    assert one == want
+    for out in phase_a_ranks:
+        for got, w in zip(out, want):
+            assert len(w) >= 4
+            assert got["centers"] == w
 
 
 def test_phase_a_sharded_engaged_one_read_an_iteration(phase_a_ranks):
-    """Each absorb iteration sums its sweep's partials, and each one that
-    absorbs also the mean's: between 1 and 2 collectives an iteration; with
-    the switch off, none. The only value read back besides the iteration's
-    .tolist() is the largest count at setup, as on one rank."""
-    shard, outs = phase_a_ranks
-    for out in outs:
+    """Phase A runs the one-rank device loop on every rank: every
+    iteration is the device loop's, one readback a chunk and one of the
+    final state, no collective, and nothing read back besides the chunks'
+    .tolist()."""
+    for out in phase_a_ranks:
         for res in out:
             c = res["counters"]
             assert c["accum_iters"] > 0
-            if shard == "0":
-                assert c.get("coll_accumulate", 0) == 0
-            else:
-                assert c["accum_iters"] <= c["coll_accumulate"] \
-                    <= 2 * c["accum_iters"]
-            assert res["reads"] == 1
+            assert c.get("coll_accumulate", 0) == 0
+            assert c["accum_device_iters"] == c["accum_iters"]
+            assert c["accum_readbacks"] == c["accum_replays"] + 1
+            assert res["reads"] == 0

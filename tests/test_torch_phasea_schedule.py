@@ -14,7 +14,7 @@ the last block, here in a random block order) and its tie rules:
                   first and last live slots scanned on from st[LIVE] and
                   st[TAIL], and the truncation quirk's second query;
   pa_sums         a warp a live slot of [w0, w1]; no other row is read;
-  pa_absorb       the float64 classifier read from ops/phase_a.Model's
+  pa_absorb       the float64 classifier read from ops/classifier.Model's
                   packed arrays in the kernel's order, the first max of f1
                   as (max, least slot) with NaN making it N, positives'
                   rows added into sumvec;
@@ -27,26 +27,21 @@ the last block, here in a random block order) and its tie rules:
                   the blocks' draws and adds on one counter interleaved in
                   a random order, no other block drawing or writing
                   anything;
-  pa_member_dist  pa_move's tiles, each busy block appending its list to
-                  the rank's (under a mesh);
-  pa_mean_argmin  the least (d, stamp, slot) over that list;
   pa_next         one block: the center's slot recorded where nothing was
                   absorbed, the next seed (the best, else the first live
                   slot) or the done flag, the stamp and iteration counters
                   in st, the seed's row written into sumvec.
 The center's id and the absorb's stamp are read from st, as the kernels
-read them. The rows may be cut into feature shards whose partials are summed, as
-under a mesh. The model is held equal, step by step and iteration by
+read them. The model is held equal, step by step and iteration by
 iteration, to the plain steps of core/accumulate_device._Slots' chain
 (every step after the done flag a no-op), on the edge
 corpora of tests/test_torch_accumulate.py (--id 0.60 and 0.97 at their
 window-limit edges, 0.90 on species corpora), with duplicate rows planted
 so that f1 and d tie, with empty windows and with a lone read whose length
 window holds only itself; a copy of the model with either tie rule turned
-around must disagree. The move is held to move_plain (pa_member_dist's and
-pa_mean_argmin's plain steps in sequence) also on members planted in
-several tiles whose d ties, on a lone member, and at a wrong member count,
-which the models refuse. The whole phase's centers are held equal to the JAX
+around must disagree. The move is held to move_plain also on members
+planted in several tiles whose d ties, on a lone member, and at a wrong
+member count, which the model refuses. The whole phase's centers are held equal to the JAX
 package's accumulate_device. Tolerance: exact equality.
 """
 import os
@@ -59,6 +54,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as hst
 
 from meshclust_tpu_torch.core import accumulate_device as A
+from meshclust_tpu_torch.ops import classifier as CL
 from meshclust_tpu_torch.ops import features as F
 from meshclust_tpu_torch.ops import phase_a as P
 from tests.test_torch_accumulate import (CORPORA, edge_points, jax_points,
@@ -70,8 +66,8 @@ os.environ.setdefault("MESHCLUST_QUIET", "1")
 # grid shapes: the kernels' own, and a small one whose blocks each see many
 # slots (blocks, threads a block, lanes a warp); pa_sums's blocks: on the
 # card SMs x resident blocks (an H100 SXM's 132 x 8 here); pa_window's
-# vectors a lane has in flight; pa_member_dist's owner loads a thread and
-# bytes of the mean a chunk
+# vectors a lane has in flight; pa_move's owner loads a thread and bytes of
+# the mean a chunk
 OWN = dict(blocks=P.BLOCKS, threads=P.THREADS, lanes=32,
            sums_blocks=132 * 8, win_loads=P.WINDOW_LOADS,
            owner_loads=P.OWNER_LOADS, cw_bytes=P.CW_BYTES)
@@ -239,8 +235,9 @@ def fits_int32(*xs) -> bool:
 
 
 def model_sums(st, s, shards, out, with_dot, grid):
-    """pa_sums over feature shards (consecutive column slices of one [N,
-    V] array on a 16-byte boundary, each a rank's; their partials summed):
+    """pa_sums over shards (consecutive column slices of one [N, V] array
+    on a 16-byte boundary, each a launch on its slice; their partials
+    summed):
     a shard's rows are read in pieces of piece_bytes of the slice's
     address, pitch and length. Short rows (pieces <= the warp's lanes): a
     group of `lanes` lanes a row, lane `sub` its piece sub, the warp's
@@ -327,7 +324,7 @@ def classify(spec, coef, man, dot, mag_a, mag_b, sq_a, sq_b, len_a, len_b):
     the model once, then each single normalized, then the combos."""
     f8 = np.float64
     S, J = int(spec[0]), int(spec[1])
-    assert S <= P.MAX_SINGLES
+    assert S <= CL.MAX_SINGLES
     singles, is_sim = spec[2: 2 + S], spec[2 + S: 2 + 2 * S]
     kinds = spec[2 + 2 * S: 2 + 2 * S + J]
     off = spec[2 + 2 * S + J: 3 + 2 * S + 2 * J]
@@ -375,8 +372,8 @@ def classify(spec, coef, man, dot, mag_a, mag_b, sq_a, sq_b, len_a, len_b):
     return bool(score >= 0.0), f1
 
 
-def model_absorb(st, s, sums, spec, coef, with_dot, shards, sumvecs, c, t,
-                 grid, rng, least_slot=True):
+def model_absorb(st, s, sums, spec, coef, with_dot, h, sv, c, t, grid, rng,
+                 least_slot=True):
     """pa_absorb: block-wide tiles of [w0, w1], a thread a slot. Only the
     first `busy` blocks hold a slot; the others read nothing and write no
     partial, and with no busy block the empty window's result is written
@@ -412,8 +409,7 @@ def model_absorb(st, s, sums, spec, coef, with_dot, shards, sumvecs, c, t,
                     npos += 1
                     tile.append(x)
             if tile:                            # the list's order: any
-                for h, sv in zip(shards, sumvecs):
-                    sv += h[rng.permutation(tile)].astype(np.int64).sum(0)
+                sv += h[rng.permutation(tile)].astype(np.int64).sum(0)
         parts.append((best, npos))
     best = combine([p[0] for p in parts],
                    lambda a, b: f1_op(a, b, least_slot), rng)
@@ -449,8 +445,8 @@ def owner_tiles(N, grid):
 
 
 def tile_dist(h, sv, lst, count, vec, grid, out):
-    """csrc/phase_a.cu:tile_dist on one shard's rows h (a rank's slice, its
-    pieces of vec bytes): V in chunks of cw_bytes, cw = floor(sumvec /
+    """csrc/common.cuh:tile_dist on the rows h (their pieces of vec
+    bytes): V in chunks of cw_bytes, cw = floor(sumvec /
     count) once a chunk, then each member's pieces of the chunk against
     cw's, int8 partials within 32 bits; the first chunk writes out[x], the
     later ones add. -> sum cw."""
@@ -485,54 +481,6 @@ def tile_dist(h, sv, lst, count, vec, grid, out):
     return cw_sum
 
 
-def shard_pieces(shards):
-    """Each shard's piece (piece_bytes of its slice's address, pitch and
-    length in the [N, V] array the shards are cut from)."""
-    width = shards[0].dtype.itemsize
-    pitch = sum(h.shape[1] for h in shards) * width
-    col0, out = 0, []
-    for h in shards:
-        out.append(piece_bytes(col0 * width, pitch, h.shape[1] * width,
-                               width))
-        col0 += h.shape[1]
-    return out
-
-
-def model_member_dist(st, s, c, shards, sumvecs, grid, rng):
-    """pa_member_dist over feature shards (each a rank's launch, their
-    dists summed as the psum sums them): -> (dist [N + 1] with -7 where
-    the kernel writes nothing, the slots whose rows it read, the member
-    list). A block takes a tile of owners (tile_members); a block with no
-    member stops (block 0 goes on for dist[N]); the others compute their
-    members' distances (tile_dist) and append their list to the rank's
-    list, at an offset drawn from st[LIST] (in the order the blocks win
-    the atomic). Every rank lists the same members."""
-    N = s["owner"].shape[0]
-    count = np.float64(st[P.COUNT])
-    dist = np.full(N + 1, -7, np.int64)
-    read, lists = set(), []
-    for h, sv, vec in zip(shards, sumvecs, shard_pieces(shards)):
-        out = np.full(N + 1, -7, np.int64)
-        busy = []
-        for block in range(owner_tiles(N, grid)):
-            lst = tile_members(s["owner"], c, block, grid, rng)
-            if not lst and block:
-                continue
-            if lst:
-                busy.append(lst)
-            read.update(lst)
-            cw_sum = tile_dist(h, sv, lst, count, vec, grid, out)
-            if block == 0:
-                out[N] = cw_sum
-        lists.append([x for b in rng.permutation(len(busy)) for x in busy[b]])
-        written = out != -7
-        dist[written] = np.where(dist[written] == -7, 0,
-                                 dist[written]) + out[written]
-    assert all(sorted(x) == sorted(lists[0]) for x in lists)
-    st[P.LIST] += len(lists[0])
-    return dist, sorted(read), lists[0]
-
-
 def member_d(x, dist, s, cw_sum):
     """csrc/phase_a.cu:member_d: (d, stamp, slot) of member x."""
     frac = np.float64(dist[x]) / (s["mag"][x] + cw_sum)
@@ -553,20 +501,12 @@ def least_d(slots, dist, s, cw_sum, threads, rng, stamp_first):
     return combine(parts, lambda a, b: d_op(a, b, stamp_first), rng)
 
 
-def model_mean_argmin(st, s, dist, lst, grid, rng, stamp_first=True):
-    """pa_mean_argmin (under a mesh): one block over the st[LIST] members
-    that pa_member_dist listed; the least (d, stamp, slot) becomes
-    st[LAST], and the list is emptied."""
-    assert st[P.LIST] == len(lst) == st[P.COUNT]
-    st[P.LAST] = least_d(lst, dist, s, np.float64(dist[-1]),
-                         grid["threads"], rng, stamp_first)[2]
-    st[P.LIST] = 0
-
-
 def model_move(st, s, c, h, sv, grid, rng, stamp_first=True):
-    """pa_move on one rank's rows h: -> (dist as model_member_dist gives it,
-    the slots whose rows it read). The blocks of pa_member_dist's tiles
-    that hold a member (no other block draws or writes anything) each draw
+    """pa_move on the rows h: -> (dist with -7 where the kernel writes
+    nothing, the slots whose rows it read). A block takes a tile of owners
+    (tile_members) and computes its members' distances (tile_dist); the
+    blocks that hold a member (no other block draws or writes anything) each
+    draw
     a partial's index from st[MOVE]'s high field, divide the whole mean
     (sum cw), serve their members and reduce their own least (d, stamp,
     slot) to that partial, then add their member count to st[MOVE]'s low
@@ -579,7 +519,8 @@ def model_move(st, s, c, h, sv, grid, rng, stamp_first=True):
     assert st[P.MOVE] == 0
     count = np.float64(st[P.COUNT])
     dist = np.full(N + 1, -7, np.int64)
-    vec = shard_pieces([h])[0]
+    width = h.dtype.itemsize
+    vec = piece_bytes(0, h.shape[1] * width, h.shape[1] * width, width)
     busy = []
     for block in range(owner_tiles(N, grid)):
         lst = tile_members(s["owner"], c, block, grid, rng)
@@ -633,11 +574,10 @@ def numpy_slots(sl):
     return {k: getattr(sl, k).numpy().copy() for k in keys}
 
 
-def model_next(st, s, shards, sumvecs, center_slot, cmax):
+def model_next(st, s, h, sv, center_slot, cmax):
     """pa_next: one block, whose threads all read st before thread 0
     writes it; where a center begins, the block's threads write the seed's
-    row into sumvec (each shard's), a count each. Nothing once st[DONE] is
-    set."""
+    row into sumvec, a count each. Nothing once st[DONE] is set."""
     N = s["active"].shape[0]
     if st[P.DONE]:
         return
@@ -646,8 +586,7 @@ def model_next(st, s, shards, sumvecs, center_slot, cmax):
     seed = best if best < N else int(st[P.LIVE])
     stop = ends and (seed >= N or c + 1 >= cmax)
     if ends and not stop:
-        for h, sv in zip(shards, sumvecs):
-            sv[:] = h[seed]
+        sv[:] = h[seed]
     st[P.ITERS] += 1
     if not ends:
         st[P.T] = t
@@ -663,24 +602,18 @@ def model_next(st, s, shards, sumvecs, center_slot, cmax):
     st[P.LAST], st[P.COUNT], st[P.T] = seed, 1, t + 1
 
 
-def lockstep(ps, bv, params, sim, n_shards=1, grid=SMALL, seed=0,
-             least_slot=True, stamp_first=True, fused=None):
-    """Phase A driven as accumulate_device drives it on one rank, each step
-    by the plain _Slots' chain and by the model, every value the next step
-    reads compared; the move as the chain's move_plain against pa_move's
-    model (fused, the default on one shard) or as the mesh path's
-    pa_member_dist and pa_mean_argmin against theirs (the default on
-    several), then pa_next's plain step against its model, until the done
-    flag. -> (center slots, owner, stamp, slots, record) where record
-    counts empty windows, ties and iterations."""
-    fused = n_shards == 1 if fused is None else fused
-    assert not (fused and n_shards > 1)
+def lockstep(ps, bv, params, sim, grid=SMALL, seed=0, least_slot=True,
+             stamp_first=True):
+    """Phase A driven as accumulate_device drives it, each step by the
+    plain _Slots' chain and by the model, every value the next step reads
+    compared (the move as the chain's move_plain against pa_move's model),
+    until the done flag. -> (center slots, owner, stamp, slots, record)
+    where record counts empty windows, ties and iterations."""
     rng = np.random.default_rng(seed)
     sl = A._Slots(ps, bv, params, sim, plain=True)
-    N, step = sl.N, sl.step
+    N = sl.N
     s = numpy_slots(sl)
-    storage = ps.hist_dev[torch.as_tensor(sl.point)].numpy()
-    shards = np.array_split(storage, n_shards, axis=1)
+    h = ps.hist_dev[torch.as_tensor(sl.point)].numpy()
     spec, coef = sl.model.spec.numpy(), sl.model.coef.numpy()
     with_dot = sl.model.with_dot
     msums = np.zeros((2 if with_dot else 1, N), np.int64)
@@ -692,15 +625,14 @@ def lockstep(ps, bv, params, sim, n_shards=1, grid=SMALL, seed=0,
             np.testing.assert_array_equal(getattr(sl, k).numpy(), s[k])
         for a, b in ((0, P.COUNT + 1), (P.DONE, P.T + 1)):
             np.testing.assert_array_equal(sl.st.numpy()[a: b], st[a: b])
-        np.testing.assert_array_equal(np.concatenate(sumvecs),
-                                      sl.sumvec.numpy())
+        np.testing.assert_array_equal(sv, sl.sumvec.numpy())
 
     sl.active[:1] = False
     sl.begin(0, 0, 0)
     st = sl.st.numpy().copy()
     s["active"][0] = False
     s["owner"][0] = s["stamp"][0] = 0
-    sumvecs = [h[0].astype(np.int64) for h in shards]
+    sv = h[0].astype(np.int64)
     while not st[P.DONE]:
         sl.window()
         model_window(st, s["active"], s["ranges"], grid, seed % 16)
@@ -709,7 +641,7 @@ def lockstep(ps, bv, params, sim, n_shards=1, grid=SMALL, seed=0,
         rec.setdefault("first_window", (w0, w1))
         rec["empty"] += int(not (s["active"][max(w0, 0): w1 + 1]).any())
         sl.sweep()
-        read = model_sums(st, s, shards, msums, with_dot, grid)
+        read = model_sums(st, s, [h], msums, with_dot, grid)
         live = [x for x in range(max(w0, 0), min(w1, N - 1) + 1)
                 if s["active"][x]]
         assert read == live
@@ -720,38 +652,25 @@ def lockstep(ps, bv, params, sim, n_shards=1, grid=SMALL, seed=0,
             f1_live == f1_live.max()) > 1)
         c = int(st[P.C])
         sl.absorb_step()
-        model_absorb(st, s, msums, spec, coef, with_dot, shards, sumvecs,
-                     c, int(st[P.T]), grid, rng, least_slot)
+        model_absorb(st, s, msums, spec, coef, with_dot, h, sv, c,
+                     int(st[P.T]), grid, rng, least_slot)
         same_state()
         rec["iters"] += 1
         if st[P.NPOS]:
-            if fused:
-                sl.move(None)
-                mdist, read = model_move(st, s, c, shards[0], sumvecs[0],
-                                         grid, rng, stamp_first)
-            else:
-                step.member_dist(sl.st, sl.owner, sl.h, sl.sumvec, sl.dist,
-                                 sl.part)()
-                step.mean_argmin(sl.st, sl.dist, sl.mag, sl.owner, sl.stamp,
-                                 sl.part)()
-                mdist, read, lst = model_member_dist(st, s, c, shards,
-                                                     sumvecs, grid, rng)
+            sl.move(None)
+            mdist, read = model_move(st, s, c, h, sv, grid, rng, stamp_first)
             members = np.flatnonzero(s["owner"] == c).tolist()
-            if not fused:
-                assert sorted(lst) == members
             assert read == members
             np.testing.assert_array_equal(mdist[members + [N]],
                                           sl.dist.numpy()[members + [N]])
             d = _d_of(sl, members)
             rec["d_ties"] += int(np.sum(d == d.min()) > 1)
-            if not fused:
-                model_mean_argmin(st, s, mdist, lst, grid, rng, stamp_first)
-            assert not st[P.TICKET: P.LIST + 1].any()
+            assert not st[P.TICKET: P.MOVE + 1].any()
         else:
             sl.move(None)               # a no-op: nothing absorbed
         same_state()
         sl.next_step()
-        model_next(st, s, shards, sumvecs, center_slot, N + 1)
+        model_next(st, s, h, sv, center_slot, N + 1)
         same_state()
         np.testing.assert_array_equal(sl.center_slot.numpy(), center_slot)
     assert st[P.ITERS] == rec["iters"] and st[P.MEMBERS] == N
@@ -855,18 +774,13 @@ def _edge_case(name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_model_equals_plain_steps(name, grid):
     """Each step's model against its plain step, iteration by iteration,
-    the move by pa_move's model; on the SMALL grid by the mesh path's
-    pa_member_dist and pa_mean_argmin too."""
+    the move by pa_move's model."""
     ps, params, sim = _edge_case(name)
     bv = port_bv(ps, 7)
     got = lockstep(ps, bv, params, sim, grid=SMALL if grid == "small"
                    else OWN, seed=len(name))
     want = listed(A.accumulate_device(ps, port_bv(ps, 7), params, sim))
     assert centers_of(*got[:4]) == want
-    if grid == "small":
-        mesh = lockstep(ps, port_bv(ps, 7), params, sim, seed=len(name),
-                        fused=False)
-        assert centers_of(*mesh[:4]) == want
     rec = got[4]
     assert rec["empty"] >= 1            # at least the last center's window
     assert rec["iters"] > len(want)
@@ -884,15 +798,6 @@ def test_planted_case_ties_and_lone_read():
     w0, w1 = rec["first_window"]
     assert point[0] == ps.n - 1 and lens[1] > int(lens[0] / sim)
     assert 1 <= w0 <= w1
-
-
-@pytest.mark.parametrize("n_shards", [2, 3])
-@pytest.mark.parametrize("name", ["edge_0.97_strict", "planted_0.90"])
-def test_model_feature_shards_equal_plain_steps(name, n_shards):
-    ps, params, sim = _edge_case(name)
-    got = lockstep(ps, port_bv(ps, 7), params, sim, n_shards=n_shards)
-    want = listed(A.accumulate_device(ps, port_bv(ps, 7), params, sim))
-    assert centers_of(*got[:4]) == want
 
 
 def test_model_with_the_f1_tie_rule_turned_around_disagrees():
@@ -918,10 +823,8 @@ def move_case(n=40, c=2, seed=4):
     return rows, owner, stamp
 
 
-def move_models(rows, owner, stamp, c, count, grid, stamp_first, fused,
-                seed=0):
-    """st[LAST] and dist by pa_move's model (fused) or by pa_member_dist's
-    and pa_mean_argmin's."""
+def move_models(rows, owner, stamp, c, count, grid, stamp_first, seed=0):
+    """st[LAST] and dist by pa_move's model."""
     rng = np.random.default_rng(seed)
     n = owner.shape[0]
     s = {"owner": owner, "stamp": stamp,
@@ -929,11 +832,7 @@ def move_models(rows, owner, stamp, c, count, grid, stamp_first, fused,
     sv = rows[owner == c].astype(np.int64).sum(0)
     st = P.new_state(n, "cpu")[0].numpy().copy()
     st[P.COUNT] = count
-    if fused:
-        dist, _ = model_move(st, s, c, rows, sv, grid, rng, stamp_first)
-    else:
-        dist, _, lst = model_member_dist(st, s, c, [rows], [sv], grid, rng)
-        model_mean_argmin(st, s, dist, lst, grid, rng, stamp_first)
+    dist, _ = model_move(st, s, c, rows, sv, grid, rng, stamp_first)
     return int(st[P.LAST]), dist
 
 
@@ -952,15 +851,13 @@ def plain_move(rows, owner, stamp, c, count):
 
 
 @pytest.mark.parametrize("grid", ["small", "own"])
-@pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("stamp_first", [True, False])
-def test_mean_argmin_tie_goes_to_the_least_stamp(stamp_first, fused, grid):
+def test_mean_argmin_tie_goes_to_the_least_stamp(stamp_first, grid):
     """Members 1, 20 and 35 of center 2 tie in d (the same row and mass)
     across three blocks; slot 1 was absorbed last: the plain step takes
-    slot 20 (least stamp, then slot), as pa_move's model and the mesh
-    path's do in any block order, and a copy that ranks by slot alone
-    takes slot 1. The argmin of the first plain step, on distances given,
-    also takes the least stamp."""
+    slot 20 (least stamp, then slot), as pa_move's model does in any block
+    order, and a copy that ranks by slot alone takes slot 1. move_plain's
+    argmin, on distances given, also takes the least stamp."""
     rows, owner, stamp = move_case()
     members = np.flatnonzero(owner == 2).tolist() + [owner.shape[0]]
     want, want_dist = plain_move(rows, owner, stamp, 2, 4)
@@ -968,39 +865,35 @@ def test_mean_argmin_tie_goes_to_the_least_stamp(stamp_first, fused, grid):
     for seed in range(4):
         got, dist = move_models(rows, owner, stamp, 2, 4,
                                 SMALL if grid == "small" else OWN,
-                                stamp_first, fused, seed)
+                                stamp_first, seed)
         np.testing.assert_array_equal(dist[members], want_dist[members])
         assert (got == 20) == stamp_first and (got == 1) != stamp_first
     n = 8
     owner = torch.tensor([0, 2, 1, 2, 2, 0, 2, 1])
     stamp = torch.tensor([1, 9, 2, 5, 3, 1, 3, 4])
     dist = torch.tensor([4, 50, 4, 40, 50, 4, 50, 4, 30])
-    st, part = P.new_state(n, "cpu")
+    st, _ = P.new_state(n, "cpu")
     st[P.C] = 2
-    P.mean_argmin(st, dist, torch.full((n,), 200.0, dtype=torch.float64),
-                  owner, stamp, part)
-    assert int(st[P.LAST]) == 4
+    assert int(P._mean_argmin(st, dist, torch.full(
+        (n,), 200.0, dtype=torch.float64), owner, stamp)) == 4
 
 
-@pytest.mark.parametrize("fused", [True, False])
-def test_move_of_a_lone_member(fused):
+def test_move_of_a_lone_member():
     """A center whose only member is itself: it stays, on both grids."""
     rows, owner, stamp = move_case()
     owner[owner == 2] = 0
     owner[33] = 2
     assert plain_move(rows, owner, stamp, 2, 1)[0] == 33
     for grid in (SMALL, OWN):
-        assert move_models(rows, owner, stamp, 2, 1, grid, True,
-                           fused)[0] == 33
+        assert move_models(rows, owner, stamp, 2, 1, grid, True)[0] == 33
 
 
-@pytest.mark.parametrize("fused", [True, False])
-def test_move_models_need_the_member_count(fused):
+def test_move_models_need_the_member_count():
     """st[COUNT] one off the members' number: no block of pa_move combines
-    (its model fails), and pa_mean_argmin's list length disagrees."""
+    (its model fails)."""
     rows, owner, stamp = move_case()
     with pytest.raises(AssertionError):
-        move_models(rows, owner, stamp, 2, 5, SMALL, True, fused)
+        move_models(rows, owner, stamp, 2, 5, SMALL, True)
 
 
 @pytest.fixture(scope="module", params=sorted(CORPORA))
@@ -1022,7 +915,7 @@ def test_model_phase_equals_jax(species):
         jbv.insert(i, int(jps.lengths[i]))
     jbv.insert_finalize()
     want = listed(accumulate_device(jps, jbv, jparams, 0.90))
-    got = lockstep(ps, port_bv(ps), params, 0.90, n_shards=2)
+    got = lockstep(ps, port_bv(ps), params, 0.90)
     assert centers_of(*got[:4]) == want
     assert listed(A.accumulate_device(ps, port_bv(ps), params, 0.90,
                                       plain=False)) == want
@@ -1040,7 +933,7 @@ def test_wrappers_on_the_cpu_equal_plain_path(name):
 
 
 # pa_sums on rows at its pieces' edges: (V, dtype, counts drawn from,
-# column slices as ranks' [start, stop)), against sums_plain
+# column slices [start, stop), a launch each), against sums_plain
 SUMS_ROWS = {
     "k1_int8": (4, np.int8, np.arange(128), None),
     "int8_0_1_127": (256, np.int8, np.array([0, 1, 127]), None),
@@ -1086,7 +979,7 @@ def test_model_sums_pieces_equal_plain(case, grid):
 
 
 def test_piece_bytes_of_the_main_path_and_its_slices():
-    """16-byte pieces for the k-mer path's rows (256 int8 counts); a rank's
+    """16-byte pieces for the k-mer path's rows (256 int8 counts); a column
     slice at an odd column takes single bytes, at an even one 2-byte
     pieces; 4 int8 counts (k = 1) one 4-byte piece."""
     assert piece_bytes(0, 256, 256, 1) == 16
@@ -1121,7 +1014,7 @@ def test_packed_classifier_equals_scorer():
     supported single."""
     hist, mag, sq, lens, _ = toy_model(n=64, seed=5)
     params = all_singles_params()
-    model = P.Model(params, hist.shape[1], "cpu")
+    model = CL.Model(params, hist.shape[1], "cpu")
     assert model.with_dot
     spec, coef = model.spec.numpy(), model.coef.numpy()
     h = torch.as_tensor(hist.astype(np.int64))
@@ -1149,11 +1042,11 @@ def test_model_takes_distinct_singles_only():
     kMaxSingles registers: Model refuses a single flag given twice (a
     trained model never has one: Feature.add_feature adds each once)."""
     params = all_singles_params()
-    assert len(params.singles) == P.MAX_SINGLES
-    P.Model(params, 256, "cpu")
+    assert len(params.singles) == CL.MAX_SINGLES
+    CL.Model(params, 256, "cpu")
     params.singles = params.singles + params.singles[:1]
     with pytest.raises(ValueError):
-        P.Model(params, 256, "cpu")
+        CL.Model(params, 256, "cpu")
 
 
 # -- pa_window's table against window_plain ----------------------------------
@@ -1279,7 +1172,7 @@ def test_source_constants_match_the_wrappers():
     assert const("kBlocks") == P.BLOCKS
     assert const("kPartials") == P.PARTIALS
     assert const("kThreads") == P.THREADS
-    assert const("kMaxSingles") == P.MAX_SINGLES
+    assert const("kMaxSingles") == CL.MAX_SINGLES
     assert const("kPieceBytes") == P.PIECE_BYTES
     assert const("kUnroll") == P.SUMS_UNROLL
     assert const("kWindowWarps") == P.WINDOW_WARPS
@@ -1291,7 +1184,7 @@ def test_source_constants_match_the_wrappers():
                        ("kLast", P.LAST), ("kLive", P.LIVE), ("kW0", P.W0),
                        ("kW1", P.W1), ("kCount", P.COUNT), ("kTail", P.TAIL),
                        ("kTicket", P.TICKET), ("kMove", P.MOVE),
-                       ("kList", P.LIST), ("kDone", P.DONE),
+                       ("kDone", P.DONE),
                        ("kIters", P.ITERS), ("kC", P.C),
                        ("kMembers", P.MEMBERS), ("kT", P.T),
                        ("kMoveShift", P.MOVE_SHIFT),
@@ -1310,7 +1203,7 @@ def test_source_constants_match_the_wrappers():
     assert P.T < P.STATE_LEN
     # pa_move's partials fit part at every size: three a busy tile
     for n in (1, 1023, 1024, 1025, 10 ** 6):
-        assert 3 * P.owner_tiles(n) <= P.part_len(n) - (n + 1) // 2
-    assert set(P.SUPPORTED) == {F.FEAT_LD, F.FEAT_MANHATTAN,
+        assert 3 * P.owner_tiles(n) <= P.part_len(n)
+    assert set(CL.SUPPORTED) == {F.FEAT_LD, F.FEAT_MANHATTAN,
                                 F.FEAT_INTERSECTION, F.FEAT_PEARSON,
                                 F.FEAT_SIMRATIO, F.FEAT_KULCZYNSKI2}

@@ -10,7 +10,7 @@ and its reductions:
             shared memory, or a small budget); a thread a (member, offset)
             pair in any order, man and dot over the whole row (32-bit
             partial sums for int8 counts, checked), the float64 classifier
-            read from ops/phase_a.Model's packed arrays, the bit into the
+            read from ops/classifier.Model's packed arrays, the bit into the
             member's word and, staged, the member's bit into its center's
             mask; then staged, each center of the span with a positive adds
             its masked members' rows (32-bit column sums for int8 and int16
@@ -68,8 +68,8 @@ import torch
 
 from meshclust_tpu_torch import _ext
 from meshclust_tpu_torch.core.classify import DeviceBackend, HostBackend
-from meshclust_tpu_torch.core.meanshift import _DBL_MIN
 from meshclust_tpu_torch.ops import phase_b as PB
+from meshclust_tpu_torch.ops.classifier import DBL_MIN
 from test_torch_device_backend import host_scores, toy_model, toy_points
 
 torch.set_num_threads(1)
@@ -483,7 +483,7 @@ def merge_block(s, b, per, ahead, lanes, shared, rng, publish_first):
     for i in rng.permutation(list(own)):
         i = int(i)
         ci, vi = staged[i]
-        best = [(_DBL_MIN, delta)] * lanes       # a lane's (f1, offset)
+        best = [(DBL_MIN, delta)] * lanes       # a lane's (f1, offset)
         for o0 in range(0, delta, lanes):
             for lane in range(min(lanes, delta - o0)):
                 oi = o0 + lane
@@ -906,7 +906,7 @@ def test_source_constants_match_the_wrappers():
         SMALL["lanes"]
     assert int(const("kMergeLanesLarge")) == MERGE_LANES_LARGE
     assert int(const("kPieceBytes")) == PIECE_BYTES
-    assert float(const("kDblMin")) == _DBL_MIN
+    assert float(const("kDblMin")) == DBL_MIN
     assert src.count("(2 * delta + 1 + 31) / 32") == 1
     for delta in (0, 5, 15, 16, 40):
         assert PB.words(delta) == (2 * delta + 1 + 31) // 32

@@ -131,15 +131,17 @@ def phase_b(cases: list) -> list:
 
 
 def phase_a(cases: list) -> list:
-    """accumulate_device over the mesh, on its device, for each case
-    (arrays, params, bin_size, sim): (center, members) lists, counters,
-    scalar reads and the Phase A kernels' launches."""
+    """accumulate_device given the run's mesh (none on one rank), on its
+    device, for each case (arrays, params, bin_size, sim): (center,
+    members) lists, counters, scalar reads and the Phase A kernels'
+    launches."""
     from meshclust_tpu_torch import _ext
     from meshclust_tpu_torch.core.accumulate_device import accumulate_device
     from meshclust_tpu_torch.core.bvec import BVec
+    mesh = dist.get_mesh()
     out = []
     for arrays, params, bin_size, sim in cases:
-        ps = _points(arrays, dist.get_mesh().device)
+        ps = _points(arrays, "cpu" if mesh is None else mesh.device)
         bv = BVec(ps.lengths.copy(), bin_size)
         for i in range(ps.n):
             bv.insert(i, int(ps.lengths[i]))
@@ -147,7 +149,7 @@ def phase_a(cases: list) -> list:
         perf.reset()
         _ext.reset_launches()
         centers, reads = scalar_reads(lambda: accumulate_device(
-            ps, bv, params, sim, mesh=dist.get_mesh()))
+            ps, bv, params, sim, mesh=mesh))
         out.append({"centers": [(c.center, list(c.members))
                                 for c in centers],
                     "reads": reads, "counters": perf.counters(),
