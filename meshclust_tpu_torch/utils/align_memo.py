@@ -10,7 +10,7 @@ the centers, as PREFIX.memo.json, under the centers' fingerprint, and
 resumes the centers only when the memo loads too.
 
 Format: JSON like utils/checkpoint.py, with the pair keys (lo * n + hi,
-as _PairMemo keys them) and their identities, sorted by key.
+as utils/pair_memo.PairMemo keys them) and their identities, sorted by key.
 """
 from __future__ import annotations
 
@@ -26,11 +26,11 @@ _VERSION = 1
 
 
 def _arrays(backend, n: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(keys, vals) of the backend's memo: AlignBackend's sorted arrays or
-    HostBackend's (min, max) -> identity dict."""
+    """(keys, vals) of the backend's memo, sorted by key: AlignBackend's
+    PairMemo or HostBackend's (min, max) -> identity dict."""
     memo = getattr(backend, "memo", None)
     if memo is not None:
-        return memo.keys, memo.vals
+        return memo.export()
     cache = backend._align_cache
     keys = np.asarray([a * n + b for a, b in cache], np.int64)
     vals = np.asarray(list(cache.values()), np.float64)
@@ -41,7 +41,7 @@ def _arrays(backend, n: int) -> Tuple[np.ndarray, np.ndarray]:
 def _restore(backend, keys: np.ndarray, vals: np.ndarray, n: int) -> None:
     memo = getattr(backend, "memo", None)
     if memo is not None:
-        memo.keys, memo.vals = keys, vals
+        memo.load(keys, vals)
         return
     backend._align_cache.update(
         {(int(k) // n, int(k) % n): float(v) for k, v in zip(keys, vals)})

@@ -129,6 +129,44 @@ def test_resumed_run_equals_uninterrupted(mode, tmp_path):
     assert outs == [want] * len(outs)
 
 
+@pytest.mark.parametrize("reader", ["native", "numpy"])
+def test_align_memo_file_same_from_either_memo(reader, tmp_path,
+                                               monkeypatch):
+    """An align-mode run writes PREFIX.memo.json byte for byte the same
+    (format version 1) whether its memo is the native hash table or the
+    numpy fallback (MESHCLUST_NATIVE=0), and a run of either kind resumes
+    from the other's files through PairMemo.load, with the memo it loaded
+    and the same CLSTR."""
+    fasta = write_corpus(tmp_path / "c.fasta", 4, False, n_species=3, per=8,
+                         L=150)
+    outs, memos = [], []
+    for kind in ("native", "numpy"):
+        monkeypatch.setenv("MESHCLUST_NATIVE", "1" if kind == "native"
+                           else "0")
+        prefix = str(tmp_path / kind)
+        out, phases, res = run_port(fasta, str(tmp_path / f"{kind}.clstr"),
+                                    prefix, **ALIGN)
+        assert "accumulate" in phases
+        assert (res["backend"].memo._h is not None) == (kind == "native")
+        outs.append(out)
+        memos.append(_read(prefix + ".memo.json"))
+    assert memos[0] == memos[1] and outs[0] == outs[1]
+    blob = json.loads(memos[0])
+    assert blob["version"] == 1 and len(blob["keys"]) > 0
+    monkeypatch.setenv("MESHCLUST_NATIVE", "1" if reader == "native"
+                       else "0")
+    writer = "numpy" if reader == "native" else "native"
+    out, phases, res = run_port(fasta, str(tmp_path / "resumed.clstr"),
+                                str(tmp_path / writer), **ALIGN)
+    assert "train" not in phases and "accumulate" not in phases
+    memo = res["backend"].memo
+    assert (memo._h is not None) == (reader == "native")
+    # Phase B adds its misses to what was loaded
+    vals, found = memo.lookup(np.asarray(blob["keys"], np.int64))
+    assert found.all() and vals.tolist() == blob["vals"]
+    assert out == outs[0]
+
+
 def test_mismatched_checkpoint_does_not_load(corpus, tmp_path):
     d, fasta = corpus
     prefix = str(tmp_path / "ck")

@@ -39,7 +39,9 @@ COPIED_FILES = [
 # (port module, original module, qualified name)
 COPIED_OBJECTS = [
     ("core.classify", "core.classify", "HostBackend"),
-    ("core.classify", "core.classify", "_PairMemo"),
+    # _PairMemo is no copy: the port's is a hash table
+    # (utils/pair_memo.py), held to the original's results by
+    # tests/test_torch_pair_memo.py.
     ("core.classify", "core.classify", "AlignBackend"),
     ("core.points", "core.points", "_fma_1_minus_sq"),
     ("core.points", "core.points", "PointSet.distance"),
